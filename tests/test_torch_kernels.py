@@ -1,0 +1,114 @@
+"""The plain versions of the port's kernels (tstar_tpu_torch/kernels) against
+the reference's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held here
+against the JAX Pallas kernels run the way the reference's own tests run
+them (``interpret=True``).  Inputs come from numpy with fixed seeds.
+
+Tolerances: f32 cases differ only by summation order (atol 2e-5, as the
+reference's kernel tests use against their XLA references); bf16 outputs are
+rounded to bf16 (8 bits of mantissa, ~4e-3 relative), so a 1-ulp difference
+from a different summation order needs ~2e-2 at these magnitudes.
+
+The kernels themselves are held against these plain versions on the card by
+``tests/test_torch_cuda_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tstar_tpu.kernels.attention import fused_mha_from_qkv as jax_mha
+from tstar_tpu.kernels.layernorm import fused_layernorm as jax_ln
+from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
+from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# ---- K1: fused MHA -------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,heads", [(2, 80, 4), (1, 577, 2)])
+def test_mha_plain_matches_pallas_f32(b, s, heads):
+    rng = np.random.default_rng(0)
+    qkv = rng.normal(size=(b, s, 3 * heads * 64)).astype(np.float32)
+    want = np.asarray(jax_mha(jnp.asarray(qkv), heads, interpret=True))
+    got = fused_mha_from_qkv(_t(qkv), heads)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5)
+
+
+def test_mha_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(1)
+    qkv = rng.normal(size=(2, 80, 3 * 4 * 64)).astype(np.float32)
+    want = jax_mha(jnp.asarray(qkv, jnp.bfloat16), 4, interpret=True)
+    got = fused_mha_from_qkv(_t(qkv, torch.bfloat16), 4)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=2e-2)
+
+
+# ---- K2: patchify + patch-embed matmul ------------------------------------
+
+@pytest.mark.parametrize("b,hw,p,c,d", [(2, 64, 16, 3, 32), (1, 96, 32, 3, 128)])
+def test_patch_plain_matches_pallas_f32(b, hw, p, c, d):
+    rng = np.random.default_rng(2)
+    px = rng.normal(size=(b, hw, hw, c)).astype(np.float32)
+    w = (rng.normal(size=(p, p, c, d)) * 0.05).astype(np.float32)
+    want = np.asarray(jax_patch(jnp.asarray(px), jnp.asarray(w), interpret=True))
+    got = patch_embed_matmul(_t(px), _t(w))
+    assert got.shape == (b, (hw // p) ** 2, d)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5)
+
+
+def test_patch_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(3)
+    px = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    w = (rng.normal(size=(32, 32, 3, 128)) * 0.05).astype(np.float32)
+    want = jax_patch(
+        jnp.asarray(px, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), interpret=True
+    )
+    got = patch_embed_matmul(_t(px, torch.bfloat16), _t(w, torch.bfloat16))
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=5e-2, rtol=2e-2)
+
+
+# ---- K3: layernorm --------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(33, 128), (3, 97, 768)])
+def test_layernorm_plain_matches_pallas_f32(shape):
+    rng = np.random.default_rng(4)
+    d = shape[-1]
+    x = (rng.normal(size=shape) * 3 + 1).astype(np.float32)
+    s, b = rng.normal(size=(2, d)).astype(np.float32)
+    want = np.asarray(jax_ln(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), interpret=True))
+    got = fused_layernorm(_t(x), _t(s), _t(b))
+    np.testing.assert_allclose(_np(got), want, atol=2e-6, rtol=1e-6)
+
+
+def test_layernorm_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 577, 256)).astype(np.float32)
+    s, b = rng.normal(size=(2, 256)).astype(np.float32)
+    want = jax_ln(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s), jnp.asarray(b), interpret=True)
+    got = fused_layernorm(_t(x, torch.bfloat16), _t(s), _t(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=0.15, rtol=0.02)
+
+
+def test_cpu_wrappers_run_the_plain_versions():
+    """A CPU tensor never reaches a kernel: no launch is counted."""
+    reset_launch_counts()
+    fused_mha_from_qkv(torch.zeros(1, 8, 3 * 64), 1)
+    patch_embed_matmul(torch.zeros(1, 32, 32, 3), torch.zeros(16, 16, 3, 8))
+    fused_layernorm(torch.zeros(4, 8), torch.ones(8), torch.zeros(8))
+    assert launch_counts() == {
+        "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
+    }

@@ -1,0 +1,23 @@
+"""tstar_tpu_torch — the PyTorch + CUDA port of ``tstar_tpu``.
+
+The JAX package ``tstar_tpu`` stays the reference; this package mirrors its
+module layout (``ops/``, ``search/``, ``kernels/``, ``models/``, ``video/``,
+``framework/``) so each module has a counterpart of the same name.  Slice 1
+covers the single-video T* search with the OWL-ViT detector:
+
+    KeyframeSearcher.search() -> engine.run_search -> OwlVitScorer
+      -> resident FrameCache
+
+Every Pallas kernel on that path has a hand-written Hopper kernel beside a
+plain PyTorch version of the same math (``kernels/``).  On a CPU tensor a
+kernel wrapper runs the plain version; on a CUDA tensor it launches the
+kernel or raises.
+
+The package imports ``torch`` and never ``jax``; the only module of the JAX
+package it reads is the jax-free ``tstar_tpu.utils.config`` (for
+``SearchConfig``).
+"""
+
+__version__ = "0.1.0"
+
+from tstar_tpu.utils.config import SearchConfig  # noqa: F401

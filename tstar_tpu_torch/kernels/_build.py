@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels of ``tstar_tpu_torch/csrc``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The build runs at first use, into ``tstar_tpu_torch/_build/``
+(git-ignored), under a name keyed by the sources' hash, so an edited source
+never loads a stale library.  There is no fallback: a missing ``nvcc`` or a
+failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f"libtstar_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; returns its path.  The
+    compiler's register and shared-memory report (``-Xptxas -v``) is kept
+    beside it as ``<name>.ptxas.txt``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-o", str(tmp),
+        *[str(s) for s in sorted(CSRC.glob("*.cu"))],
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name in ("tstar_mha_bf16", "tstar_mha_f32"):
+            fn = getattr(lib, name)
+            # qkv, out, B, S, D, H, scale_log2e, stream
+            fn.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
+            fn.restype = ci
+        for name in ("tstar_patch_embed_bf16", "tstar_patch_embed_f32"):
+            fn = getattr(lib, name)
+            # pixels, kernel, out, B, H, W, C, p, D, stream
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        lib.tstar_error_string.argtypes = [ci]
+        lib.tstar_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if status != 0:
+        msg = load().tstar_error_string(status).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")

@@ -1,0 +1,157 @@
+"""CLIP-style pre-norm transformer blocks (port of ``tstar_tpu/models/transformer.py``).
+
+Layouts follow the reference: Dense kernels are (in, out), and the q/k/v
+projections run as ONE (D, 3D) matmul whose (B, S, 3D) output the fused
+attention kernel (K1) reads directly.  A module computes in the dtype of its
+parameters (``model.to(torch.bfloat16)`` for the card, float32 for parity
+tests).  LayerNorms go through K3 and unbiased self-attention through K1;
+the text tower's causal + padding bias takes plain masked softmax attention,
+as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS: Dict[str, Callable] = {"quick_gelu": quick_gelu}
+
+
+class Dense(nn.Module):
+    """``y = x @ kernel + bias`` with a (in, out) kernel, as flax's Dense."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.kernel)
+        return y if self.bias is None else y + self.bias
+
+
+def apply_layernorm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """LayerNorm in ``scale``'s dtype: f32 stats, ``use_fast_variance`` math
+    (K3 on a CUDA tensor, its plain version on a CPU tensor)."""
+    return fused_layernorm(x.to(scale.dtype).contiguous(), scale, bias, eps)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_layernorm(x, self.scale, self.bias, self.eps)
+
+
+def dot_product_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """(B, S, H, Dh) attention with an additive bias, as
+    ``jax.nn.dot_product_attention``: f32 logits and softmax, probs cast to
+    the value dtype for the AV product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, vh).permute(0, 2, 1, 3)
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with the fused (D, 3D) q|k|v projection."""
+
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        if d % num_heads:
+            raise ValueError(f"width {d} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.qkv_kernel = nn.Parameter(torch.empty(d, 3 * d))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * d))
+        self.out_proj = Dense(d, d)
+
+    def forward(
+        self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        d = x.shape[-1]
+        qkv = torch.matmul(x, self.qkv_kernel) + self.qkv_bias       # (B, S, 3D)
+        if attn_bias is None:
+            out = fused_mha_from_qkv(qkv, self.num_heads)
+        else:
+            q, k, v = (
+                t.reshape(*t.shape[:-1], self.num_heads, d // self.num_heads)
+                for t in qkv.split(d, dim=-1)
+            )
+            out = dot_product_attention(q, k, v, attn_bias).reshape(x.shape)
+        return self.out_proj(out)
+
+
+class TransformerMLP(nn.Module):
+    def __init__(self, d: int, intermediate_size: int, activation: str = "quick_gelu"):
+        super().__init__()
+        self.fc1 = Dense(d, intermediate_size)
+        self.fc2 = Dense(intermediate_size, d)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(ACTIVATIONS[self.activation](self.fc1(x)))
+
+
+class EncoderLayer(nn.Module):
+    """Pre-norm block: x += attn(ln1(x)); x += mlp(ln2(x))."""
+
+    def __init__(self, d, num_heads, intermediate_size, activation="quick_gelu", eps=1e-5):
+        super().__init__()
+        self.layer_norm1 = LayerNorm(d, eps)
+        self.self_attn = MultiHeadAttention(d, num_heads)
+        self.layer_norm2 = LayerNorm(d, eps)
+        self.mlp = TransformerMLP(d, intermediate_size, activation)
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
+        x = x + self.self_attn(self.layer_norm1(x), attn_bias)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_layers, d, num_heads, intermediate_size,
+                 activation="quick_gelu", eps=1e-5):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, num_heads, intermediate_size, activation, eps)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
+        for layer in self.layers:
+            x = layer(x, attn_bias)
+        return x
+
+
+def causal_bias(seq_len: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Additive causal mask (1, 1, S, S)."""
+    mask = torch.tril(torch.ones(seq_len, seq_len, dtype=torch.bool, device=device))
+    neg = torch.finfo(dtype).min
+    return torch.where(mask, 0.0, neg).to(dtype)[None, None]
+
+
+def padding_bias(attention_mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Additive key-padding mask (B, 1, 1, S) from a 0/1 mask (B, S)."""
+    neg = torch.finfo(dtype).min
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0, neg).to(dtype)

@@ -1,0 +1,176 @@
+"""Scorer backed by the OWL-ViT detector over a device-resident frame cache
+(port of ``tstar_tpu/search/detector_scorer.py``).
+
+Sampled seconds are gathered from the uint8 1-fps cache, packed into one
+grid image, scored by one detector forward, and the detections splatted back
+to per-frame confidences and class-presence masks.  Text prompts are encoded
+once when the scorer is built.
+
+Only the reference's default path is ported: bf16/f32 detector at its native
+size over a resident cache.  The quantized tower, the reduced verification
+size, the composed projection, the grid-embed and Pallas-preprocess kernels
+and streaming caches are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu_torch.kernels.image import build_detector_grid, build_verify_batch
+from tstar_tpu_torch.models.owlvit import OwlViTDetector, postprocess_detections
+from tstar_tpu_torch.ops.splat import splat_detections_to_cells
+
+
+@dataclasses.dataclass
+class OwlVitScorer:
+    cache: torch.Tensor          # (N_pad, ch, cw, 3) uint8 1-fps frame cache
+    model: OwlViTDetector
+    query_embeds: torch.Tensor   # (Q, proj_dim) text embeddings
+    query_mask: torch.Tensor     # (Q,) bool: real prompts
+    class_weights: torch.Tensor  # (Q,) f32: target 1.0 / cue 0.5 / pad 0.5
+    config: SearchConfig
+
+    @property
+    def num_classes(self) -> int:
+        return self.query_embeds.shape[-2]
+
+    @property
+    def detection_image_size(self) -> int:
+        return self.model.cfg.vision.image_size
+
+    @torch.no_grad()
+    def _detect(self, pixels: torch.Tensor):
+        feats = self.model.encode_image(pixels)
+        logits, boxes = self.model.predict(feats, self.query_embeds, self.query_mask)
+        size = self.detection_image_size
+        return postprocess_detections(logits, boxes, (size, size))
+
+    def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K,) seconds -> one grid image -> (conf (K,), presence (K, C))."""
+        cfg = self.config
+        grid_shape = (cfg.grid_rows, cfg.grid_cols)
+        size = self.detection_image_size
+        pixels = build_detector_grid(self.cache, secs, grid_shape, size, dtype=self.model.dtype)
+        scores, class_ids, boxes = self._detect(pixels)
+        keep = scores[0] > cfg.detector_threshold
+        conf_map, presence = splat_detections_to_cells(
+            boxes[0], scores[0], class_ids[0], keep, self.class_weights,
+            grid_shape=grid_shape, image_hw=(size, size),
+            num_classes=self.num_classes,
+        )
+        return conf_map.reshape(-1), presence
+
+    def score_verify(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(T,) seconds, each rescored alone at full detector size."""
+        pixels = build_verify_batch(
+            self.cache, secs, self.detection_image_size, dtype=self.model.dtype
+        )
+        return self._score_verify_pixels(pixels)
+
+    def _score_verify_pixels(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each image scored as a 1x1 grid: (conf (K,), presence (K, C)).
+
+        ``splat_detections_to_cells`` with one cell, batched over the K
+        images: every box lands in cell 0, so the cell max is the max over
+        all kept weighted scores (floored at the map's initial 0)."""
+        scores, class_ids, _ = self._detect(pixels)
+        keep = scores > self.config.detector_threshold
+        adjusted = scores * self.class_weights[class_ids]
+        vals = torch.where(keep, adjusted, torch.zeros_like(adjusted))
+        conf = vals.amax(dim=-1).clamp_min(0.0)
+        presence = torch.zeros(
+            scores.shape[0], self.num_classes, dtype=torch.int32, device=scores.device
+        ).scatter_reduce(1, class_ids, keep.to(torch.int32), reduce="amax")
+        return conf, presence > 0
+
+
+def build_prompt_batch(
+    target_objects: Sequence[str],
+    cue_objects: Sequence[str],
+    tokenizer,
+    config: SearchConfig,
+):
+    """Tokenize + pad the prompt set: targets first (weight 1.0), cues (0.5),
+    the ' ' padding prompt (0.5), then masked zero rows up to
+    ``config.max_objects``.  Target slot t of the engine's remaining mask is
+    class slot t.
+
+    Returns (ids (Q, S) int32, attention_mask (Q, S) int32, weights (Q,) f32).
+    """
+    n_targets = len(target_objects)
+    if n_targets > config.max_targets:
+        raise ValueError(
+            f"{n_targets} targets > max_targets={config.max_targets}; "
+            "raise SearchConfig.max_targets"
+        )
+    texts: List[str] = (
+        [t.strip() for t in target_objects] + [c.strip() for c in cue_objects] + [" "]
+    )
+    if len(texts) > config.max_objects:
+        raise ValueError(
+            f"{len(texts)} prompts > max_objects={config.max_objects}; "
+            "raise SearchConfig.max_objects"
+        )
+    ids, mask = tokenizer.encode_batch(texts)
+    q = config.max_objects
+    ids_pad = np.zeros((q, ids.shape[1]), np.int32)
+    mask_pad = np.zeros((q, ids.shape[1]), np.int32)
+    ids_pad[: len(texts)] = ids
+    mask_pad[: len(texts)] = mask
+    # padding rows attend to their first token so the text tower stays finite
+    mask_pad[len(texts):, 0] = 1
+    weights = np.full((q,), config.cue_weight, np.float32)
+    weights[:n_targets] = config.target_weight
+    return ids_pad, mask_pad, weights
+
+
+@torch.no_grad()
+def make_owlvit_scorer(
+    model: OwlViTDetector,
+    cache: torch.Tensor,
+    target_objects: Sequence[str],
+    cue_objects: Sequence[str],
+    tokenizer,
+    config: SearchConfig,
+) -> OwlVitScorer:
+    """Tokenize the prompts, encode them once, bind the cache and weights.
+
+    (The reference also takes a ``variables`` pytree; here the weights live
+    in the module.)  The cache must be on the model's device.  Options of
+    branches not ported yet (quantized detector, reduced verification size,
+    Pallas preprocessing) raise instead of being ignored.
+    """
+    if cache.device != model.device:
+        raise ValueError(f"cache on {cache.device}, model on {model.device}")
+    unported = {
+        "detector_quant": config.detector_quant is not None,
+        "verify_image_size": config.verify_image_size not in (
+            None, model.cfg.vision.image_size
+        ),
+        "use_pallas_preprocess": bool(config.use_pallas_preprocess),
+    }
+    if any(unported.values()):
+        raise NotImplementedError(
+            "SearchConfig options not ported yet: "
+            + ", ".join(f"{k}={getattr(config, k)!r}" for k, v in unported.items() if v)
+        )
+    ids_pad, mask_pad, weights = build_prompt_batch(
+        target_objects, cue_objects, tokenizer, config
+    )
+    device = model.device
+    query_embeds = model.encode_text(
+        torch.from_numpy(ids_pad).to(device), torch.from_numpy(mask_pad).to(device)
+    )
+    return OwlVitScorer(
+        cache=cache,
+        model=model,
+        query_embeds=query_embeds,
+        query_mask=torch.from_numpy(ids_pad[:, 0] > 0).to(device),
+        class_weights=torch.from_numpy(weights).to(device),
+        config=config,
+    )
