@@ -6,25 +6,42 @@ Phases (any failed check exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles the port's CUDA kernels from ``tstar_tpu_torch/csrc``;
   3. kernels: each hand-written kernel (K1 attention, K2 patch embed, K3
-     LayerNorm) against its plain PyTorch version at the main path's shapes,
-     bf16 and f32, with the max abs error, its tolerance, and CUDA-event
-     times of kernel and plain version;
+     LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul) against its plain
+     PyTorch version at the main paths' shapes, with the max abs error, its
+     tolerance (K4: exactly equal), CUDA-event times of kernel, plain
+     version and the one PyTorch call that computes the same function where
+     there is one (``library_ms``; K4 and K5 have none and get GEMM-only
+     yardsticks), and the bound the card sets for the same work;
   4. tower numerics: one 768^2 grid image through the full-width OWL-ViT B/32
      (seeded random weights) in bf16 on the card with the kernels, against
      the same weights in f32 on the CPU with the plain versions;
+  4b. int8 tower numerics: the same image through the int8 tower in bf16 on
+     the card (K4), against the bf16 tower on the card (per-patch feature
+     cosine) and the same int8 tower in f32 on the CPU (scores);
   5. the slice: ``initialize_heuristic('owl-vit-random')`` in bf16 on the card,
-     ``KeyframeSearcher.search()`` over a synthetic 600 s video; every kernel
-     must launch during the search.
+     ``KeyframeSearcher.search()`` over a synthetic 600 s video; K1, K2 and
+     K3 must launch during the search;
+  6. the detector knobs on the same search: ``detector_quant='int8'`` with
+     ``verify_image_size=512`` (K4), ``detector_quant='w8a16'``, and the bf16
+     tower with ``TSTAR_LN_MATMUL=force`` (K5); every kernel's launches must
+     equal its launches per forward times the forwards.
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from typing import Callable, Dict, Optional
+
+# NVIDIA H100 SXM, dense peaks from NVIDIA's data sheet: device memory rate,
+# tensor-core bf16 and int8 rates, and f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -55,81 +72,222 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(torch, card):
-    """Phase 3: every kernel against its plain version; returns summary rows."""
-    from tstar_tpu_torch.kernels import attention, layernorm, patch_matmul
+def bound_ms(n_bytes: float, n_ops: float, kind: str):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel call at one shape, with what it is held and timed against."""
+
+    kernel: str
+    shape: str
+    dtype: str
+    run: Callable            # the kernel's wrapper on card tensors
+    plain: Callable          # its plain PyTorch version, same inputs
+    check: Callable          # (got, plain result) -> (max abs err, ok, tolerance text)
+    n_bytes: float
+    n_ops: float
+    kind: str                # operand type of the operations: bf16 / int8 / f32
+    library: Optional[Callable] = None      # one PyTorch call, same function
+    yardsticks: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+
+
+def _close(atol, rtol, ref=None):
+    """Pass when |got - want| <= atol + rtol * |want| everywhere (``ref``
+    replaces the plain version as the reference when given)."""
+    def check(got, want, x=None):
+        want = (ref(x) if ref is not None else want).float()
+        diff = (got.float() - want).abs()
+        ok = bool((diff <= atol + rtol * want.abs()).all()) and bool(got.float().isfinite().all())
+        return diff.max().item(), ok, f"atol {atol:.0e} + rtol {rtol:.2e}*|ref|"
+    return check
+
+
+def kernel_cases(torch):
+    """Phase 3's cases: every kernel at every shape the main paths give it."""
+    from torch.nn import functional as F
+
+    from tstar_tpu_torch.kernels import attention, layernorm, ln_matmul, patch_matmul, quant_matmul
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    # Pass when |kernel - reference| <= atol + rtol * |reference| everywhere.
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = {bf16: "bf16", f32: "f32"}
     # bf16: the f32 results before the final rounding differ by summation
     # order only (~1e-6 relative), so the outputs differ by at most one bf16
     # ulp, which rtol = 2^-7 covers; K1's atol also covers a rounding flip of
     # one of its bf16 probabilities.  f32: summation order only.
     bf16_ulp = 2.0 ** -7
     tols = {
-        "K1": {torch.bfloat16: (1e-3, bf16_ulp), torch.float32: (1e-6, 1e-5)},
-        "K2": {torch.bfloat16: (1e-4, bf16_ulp), torch.float32: (1e-4, 1e-5)},
-        "K3": {torch.bfloat16: (1e-5, bf16_ulp), torch.float32: (1e-5, 1e-5)},
+        "K1": {bf16: (1e-3, bf16_ulp), f32: (1e-6, 1e-5)},
+        "K2": {bf16: (1e-4, bf16_ulp), f32: (1e-4, 1e-5)},
+        "K3": {bf16: (1e-5, bf16_ulp), f32: (1e-5, 1e-5)},
     }
-    cases = []   # (kernel, shape, input, kernel fn, plain fn, reference fn)
-    mha = lambda x: attention.fused_mha_from_qkv(x, 12)              # noqa: E731
-    mha_plain = lambda x: attention.fused_mha_from_qkv_plain(x, 12)  # noqa: E731
-    # B=1: the grid forward; B=8 / 16: the bucketed / wide verify forwards.
-    # S=385 keeps even f32 K/V resident in shared memory (the branch bf16
-    # takes at S=577); f32 at S=577 takes the tiled branch.
-    for b, s in ((1, 577), (8, 577), (16, 577), (2, 385)):
-        qkv = torch.randn(b, s, 3 * 768, generator=g, device=dev)
-        cases.append(("K1", f"B={b} S={s} 12x64", qkv, mha, mha_plain, mha_plain))
+    cases = []
+
+    # K1.  B=1: the grid forward; 8 / 16: the bucketed / wide verify forwards;
+    # S=257: verification at 512 pixels.  S=385 keeps even f32 K/V resident
+    # in shared memory (the branch bf16 takes at S=577); f32 at S=577 takes
+    # the tiled branch.
+    for b, s in ((1, 577), (8, 577), (16, 577), (16, 257), (2, 385)):
+        base = torch.randn(b, s, 3 * 768, generator=g, device=dev)
+        for dt in (bf16, f32):
+            qkv = base.to(dt)
+            q, k, v = (qkv[..., i * 768:(i + 1) * 768].view(b, s, 12, 64).transpose(1, 2)
+                       for i in range(3))
+            es = qkv.element_size()
+            cases.append(Case(
+                "K1", f"B={b} S={s} 12x64", names[dt],
+                run=lambda qkv=qkv: attention.fused_mha_from_qkv(qkv, 12),
+                plain=lambda qkv=qkv: attention.fused_mha_from_qkv_plain(qkv, 12),
+                check=_close(*tols["K1"][dt]),
+                n_bytes=qkv.numel() * es + b * s * 768 * es, n_ops=4 * b * 12 * s * s * 64,
+                kind=names[dt],
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            ))
+
+    # K2.  768^2 grid and verify images, 512^2 verification images.
     w32 = torch.randn(32, 32, 3, 768, generator=g, device=dev) * 0.02
-    w_patch = {torch.float32: w32, torch.bfloat16: w32.to(torch.bfloat16)}
+    for b, hw in ((1, 768), (8, 768), (16, 768), (16, 512)):
+        base = torch.randn(b, hw, hw, 3, generator=g, device=dev)
+        for dt in (bf16, f32):
+            px, w = base.to(dt), w32.to(dt)
+            x_nchw = px.permute(0, 3, 1, 2)            # a channels-last view
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            es = px.element_size()
+            p = (hw // 32) ** 2
 
-    def patch_ref(x):
-        # the plain version in f32 on the same (rounded) inputs, rounded once:
-        # cuBLAS's bf16 GEMM may itself reduce in reduced precision
-        w = w_patch[x.dtype]
-        return patch_matmul.patch_embed_matmul_plain(x.float(), w.float()).to(x.dtype)
+            def ref(x, px=px, w=w):
+                # the plain version in f32 on the same (rounded) inputs,
+                # rounded once: cuBLAS's bf16 GEMM may reduce in bf16
+                return patch_matmul.patch_embed_matmul_plain(px.float(), w.float()).to(px.dtype)
 
-    for b in (1, 8, 16):
-        px = torch.randn(b, 768, 768, 3, generator=g, device=dev)
-        cases.append(("K2", f"B={b} 768x768x3->768", px,
-                      lambda x: patch_matmul.patch_embed_matmul(x, w_patch[x.dtype]),
-                      lambda x: patch_matmul.patch_embed_matmul_plain(x, w_patch[x.dtype]),
-                      patch_ref))
+            cases.append(Case(
+                "K2", f"B={b} {hw}x{hw}x3->768", names[dt],
+                run=lambda px=px, w=w: patch_matmul.patch_embed_matmul(px, w),
+                plain=lambda px=px, w=w: patch_matmul.patch_embed_matmul_plain(px, w),
+                check=_close(*tols["K2"][dt], ref=ref),
+                n_bytes=(px.numel() + w.numel() + b * p * 768) * es,
+                n_ops=2 * b * p * 3072 * 768, kind=names[dt],
+                library=lambda x=x_nchw, w=w_oihw: torch.nn.functional.conv2d(x, w, stride=32),
+            ))
+
+    # K3.  577 / 8x577 / 16x577 rows of the vision tower, 256 of the text tower.
     for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512)):
-        x = torch.randn(rows, d, generator=g, device=dev) * 3 + 1
+        base = torch.randn(rows, d, generator=g, device=dev) * 3 + 1
         s = torch.randn(d, generator=g, device=dev)
         bias = torch.randn(d, generator=g, device=dev)
-        plain = lambda t, s=s, bias=bias: layernorm.fused_layernorm_plain(t, s, bias)  # noqa: E731
-        cases.append(("K3", f"{rows}x{d}", x,
-                      lambda t, s=s, bias=bias: layernorm.fused_layernorm(t, s, bias),
-                      plain, plain))
+        for dt in (bf16, f32):
+            x = base.to(dt)
+            s_dt, b_dt = s.to(dt), bias.to(dt)
+            es = x.element_size()
+            cases.append(Case(
+                "K3", f"{rows}x{d}", names[dt],
+                run=lambda x=x, s=s, bias=bias: layernorm.fused_layernorm(x, s, bias),
+                plain=lambda x=x, s=s, bias=bias: layernorm.fused_layernorm_plain(x, s, bias),
+                check=_close(*tols["K3"][dt]),
+                n_bytes=2 * rows * d * es + 2 * d * 4, n_ops=8 * rows * d, kind=names[dt],
+                library=lambda x=x, d=d, s_dt=s_dt, b_dt=b_dt: F.layer_norm(x, (d,), s_dt, b_dt, 1e-5),
+            ))
 
+    # K4.  The int8 tower's four dense layers at R = 577 (grid), 16 x 257
+    # (verify at 512) and 16 x 577 (wide verify).  Exactly equal.
+    def exact(got, want, x=None):
+        return (got.float() - want.float()).abs().max().item(), bool(torch.equal(got, want)), "exact"
+
+    layers = (("qkv", 768, 2304, f32, bf16), ("out_proj", 768, 768, bf16, bf16),
+              ("fc1", 768, 3072, f32, f32), ("fc2", 3072, 768, f32, bf16))
+    for rows in (577, 16 * 257, 16 * 577):
+        for name, k, n, xd, od in layers:
+            x = (torch.randn(rows, k, generator=g, device=dev) * 3).to(xd)
+            w = torch.randint(-127, 128, (k, n), generator=g, device=dev).to(torch.int8)
+            ws = torch.rand(n, generator=g, device=dev) * 1e-3
+            b = torch.randn(n, generator=g, device=dev) * 0.1
+            q, _ = quant_matmul.quantize_activation(x)
+            xb, wb, bb = x.to(bf16), w.to(bf16), b.to(bf16)
+            cases.append(Case(
+                "K4", f"{name} R={rows} {k}->{n}", f"{names[xd]}->{names[od]}",
+                run=lambda x=x, w=w, ws=ws, b=b, od=od: quant_matmul.w8a8_matmul(x, w, ws, b, od),
+                plain=lambda x=x, w=w, ws=ws, b=b, od=od: quant_matmul.w8a8_matmul_plain(x, w, ws, b, od),
+                check=exact,
+                n_bytes=rows * k * x.element_size() + k * n + 2 * n * 4
+                + rows * n * torch.empty((), dtype=od).element_size(),
+                n_ops=2 * rows * k * n, kind="int8",
+                yardsticks={
+                    "int_mm (int8 GEMM only)": lambda q=q, w=w: torch._int_mm(q, w),
+                    "addmm bf16 (GEMM + bias only)": lambda xb=xb, wb=wb, bb=bb: torch.addmm(bb, xb, wb),
+                },
+            ))
+
+    # K5.  ln1 -> qkv and ln2 -> fc1 at R = 577 and 16 x 577, bf16.
+    for rows in (577, 16 * 577):
+        for name, n in (("ln1->qkv", 2304), ("ln2->fc1", 3072)):
+            x = (torch.randn(1, rows, 768, generator=g, device=dev) * 3 + 1).to(bf16)
+            scale = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
+            lbias = 0.1 * torch.randn(768, generator=g, device=dev)
+            w = (torch.randn(768, n, generator=g, device=dev) * 0.036).to(bf16)
+            b = (0.1 * torch.randn(n, generator=g, device=dev)).to(bf16)
+            x2, s_b, lb_b = x[0], scale.to(bf16), lbias.to(bf16)
+
+            def within_bound(got, want, x=x, scale=scale, lbias=lbias, w=w, b=b):
+                bound = ln_matmul.bf16_error_bound(x, scale, lbias, w, b, 1e-5, want)
+                diff = (got.float() - want.float()).abs()
+                ok = bool((diff <= bound).all()) and bool(got.float().isfinite().all())
+                return diff.max().item(), ok, "bf16_error_bound (2 flips of h, 2 ulps)"
+
+            cases.append(Case(
+                "K5", f"{name} R={rows} 768->{n}", "bf16",
+                run=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul(x, scale, lbias, w, b, 1e-5),
+                plain=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul_plain(x, scale, lbias, w, b, 1e-5),
+                check=within_bound,
+                n_bytes=rows * 768 * 2 + 768 * n * 2 + 2 * 768 * 4 + n * 2 + rows * n * 2,
+                n_ops=2 * rows * 768 * n, kind="bf16",
+                yardsticks={
+                    "addmm bf16 (GEMM + bias only)": lambda x2=x2, w=w, b=b: torch.addmm(b, x2, w),
+                    "layer_norm + addmm (two calls)": lambda x2=x2, w=w, b=b, s_b=s_b, lb_b=lb_b: torch.addmm(
+                        b, F.layer_norm(x2, (768,), s_b, lb_b, 1e-5), w),
+                },
+            ))
+    return cases
+
+
+def phase_kernels(torch, card):
+    """Phase 3: every kernel against its plain version; returns summary rows."""
     rows_out = []
-    for name, shape, x32, kern, plain, ref in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            x = x32.to(dtype)
-            got = kern(x)
-            torch.cuda.synchronize()
-            want = ref(x).float()
-            diff = (got.float() - want).abs()
-            err = diff.max().item()
-            atol, rtol = tols[name][dtype]
-            ok = bool((diff <= atol + rtol * want.abs()).all()) and bool(
-                torch.isfinite(got.float()).all())
-            ms, plain_ms = cuda_ms(lambda: kern(x)), cuda_ms(lambda: plain(x))
-            dt = "bf16" if dtype == torch.bfloat16 else "f32"
-            log(f"[kernels] {name} {shape} {dt}: max_abs_err={err:.3e} "
-                f"tol=atol {atol:.0e} + rtol {rtol:.2e}*|ref| "
-                f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms  ({card}) {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"{name} {shape} {dt} disagrees with its plain version")
-            rows_out.append((name, shape, dt, err, ms, plain_ms))
+    for c in kernel_cases(torch):
+        got = c.run()
+        torch.cuda.synchronize()
+        want = c.plain()
+        err, ok, tol = c.check(got, want)
+        ms, plain_ms = cuda_ms(c.run), cuda_ms(c.plain)
+        lib_ms = cuda_ms(c.library) if c.library is not None else None
+        yard = {k: cuda_ms(fn) for k, fn in c.yardsticks.items()}
+        b_ms, b_by = bound_ms(c.n_bytes, c.n_ops, c.kind)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        extra = "".join(f" {k}={v:.4f} ms" for k, v in yard.items())
+        log(f"[kernels] {c.kernel} {c.shape} {c.dtype}: max_abs_err={err:.3e} tol={tol} "
+            f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={lib}{extra} "
+            f"bound={b_ms:.4f} ms ({b_by}: {c.n_bytes / 1e6:.2f} MB, {c.n_ops / 1e9:.3f} GOP) "
+            f"({card}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{c.kernel} {c.shape} {c.dtype} disagrees with its plain version")
+        rows_out.append({
+            "kernel": c.kernel, "shape": c.shape, "dtype": c.dtype, "err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "yardsticks": yard,
+        })
     return rows_out
 
 
 def phase_tower(torch):
-    """Phase 4: full-width B/32 on the card (bf16, kernels) vs CPU (f32, plain)."""
+    """Phase 4: full-width B/32 on the card (bf16, kernels) vs CPU (f32, plain).
+    Returns what phase 4b reuses: the two models, the grid's inputs, prompts."""
     import copy
 
     from tstar_tpu_torch import SearchConfig
@@ -150,13 +308,18 @@ def phase_tower(torch):
     tok = HashTokenizer(cfg.text.vocab_size, cfg.text.max_length)
     ids, mask, _ = build_prompt_batch(["couch", "lamp"], ["tv"], tok, SearchConfig())
 
-    def run(model, device, dtype):
+    def pixels(device, dtype):
         cache = torch.from_numpy(host.frames).to(device)
-        px = build_detector_grid(cache, secs.to(device), (4, 4), 768, dtype)
+        return build_detector_grid(cache, secs.to(device), (4, 4), 768, dtype)
+
+    def queries(model, device):
+        q = model.encode_text(torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device))
+        return q, torch.from_numpy(ids[:, 0] > 0).to(device)
+
+    def run(model, device, dtype):
         with torch.no_grad():
-            q = model.encode_text(torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device))
-            qmask = torch.from_numpy(ids[:, 0] > 0).to(device)
-            logits, boxes = model.predict(model.encode_image(px), q, qmask)
+            q, qmask = queries(model, device)
+            logits, boxes = model.predict(model.encode_image(pixels(device, dtype)), q, qmask)
             return postprocess_detections(logits, boxes, (768, 768))
 
     t0 = time.perf_counter()
@@ -179,24 +342,76 @@ def phase_tower(torch):
         f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("full-width tower on the card disagrees with the CPU reference")
-    return score_err
+    return {"cfg": cfg, "cpu_model": cpu_model, "gpu_model": gpu_model, "pixels": pixels,
+            "queries": queries, "cpu_scores": cs}
 
 
-def phase_slice(torch, card):
-    """Phase 5: the slice's main path; returns (launch counts, summary)."""
-    from tstar_tpu_torch import SearchConfig
-    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+def phase_int8_tower(torch, tower):
+    """Phase 4b: the full-width int8 tower, bf16 with K4 on the card, against
+    the bf16 tower on the card and the same int8 weights in f32 on the CPU."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.owlvit import postprocess_detections
+    from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
+
+    cfg, cpu_model, gpu_model = tower["cfg"], tower["cpu_model"], tower["gpu_model"]
+    qp_cpu = quantize_vision_tower(cpu_model)   # from the f32 weights, for both sides
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to_cuda(v) for v in tree)
+        return tree.to("cuda")
+
+    qp_gpu = to_cuda(qp_cpu)
+    with torch.no_grad():
+        px = tower["pixels"]("cuda", torch.bfloat16)
+        reset_launch_counts()
+        feats_q = encode_image_int8(qp_gpu, px, cfg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        feats_b = gpu_model.encode_image(px)
+        q, qmask = tower["queries"](gpu_model, "cuda")
+        gs = postprocess_detections(*gpu_model.predict(feats_q, q, qmask), (768, 768))[0]
+        cq, cmask = tower["queries"](cpu_model, "cpu")
+        feats_c = encode_image_int8(qp_cpu, tower["pixels"]("cpu", torch.float32), cfg,
+                                    dtype=torch.float32)
+        cs = postprocess_detections(*cpu_model.predict(feats_c, cq, cmask), (768, 768))[0]
+    a, b = feats_q.float(), feats_b.float()
+    cos = ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-9)).min().item()
+    score_err = (gs.float().cpu() - cs).abs().max().item()
+    vs_bf16 = (gs.float().cpu() - tower["cpu_scores"]).abs().max().item()
+    # Cosine bound from the reference's int8 tower test (tests/test_quant.py:
+    # min per-patch cosine > 0.98 against the float tower).  Scores: bf16
+    # activations move many int8 roundings away from the f32 run's (one
+    # quantization step each), on top of phase 4's bf16 rounding (2e-2).
+    cos_min, tol = 0.98, 5e-2
+    ok = (cos > cos_min and score_err <= tol and bool(torch.isfinite(gs).all())
+          and counts["w8a8_matmul"] == 4 * cfg.vision.num_layers)
+    log(f"[int8 tower] B/32 full width, one 768^2 grid image: K4 launches {counts['w8a8_matmul']} "
+        f"(want {4 * cfg.vision.num_layers}); min per-patch feature cosine int8 vs bf16 tower "
+        f"{cos:.4f} (bound > {cos_min}); max |score int8 cuda-bf16 - int8 cpu-f32| = "
+        f"{score_err:.3e} (tol {tol:.0e}); max |score int8 - float f32| = {vs_bf16:.3e} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("int8 tower on the card disagrees with its references")
+
+
+def run_search(torch, card, heur, label, config, per_forward, env=None):
+    """One warm-up and one measured ``KeyframeSearcher.search()`` with
+    ``config`` (and ``env`` set for both, restored after); the measured one
+    runs with every launch count set to 0 just before it.  ``per_forward``:
+    each kernel's launches per detector forward; the counts must equal it
+    times the forwards.  Returns the launch counts."""
     from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.tools.profile_search import environ
     from tstar_tpu_torch.video.synthetic import default_scene
-
-    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
-    cfg = SearchConfig(cache_hw=(192, 384))
 
     def make(seed):
         s = KeyframeSearcher(
             "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"],
-            search_budget=0.5, config=cfg, seed=seed, decoder=default_scene(600.0),
+            search_budget=0.5, config=config, seed=seed, decoder=default_scene(600.0),
         )
         counted = {"frames": 0, "grid": 0, "verify_batches": []}
         grid, verify = s.scorer.score_grid, s.scorer.score_verify
@@ -214,41 +429,81 @@ def phase_slice(torch, card):
         s.scorer.score_grid, s.scorer.score_verify = score_grid, score_verify
         return s, counted
 
-    warm, _ = make(seed=1)
-    warm.search()                              # warm-up: cuBLAS, Triton caches
-    searcher, counted = make(seed=0)
-    log(f"[slice] frame cache {tuple(searcher.cache.frames.shape)} uint8 "
-        f"({searcher.cache.frames.numel() / 1e6:.1f} MB) on {searcher.cache.frames.device}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    frames, stamps = searcher.search()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    with environ(env or {}):
+        warm, _ = make(seed=1)
+        warm.search()                              # warm-up: cuBLAS, Triton caches
+        searcher, counted = make(seed=0)
+        log(f"[{label}] frame cache {tuple(searcher.cache.frames.shape)} uint8 "
+            f"({searcher.cache.frames.numel() / 1e6:.1f} MB) on {searcher.cache.frames.device}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, stamps = searcher.search()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     state = searcher._final_state
     scores = searcher.score_distribution
+    forwards = counted["grid"] + len(counted["verify_batches"])
     checks = {
         "8 timestamps": len(stamps) == 8 and len(frames) == 8,
         "timestamps in range": all(0 <= t < searcher.duration for t in stamps),
         "timestamps sorted": stamps == sorted(stamps),
         "finite scores": bool(torch.isfinite(state.scores).all()) and len(scores) == 600,
         "frames at native size": all(f.shape == (360, 640, 3) for f in frames),
-        **{f"{k} launched": v > 0 for k, v in counts.items()},
+        **{f"{k} launched {n} x {forwards} forwards": counts[k] == n * forwards
+           for k, n in per_forward.items()},
     }
-    log(f"[slice] iterations={state.iteration} frames_scored={counted['frames']} "
+    log(f"[{label}] iterations={state.iteration} frames_scored={counted['frames']} "
         f"wall={wall:.3f} s peak_mem={peak / 2**20:.1f} MiB  ({card})")
-    log(f"[slice] detector forwards: {counted['grid']} grid (B=1), verify batches "
+    log(f"[{label}] detector forwards: {counted['grid']} grid (B=1), verify batches "
         f"{counted['verify_batches']}")
-    log(f"[slice] timestamps={stamps} remaining={searcher.remaining_targets}")
-    log(f"[slice] kernel launches during the search: {counts}")
+    log(f"[{label}] timestamps={stamps} remaining={searcher.remaining_targets}")
+    log(f"[{label}] kernel launches during the search: {counts}")
     failed = [k for k, v in checks.items() if not v]
     if failed:
-        raise SystemExit(f"slice checks failed: {failed}")
+        raise SystemExit(f"{label} checks failed: {failed}")
+    return counts, counted
+
+
+def phase_slice(torch, card, heur):
+    """Phase 5: the slice's main path; returns the launch counts."""
+    from tstar_tpu_torch import SearchConfig
+
+    cfg = SearchConfig(cache_hw=(192, 384))
+    per_forward = {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "fused_layernorm": 27,
+                   "w8a8_matmul": 0, "ln_matmul": 0}
+    counts, _ = run_search(torch, card, heur, "slice", cfg, per_forward)
     return counts
+
+
+def phase_knobs(torch, card, heur):
+    """Phase 6: the same search under the detector's knobs; returns each
+    run's launch counts."""
+    from tstar_tpu_torch import SearchConfig
+
+    base = dict(cache_hw=(192, 384))
+    runs = {
+        "int8+verify512": (SearchConfig(detector_quant="int8", verify_image_size=512, **base), None,
+                           {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "w8a8_matmul": 48,
+                            "fused_layernorm": 0, "ln_matmul": 0}),
+        "w8a16": (SearchConfig(detector_quant="w8a16", **base), None,
+                  {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "w8a8_matmul": 0,
+                   "fused_layernorm": 0, "ln_matmul": 0}),
+        "ln_matmul": (SearchConfig(**base), {"TSTAR_LN_MATMUL": "force"},
+                      {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "ln_matmul": 24,
+                       "fused_layernorm": 3, "w8a8_matmul": 0}),
+    }
+    out = {}
+    for label, (cfg, env, per_forward) in runs.items():
+        counts, counted = run_search(torch, card, heur, label, cfg, per_forward, env=env)
+        if label == "int8+verify512" and not counted["verify_batches"]:
+            raise SystemExit("int8+verify512: no verification ran, the 512 tower was not driven")
+        out[label] = counts
+    return out
 
 
 def main() -> int:
@@ -264,6 +519,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
     from tstar_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -272,27 +528,39 @@ def main() -> int:
         f"({_build.library_path().name})")
 
     rows = phase_kernels(torch, card)
-    phase_tower(torch)
-    counts = phase_slice(torch, card)
+    tower = phase_tower(torch)
+    phase_int8_tower(torch, tower)
+    del tower
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    counts = phase_slice(torch, card, heur)
+    knobs = phase_knobs(torch, card, heur)
 
+    # name, route, source, TPU kernel, launches (from the run of its path)
     meta = {
         "K1": ("fused_mha_from_qkv", "cuda", "tstar_tpu_torch/csrc/mha.cu",
-               "tstar_tpu/kernels/attention.py:298"),
+               "tstar_tpu/kernels/attention.py:298", counts["fused_mha_from_qkv"]),
         "K2": ("patch_embed_matmul", "cuda", "tstar_tpu_torch/csrc/patch_embed.cu",
-               "tstar_tpu/kernels/patch_matmul.py:76"),
+               "tstar_tpu/kernels/patch_matmul.py:76", counts["patch_embed_matmul"]),
         "K3": ("fused_layernorm", "triton", "tstar_tpu_torch/kernels/layernorm.py",
-               "tstar_tpu/kernels/layernorm.py:126"),
+               "tstar_tpu/kernels/layernorm.py:126", counts["fused_layernorm"]),
+        "K4": ("w8a8_matmul", "cuda", "tstar_tpu_torch/csrc/w8a8.cu",
+               "tstar_tpu/kernels/quant_matmul.py:64", knobs["int8+verify512"]["w8a8_matmul"]),
+        "K5": ("ln_matmul", "cuda", "tstar_tpu_torch/csrc/ln_matmul.cu",
+               "tstar_tpu/kernels/ln_matmul.py:86", knobs["ln_matmul"]["ln_matmul"]),
     }
     kernels = []
-    for k, (name, route, source, replaces) in meta.items():
-        mine = [r for r in rows if r[0] == k and r[2] == "bf16"]
-        main_shape = mine[0]    # the B=1 grid forward's shape: most of the launches
+    for k, (name, route, source, replaces, launches) in meta.items():
+        mine = [r for r in rows if r["kernel"] == k]
+        main_row = mine[0]    # the B=1 grid forward's shape: most of the launches
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": counts[name],
-            "max_abs_err": max(r[3] for r in mine),
-            "ms": main_shape[4], "plain_ms": main_shape[5],
-            "shape": f"{main_shape[1]} bf16",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in mine),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "yardsticks_ms": main_row["yardsticks"],
+            "shape": f"{main_row['shape']} {main_row['dtype']}",
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,14 @@ from tstar_tpu.utils.config import SearchConfig
 from tstar_tpu_torch.search import engine as teng
 from tstar_tpu_torch.search.scorers import TableScorer as TTable
 from tstar_tpu_torch.search.state import init_state as tinit
+from tstar_tpu_torch.utils.config import SearchConfig as TSearchConfig
 
 CFG = SearchConfig(search_budget=1.0, confidence_threshold=0.6)
+
+
+def port_config(config: SearchConfig) -> TSearchConfig:
+    """The port's own SearchConfig with the same field values as ``config``."""
+    return TSearchConfig(**{f.name: getattr(config, f.name) for f in dataclasses.fields(config)})
 
 
 def jax_noise(seed: int, n_pad: int, n_steps: int, pop: bool = True):
@@ -54,12 +60,13 @@ def run_both(n_valid, n_targets, seed, config, tables):
 
     tscorer = TTable(*(torch.from_numpy(np.asarray(a)) for a in dataclasses.astuple(tables)))
     noise = iter(jax_noise(seed, n_pad, len(history), pop=not config.deterministic_pop))
-    state = tinit(n_valid, n_targets, config, noise, n_pad=n_pad)
+    tconfig = port_config(config)
+    state = tinit(n_valid, n_targets, tconfig, noise, n_pad=n_pad)
     t_hist = []
     while teng._continue(state):
-        state, aux = teng.search_step(state, tscorer, config)
+        state, aux = teng.search_step(state, tscorer, tconfig)
         t_hist.append(aux["secs"].numpy())
-    tsecs = teng.pop_frame_secs(state, config)
+    tsecs = teng.pop_frame_secs(state, tconfig)
     return (jfinal, np.asarray(jsecs), [h["secs"] for h in history]), (state, tsecs.numpy(), t_hist)
 
 
@@ -125,7 +132,9 @@ def test_verification_replay_matches_reference():
     vconf = rng.random(k).astype(np.float32)
     vp = rng.random((k, t_max)) < 0.5
     want = jeng.verification_replay(*map(jnp.asarray, (scores, remaining, secs, tp, vconf, vp)), CFG)
-    got = teng.verification_replay(*map(torch.from_numpy, (scores, remaining, secs, tp, vconf, vp)), CFG)
+    got = teng.verification_replay(
+        *map(torch.from_numpy, (scores, remaining, secs, tp, vconf, vp)), port_config(CFG)
+    )
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
@@ -134,7 +143,7 @@ def test_init_state_matches_reference():
     for n_valid, budget in [(600, 0.5), (3000, 1.0), (77, 0.1)]:
         cfg = dataclasses.replace(CFG, search_budget=budget)
         j = jinit(n_valid, 3, cfg, jax.random.key(0))
-        t = tinit(n_valid, 3, cfg, None)
+        t = tinit(n_valid, 3, port_config(cfg), None)
         for name in ("scores", "visited", "P", "remaining"):
             np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)))
         assert t.budget == int(j.budget) and t.n_valid == int(j.n_valid)

@@ -25,7 +25,9 @@ from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
 from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
 from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
+from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
 
 
 def _t(a, dtype=torch.float32):
@@ -109,6 +111,11 @@ def test_cpu_wrappers_run_the_plain_versions():
     fused_mha_from_qkv(torch.zeros(1, 8, 3 * 64), 1)
     patch_embed_matmul(torch.zeros(1, 32, 32, 3), torch.zeros(16, 16, 3, 8))
     fused_layernorm(torch.zeros(4, 8), torch.ones(8), torch.zeros(8))
+    w8a8_matmul(torch.ones(4, 16), torch.ones(16, 16, dtype=torch.int8), torch.ones(16),
+                torch.zeros(16), torch.float32)
+    ln_matmul(torch.ones(1, 4, 32), torch.ones(32), torch.zeros(32), torch.ones(32, 16),
+              torch.zeros(16), 1e-5)
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
+        "w8a8_matmul": 0, "ln_matmul": 0,
     }

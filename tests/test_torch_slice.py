@@ -1,17 +1,22 @@
-"""Slice 1 of the port as a whole: detector scorer, frame cache, searcher.
+"""Slices 1 and 2 of the port as a whole: detector scorer (in its compute
+dtype, quantized, and with a reduced verification size), frame cache,
+searcher.
 
-The slice test drives the reference and the port over the same synthetic
+The slice tests drive the reference and the port over the same synthetic
 frame cache, with the same tiny OWL-ViT weights (``params_from_jax``) and
-the same Gumbel noise (the reference key schedule's draws, replayed).  The
-sampled seconds of every iteration and the final keyframes must be EQUAL;
-final scores agree to 1e-5 (float32 detector confidences, ~1e-6 apart after
-the towers, then written and splatted unchanged).
+the same Gumbel noise (the reference key schedule's draws, replayed); each
+package gets its own ``SearchConfig`` built from the same keyword arguments.
+The sampled seconds of every iteration and the final keyframes must be
+EQUAL; final scores agree to 1e-5 (float32 detector confidences, ~1e-6 apart
+after the towers, then written and splatted unchanged).
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +31,7 @@ from tstar_tpu.models.clip_tokenizer import HashTokenizer as JHash
 from tstar_tpu.search import detector_scorer as jds
 from tstar_tpu.search import engine as jeng
 from tstar_tpu.search.state import init_state as jinit
-from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu.utils.config import SearchConfig as JSearchConfig
 from tstar_tpu.video import cache as jcache
 from tstar_tpu_torch.framework.heuristics import OwlVitHeuristic, initialize_heuristic
 from tstar_tpu_torch.models import owlvit as tow
@@ -35,12 +40,20 @@ from tstar_tpu_torch.search import detector_scorer as tds
 from tstar_tpu_torch.search import engine as teng
 from tstar_tpu_torch.search.searcher import KeyframeSearcher
 from tstar_tpu_torch.search.state import init_state as tinit
+from tstar_tpu_torch.utils.config import SearchConfig as TSearchConfig
 from tstar_tpu_torch.video import cache as tcache
 from tstar_tpu_torch.video.synthetic import default_scene
 
-CFG = SearchConfig(search_budget=1.0, cache_hw=(32, 64))
+BASE = dict(search_budget=1.0, cache_hw=(32, 64))
+CFG = TSearchConfig(**BASE)
 TARGETS, CUES = ["couch", "lamp"], ["tv"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def configs(**overrides):
+    """(reference config, port config) from the same keyword arguments."""
+    kw = {**BASE, **overrides}
+    return JSearchConfig(**kw), TSearchConfig(**kw)
 
 
 @pytest.fixture(scope="module")
@@ -57,20 +70,22 @@ def pair():
     return jmodel, variables, tmodel, host
 
 
-def _scorers(pair):
+def _scorers(pair, **overrides):
     jmodel, variables, tmodel, host = pair
+    jcfg, tcfg = configs(**overrides)
     js = jds.make_owlvit_scorer(
-        jmodel, variables, jnp.asarray(host.frames), TARGETS, CUES, JHash(100, 8), CFG
+        jmodel, variables, jnp.asarray(host.frames), TARGETS, CUES, JHash(100, 8), jcfg
     )
     ts = tds.make_owlvit_scorer(
-        tmodel, torch.from_numpy(host.frames), TARGETS, CUES, THash(100, 8), CFG
+        tmodel, torch.from_numpy(host.frames), TARGETS, CUES, THash(100, 8), tcfg
     )
     return js, ts
 
 
 def test_prompt_batch_matches():
-    want = jds.build_prompt_batch(TARGETS, CUES, JHash(100, 8), CFG)
-    got = tds.build_prompt_batch(TARGETS, CUES, THash(100, 8), CFG)
+    jcfg, tcfg = configs()
+    want = jds.build_prompt_batch(TARGETS, CUES, JHash(100, 8), jcfg)
+    got = tds.build_prompt_batch(TARGETS, CUES, THash(100, 8), tcfg)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
@@ -86,17 +101,58 @@ def test_scorer_matches_reference(pair):
         np.testing.assert_array_equal(tp.numpy(), np.asarray(jp), err_msg=method)
 
 
+SECS = np.array([70, 75, 401, 405, 30, 0, 9, 12, 200, 150, 333, 440, 60, 61, 62, 63])
+
+
+def _assert_scorers_match(js, ts, atol):
+    for method, idx in (("score_grid", SECS), ("score_verify", SECS[:8])):
+        jc, jp = jax.jit(getattr(js, method))(jnp.asarray(idx, jnp.int32))
+        tc, tp = getattr(ts, method)(torch.from_numpy(idx))
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=atol, err_msg=method)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp), err_msg=method)
+
+
+def test_scorer_matches_reference(pair):
+    js, ts = _scorers(pair)
+    np.testing.assert_allclose(ts.query_embeds.numpy(), np.asarray(js.query_embeds), atol=2e-5)
+    _assert_scorers_match(js, ts, atol=1e-5)
+
+
 @pytest.mark.parametrize(
     "override",
     [
         {"detector_quant": "int8"},
         {"detector_quant": "w8a16"},
-        {"verify_image_size": 32},
-        {"use_pallas_preprocess": True},
+        {"verify_image_size": 48},
+        {"detector_quant": "int8", "verify_image_size": 48},
     ],
 )
+def test_quant_and_verify_size_scorers_match_reference(pair, override):
+    """The quantized towers and the 48-pixel verification view (3x3 patches
+    of 16 instead of 4x4): the same confidences within 1e-5 and the same
+    presence masks.  (An int8 rounding flip upstream, see
+    ``tests/test_torch_quant.py``, would show here as a larger difference.)"""
+    js, ts = _scorers(pair, **override)
+    assert (ts.qvision is None) == ("detector_quant" not in override)
+    if "verify_image_size" in override:
+        assert ts._verify_model.cfg.vision.image_size == 48
+        fc1 = lambda m: m.vision.encoder.layers[0].mlp.fc1.kernel  # noqa: E731
+        assert fc1(ts._verify_model).data_ptr() == fc1(ts.model).data_ptr()
+    _assert_scorers_match(js, ts, atol=1e-5)
+
+
+def test_scorer_rejects_unknown_quant(pair):
+    tmodel, host = pair[2], pair[3]
+    with pytest.raises(ValueError, match="detector_quant"):
+        tds.make_owlvit_scorer(
+            tmodel, torch.from_numpy(host.frames), TARGETS, CUES, THash(100, 8),
+            dataclasses.replace(CFG, detector_quant="int4"),
+        )
+
+
+@pytest.mark.parametrize("override", [{"use_pallas_preprocess": True}])
 def test_scorer_rejects_unported_options(pair, override):
-    """Branches the port does not have raise instead of being ignored; the
+    """A branch the port does not have raises instead of being ignored; the
     native verification size and an explicit False are the ported path."""
     tmodel, host = pair[2], pair[3]
     cache = torch.from_numpy(host.frames)
@@ -106,46 +162,73 @@ def test_scorer_rejects_unported_options(pair, override):
         )
     native = tmodel.cfg.vision.image_size
     ok = dataclasses.replace(CFG, verify_image_size=native, use_pallas_preprocess=False)
-    assert tds.make_owlvit_scorer(tmodel, cache, TARGETS, CUES, THash(100, 8), ok).config is ok
+    scorer = tds.make_owlvit_scorer(tmodel, cache, TARGETS, CUES, THash(100, 8), ok)
+    assert scorer.config is ok and scorer.verify_model is None and scorer.qvision is None
 
 
 def test_host_cache_matches_reference():
     """Same duck-typed decoder into both cache builders: identical frames.
     The port's probe reads the decoder, not the (fake) path."""
-    want = jcache.build_frame_cache_host("unused", CFG, decoder=default_scene(200.0))
-    got = tcache.build_frame_cache_host("unused", CFG, decoder=default_scene(200.0))
+    jcfg, tcfg = configs()
+    want = jcache.build_frame_cache_host("unused", jcfg, decoder=default_scene(200.0))
+    got = tcache.build_frame_cache_host("unused", tcfg, decoder=default_scene(200.0))
     np.testing.assert_array_equal(got.frames, want.frames)
     assert (got.n_valid, got.n_pad, got.raw_fps, got.duration) == (
         want.n_valid, want.n_pad, want.raw_fps, want.duration
     )
-    dev = tcache.build_frame_cache("unused", CFG, device="cpu", decoder=default_scene(200.0))
+    dev = tcache.build_frame_cache("unused", tcfg, device="cpu", decoder=default_scene(200.0))
     np.testing.assert_array_equal(dev.frames.numpy(), want.frames)
     assert tcache.fit_cache_hw((192, 384), 4096, 10 ** 8) == jcache.fit_cache_hw((192, 384), 4096, 10 ** 8)
 
 
-def test_search_matches_reference_exactly(pair):
-    js, ts = _scorers(pair)
+def _search_both(pair, seed, score_atol=1e-5, **overrides):
+    """Run the reference's search and the port's step by step on replayed
+    noise; the sampled seconds of every iteration, the keyframes and the
+    remaining targets must be equal, the final scores within ``score_atol``."""
+    js, ts = _scorers(pair, **overrides)
+    jcfg, tcfg = configs(**overrides)
     host = pair[3]
-    seed = 3
-    s0 = jinit(host.n_valid, len(TARGETS), CFG, jax.random.key(seed), n_pad=host.n_pad)
-    jfinal, jsecs, history = jeng.run_search_with_history(s0, js, CFG)
+    s0 = jinit(host.n_valid, len(TARGETS), jcfg, jax.random.key(seed), n_pad=host.n_pad)
+    jfinal, jsecs, history = jeng.run_search_with_history(s0, js, jcfg)
     assert len(history) >= 5
 
     noise = iter(jax_noise(seed, host.n_pad, len(history)))
-    state = tinit(host.n_valid, len(TARGETS), CFG, noise, n_pad=host.n_pad)
+    state = tinit(host.n_valid, len(TARGETS), tcfg, noise, n_pad=host.n_pad)
+    verified = []
+    score_verify = ts.score_verify
+    ts.score_verify = lambda secs: verified.append(secs.numel()) or score_verify(secs)
     it = 0
     with torch.no_grad():
         while teng._continue(state):
-            state, aux = teng.search_step(state, ts, CFG)
+            state, aux = teng.search_step(state, ts, tcfg)
             np.testing.assert_array_equal(
                 aux["secs"].numpy(), history[it]["secs"], err_msg=f"iteration {it}"
             )
             it += 1
-        tsecs = teng.pop_frame_secs(state, CFG)
+        tsecs = teng.pop_frame_secs(state, tcfg)
     assert it == len(history)
     np.testing.assert_array_equal(tsecs.numpy(), np.asarray(jsecs))
     np.testing.assert_array_equal(state.remaining.numpy(), np.asarray(jfinal.remaining))
-    np.testing.assert_allclose(state.scores.numpy(), np.asarray(jfinal.scores), atol=1e-5)
+    np.testing.assert_allclose(state.scores.numpy(), np.asarray(jfinal.scores), atol=score_atol)
+    return verified
+
+
+def test_search_matches_reference_exactly(pair):
+    _search_both(pair, seed=3)
+
+
+def test_quantized_reduced_verify_search_matches_reference_exactly(pair):
+    """detector_quant='int8' with verification at 48 pixels: the int8 tower
+    scores the grids and the resized int8 tower the verifications.  Scores
+    within 1e-2: in some of the ~20 forwards a ~1e-7 float difference moves
+    an activation across an int8 rounding boundary (one quantization step,
+    see ``tests/test_torch_quant.py``), which moves that forward's
+    confidences by up to ~1e-2 (6.1e-3 seen); the sampled seconds and the
+    keyframes stay equal."""
+    verified = _search_both(
+        pair, seed=3, score_atol=1e-2, detector_quant="int8", verify_image_size=48
+    )
+    assert verified, "the search never verified: the 48-pixel tower did not run"
 
 
 def test_keyframe_searcher_facade():
@@ -158,7 +241,7 @@ def test_keyframe_searcher_facade():
     dec = default_scene(300.0, hw=(72, 128))
     searcher = KeyframeSearcher(
         "mem://scene", heur, TARGETS, CUES, search_budget=0.5,
-        config=dataclasses.replace(CFG, cache_hw=(32, 64)), seed=0, decoder=dec,
+        config=TSearchConfig(cache_hw=(32, 64)), seed=0, decoder=dec,
     )
     frames, stamps = searcher.search()
     assert len(frames) == len(stamps) == 8
@@ -170,21 +253,28 @@ def test_keyframe_searcher_facade():
         initialize_heuristic("owl-vit")
 
 
+PORT_MODULES = [
+    "tstar_tpu_torch", "tstar_tpu_torch.utils", "tstar_tpu_torch.utils.config",
+    "tstar_tpu_torch.ops", "tstar_tpu_torch.ops.quant", "tstar_tpu_torch.search",
+    "tstar_tpu_torch.search.detector_scorer", "tstar_tpu_torch.search.searcher",
+    "tstar_tpu_torch.kernels", "tstar_tpu_torch.kernels.attention",
+    "tstar_tpu_torch.kernels.patch_matmul", "tstar_tpu_torch.kernels.layernorm",
+    "tstar_tpu_torch.kernels.quant_matmul", "tstar_tpu_torch.kernels.ln_matmul",
+    "tstar_tpu_torch.kernels.image", "tstar_tpu_torch.kernels._build",
+    "tstar_tpu_torch.models", "tstar_tpu_torch.models.transformer",
+    "tstar_tpu_torch.models.owlvit_quant", "tstar_tpu_torch.video",
+    "tstar_tpu_torch.framework", "tstar_tpu_torch.tools.profile_search", "chip_smoke",
+]
+
+
 def test_port_imports_no_jax():
-    """The port package and every slice module load without JAX or flax."""
-    modules = [
-        "tstar_tpu_torch", "tstar_tpu_torch.ops", "tstar_tpu_torch.search",
-        "tstar_tpu_torch.search.detector_scorer", "tstar_tpu_torch.search.searcher",
-        "tstar_tpu_torch.kernels", "tstar_tpu_torch.kernels.attention",
-        "tstar_tpu_torch.kernels.patch_matmul", "tstar_tpu_torch.kernels.layernorm",
-        "tstar_tpu_torch.kernels.image", "tstar_tpu_torch.kernels._build",
-        "tstar_tpu_torch.models", "tstar_tpu_torch.models.transformer",
-        "tstar_tpu_torch.video", "tstar_tpu_torch.framework",
-    ]
+    """The port package, every slice module and ``chip_smoke`` (imported, not
+    run) load without JAX, flax, triton or any module of the JAX package."""
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'flax', 'triton') if m in sys.modules]\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'triton', 'tstar_tpu')\n"
+        "       or m.startswith('tstar_tpu.')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -193,3 +283,22 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_name_no_reference_module():
+    """No ``import`` or ``from`` in ``tstar_tpu_torch/`` or ``chip_smoke.py``
+    names ``tstar_tpu`` or a module under it, at any depth of the code."""
+    files = sorted(Path(REPO, "tstar_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                    if n == "tstar_tpu" or n.startswith("tstar_tpu.")]
+    assert not bad, bad

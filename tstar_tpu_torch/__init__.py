@@ -13,11 +13,10 @@ plain PyTorch version of the same math (``kernels/``).  On a CPU tensor a
 kernel wrapper runs the plain version; on a CUDA tensor it launches the
 kernel or raises.
 
-The package imports ``torch`` and never ``jax``; the only module of the JAX
-package it reads is the jax-free ``tstar_tpu.utils.config`` (for
-``SearchConfig``).
+The package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it keeps its own ``SearchConfig`` (``utils/config.py``).
 """
 
 __version__ = "0.1.0"
 
-from tstar_tpu.utils.config import SearchConfig  # noqa: F401
+from tstar_tpu_torch.utils.config import SearchConfig  # noqa: F401

@@ -16,7 +16,7 @@ import torch
 
 from tstar_tpu_torch.models.clip_tokenizer import HashTokenizer
 from tstar_tpu_torch.models.owlvit import OwlViTDetector, init_params, owlvit_base_patch32
-from tstar_tpu_torch.search.detector_scorer import make_owlvit_scorer
+from tstar_tpu_torch.search.detector_scorer import _weight_views, make_owlvit_scorer
 
 
 class OwlVitHeuristic:
@@ -43,10 +43,17 @@ class OwlVitHeuristic:
         self.tokenizer = HashTokenizer(
             vocab_size=cfg.text.vocab_size, context=cfg.text.max_length
         )
+        # Quantized towers and reduced-resolution views, built once per
+        # (detector_quant, verify_image_size) and reused by later searches.
+        self._weight_views = {}
 
     def build_scorer(self, cache, target_objects, cue_objects, config):
+        key = (config.detector_quant, config.verify_image_size)
+        if key not in self._weight_views:
+            self._weight_views[key] = _weight_views(self.model, config)
         return make_owlvit_scorer(
-            self.model, cache, target_objects, cue_objects, self.tokenizer, config
+            self.model, cache, target_objects, cue_objects, self.tokenizer, config,
+            weight_views=self._weight_views[key],
         )
 
 

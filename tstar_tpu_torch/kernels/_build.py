@@ -90,6 +90,12 @@ def load() -> ctypes.CDLL:
             # pixels, kernel, out, B, H, W, C, p, D, stream
             fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
+        # x, w, w_scale, bias, out, R, K, N, x dtype, out dtype, stream
+        lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.tstar_w8a8.restype = ci
+        # x, scale32, bias32, w, b, out, R, D, N, eps, stream
+        lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
+        lib.tstar_ln_matmul_bf16.restype = ci
         lib.tstar_error_string.argtypes = [ci]
         lib.tstar_error_string.restype = ctypes.c_char_p
         _lib = lib

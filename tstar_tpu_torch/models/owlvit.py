@@ -239,6 +239,55 @@ class OwlViTDetector(nn.Module):
         return self.predict(self.encode_image(pixels), queries, query_mask)
 
 
+def interpolate_position_embedding(
+    pos: torch.Tensor, src_side: int, dst_side: int
+) -> torch.Tensor:
+    """Bicubically resample a ViT position embedding to a new patch grid.
+
+    ``pos`` is (1 + src_side^2, D) with the CLS row first.  The reference
+    resizes with ``jax.image.resize(method="cubic")``: the Keys cubic
+    (a = -0.5), antialiased when it shrinks, weights renormalized at the
+    edges.  ``F.interpolate(mode="bicubic", antialias=True)`` is that filter
+    (without ``antialias`` PyTorch uses a = -0.75 and no antialiasing); it
+    runs in f32 and the result takes ``pos``'s dtype.
+    """
+    cls_row, grid = pos[:1], pos[1:]
+    d = grid.shape[-1]
+    grid = grid.float().reshape(src_side, src_side, d).permute(2, 0, 1)[None]
+    grid = F.interpolate(
+        grid, size=(dst_side, dst_side), mode="bicubic", align_corners=False, antialias=True
+    )
+    grid = grid[0].permute(1, 2, 0).reshape(dst_side * dst_side, d).to(pos.dtype)
+    return torch.cat([cls_row, grid], dim=0)
+
+
+@torch.no_grad()
+def resize_detector(model: OwlViTDetector, image_size: int) -> OwlViTDetector:
+    """A detector view at another input resolution, sharing every weight.
+
+    Only the vision position embedding is resampled (a new tensor); every
+    other parameter of the returned module IS the original's tensor, so no
+    weight is copied on the device.  The config's ``image_size`` changes, so
+    the box bias and heads follow the new patch grid.
+    """
+    src = model.cfg.vision
+    if image_size == src.image_size:
+        return model
+    if image_size % src.patch_size:
+        raise ValueError(f"image_size {image_size} not a multiple of patch {src.patch_size}")
+    new_cfg = dataclasses.replace(
+        model.cfg, vision=dataclasses.replace(src, image_size=image_size)
+    )
+    with torch.device("meta"):   # shapes only; the tensors come from ``model``
+        view = OwlViTDetector(new_cfg)
+    state = dict(model.state_dict())
+    state["vision.position_embedding"] = interpolate_position_embedding(
+        model.vision.position_embedding, src.num_patches_side, image_size // src.patch_size
+    )
+    view.load_state_dict(state, strict=True, assign=True)
+    return view.requires_grad_(False).train(model.training)
+
+
 def postprocess_detections(
     logits: torch.Tensor,   # (B, P, Q)
     boxes: torch.Tensor,    # (B, P, 4) cxcywh normalized

@@ -1,0 +1,128 @@
+"""Int8-quantized OWL-ViT vision tower (port of ``tstar_tpu/models/owlvit_quant.py``).
+
+The six dense matmuls of every encoder layer (q|k|v fused into one, out_proj,
+fc1, fc2) run as W8A8 (``ops/quant.dense_w8a8``, kernel K4 on the card) or,
+with ``weight_only``, as W8A16 (``dense_w8a16``).  What stays in floating
+point, as in the reference: the patch embedding (compute dtype, K2), the
+LayerNorms and softmax statistics (f32), and attention (K1 on the fused
+q|k|v projection).  ``SearchConfig.detector_quant`` selects it.
+
+Numerics follow the reference: its two-pass-variance LayerNorm that returns
+f32 (``_layernorm``, not K3's ``use_fast_variance`` formula), fc1 writing f32
+and fc2 reading it.  The port's model holds its weights in its compute dtype,
+so a bf16 model is quantized from its bf16 weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
+from tstar_tpu_torch.models.owlvit import OwlViTConfig, OwlViTDetector
+from tstar_tpu_torch.models.transformer import ACTIVATIONS, LayerNorm
+from tstar_tpu_torch.ops.quant import dense_w8a8, dense_w8a16, quantize_weight
+
+
+def _qlinear(kernel: torch.Tensor, bias: torch.Tensor) -> Dict[str, torch.Tensor]:
+    w_i8, scale = quantize_weight(kernel.detach().float().cpu().numpy())
+    dev = kernel.device
+    return {
+        "w": torch.from_numpy(w_i8).to(dev),
+        "s": torch.from_numpy(scale).to(dev),
+        "b": bias.detach().float(),
+    }
+
+
+def _ln_params(ln: LayerNorm) -> Dict[str, torch.Tensor]:
+    return {"scale": ln.scale.detach().float(), "bias": ln.bias.detach().float()}
+
+
+@torch.no_grad()
+def quantize_vision_tower(model: OwlViTDetector) -> Dict[str, Any]:
+    """Quantize the vision-tower weights once -> dict of int8 kernels, f32
+    scales, biases and LayerNorm params, on the model's device.
+
+    The port's q|k|v projection is already the fused (D, 3D) kernel that the
+    reference builds by concatenating q_proj, k_proj and v_proj; per-channel
+    scales make the fused quantization equal to three separate ones.
+    """
+    v = model.vision
+    layers = []
+    for lyr in v.encoder.layers:
+        attn = lyr.self_attn
+        layers.append({
+            "ln1": _ln_params(lyr.layer_norm1),
+            "ln2": _ln_params(lyr.layer_norm2),
+            "qkv": _qlinear(attn.qkv_kernel, attn.qkv_bias),
+            "o": _qlinear(attn.out_proj.kernel, attn.out_proj.bias),
+            "fc1": _qlinear(lyr.mlp.fc1.kernel, lyr.mlp.fc1.bias),
+            "fc2": _qlinear(lyr.mlp.fc2.kernel, lyr.mlp.fc2.bias),
+        })
+    return {
+        "patch_kernel": v.patch_embedding.kernel.detach(),   # shared, not copied
+        "cls": v.class_embedding.detach().float(),
+        "pos": v.position_embedding.detach().float(),
+        "pre_ln": _ln_params(v.pre_layernorm),
+        "layers": tuple(layers),
+        "post_ln": _ln_params(model.post_layernorm),
+        "merged_ln": _ln_params(model.merged_layernorm),
+    }
+
+
+def _layernorm(x: torch.Tensor, ln: Dict[str, torch.Tensor], eps: float) -> torch.Tensor:
+    """LayerNorm with f32 two-pass statistics (``jnp.var``); returns f32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    centered = xf - mu
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return y * ln["scale"] + ln["bias"]
+
+
+@torch.no_grad()
+def encode_image_int8(
+    qparams: Dict[str, Any],
+    pixels: torch.Tensor,        # (B, S, S, 3) CLIP-normalized
+    cfg: OwlViTConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    weight_only: bool = False,
+) -> torch.Tensor:
+    """Quantized counterpart of ``OwlViTDetector.encode_image``:
+    (B, S, S, 3) pixels -> merged per-patch features (B, P, D) in ``dtype``.
+
+    ``weight_only`` (``detector_quant='w8a16'``) runs the same int8 weights
+    through ``dense_w8a16`` with activations in ``dtype``.
+    """
+    if weight_only:
+        def dense(x, w, s, b, out_dtype):
+            return dense_w8a16(x.to(dtype), w, s, b, out_dtype=out_dtype)
+    else:
+        dense = dense_w8a8
+    c = cfg.vision
+    eps = c.eps
+    patches = patch_embed_matmul(
+        pixels.to(dtype).contiguous(), qparams["patch_kernel"].to(dtype).contiguous()
+    )
+    b = patches.shape[0]
+    cls = qparams["cls"].to(dtype).expand(b, 1, c.hidden_size)
+    x = torch.cat([cls, patches], dim=1) + qparams["pos"].to(dtype)[None]
+    x = _layernorm(x, qparams["pre_ln"], eps).to(dtype)
+
+    act = ACTIVATIONS[c.activation]
+    for lyr in qparams["layers"]:
+        h = _layernorm(x, lyr["ln1"], eps)
+        qkv = dense(h, lyr["qkv"]["w"], lyr["qkv"]["s"], lyr["qkv"]["b"], out_dtype=dtype)
+        attn = fused_mha_from_qkv(qkv, c.num_heads)
+        x = x + dense(attn, lyr["o"]["w"], lyr["o"]["s"], lyr["o"]["b"], out_dtype=dtype)
+        h = _layernorm(x, lyr["ln2"], eps)
+        h = dense(h, lyr["fc1"]["w"], lyr["fc1"]["s"], lyr["fc1"]["b"], out_dtype=torch.float32)
+        h = act(h)
+        x = x + dense(h, lyr["fc2"]["w"], lyr["fc2"]["s"], lyr["fc2"]["b"], out_dtype=dtype)
+
+    hidden = _layernorm(x, qparams["post_ln"], eps)    # (B, 1+P, D) f32
+    feats = hidden[:, 1:, :] * hidden[:, :1, :]
+    feats = _layernorm(feats, qparams["merged_ln"], eps)
+    return feats.to(dtype)

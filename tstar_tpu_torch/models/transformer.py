@@ -6,7 +6,10 @@ attention kernel (K1) reads directly.  A module computes in the dtype of its
 parameters (``model.to(torch.bfloat16)`` for the card, float32 for parity
 tests).  LayerNorms go through K3 and unbiased self-attention through K1;
 the text tower's causal + padding bias takes plain masked softmax attention,
-as in the reference.
+as in the reference.  Each pre-norm LayerNorm is handed to the projection it
+feeds (ln1 -> qkv, ln2 -> fc1), which folds it into its matmul through K5
+when ``use_ln_matmul`` says so (``TSTAR_LN_MATMUL``); otherwise it is K3,
+then ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 
 from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+from tstar_tpu_torch.kernels.ln_matmul import ln_matmul, use_ln_matmul
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +92,15 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Dense(d, d)
 
     def forward(
-        self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, ln: "LayerNorm", attn_bias: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        """``x`` is the residual stream; ``ln``, the pre-norm applied to it
+        first, folds into the q|k|v projection when it may."""
         d = x.shape[-1]
-        qkv = torch.matmul(x, self.qkv_kernel) + self.qkv_bias       # (B, S, 3D)
+        if use_ln_matmul(x, 3 * d):
+            qkv = ln_matmul(x, ln.scale, ln.bias, self.qkv_kernel, self.qkv_bias, ln.eps)
+        else:
+            qkv = torch.matmul(ln(x), self.qkv_kernel) + self.qkv_bias   # (B, S, 3D)
         if attn_bias is None:
             out = fused_mha_from_qkv(qkv, self.num_heads)
         else:
@@ -110,8 +119,15 @@ class TransformerMLP(nn.Module):
         self.fc2 = Dense(intermediate_size, d)
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(ACTIVATIONS[self.activation](self.fc1(x)))
+    def forward(self, x: torch.Tensor, ln: "LayerNorm") -> torch.Tensor:
+        """``x`` is the residual stream; ``ln``, the pre-norm applied to it
+        first, folds into fc1 when it may (see MultiHeadAttention)."""
+        fc1 = self.fc1
+        if use_ln_matmul(x, fc1.kernel.shape[1]):
+            h = ln_matmul(x, ln.scale, ln.bias, fc1.kernel, fc1.bias, ln.eps)
+        else:
+            h = fc1(ln(x))
+        return self.fc2(ACTIVATIONS[self.activation](h))
 
 
 class EncoderLayer(nn.Module):
@@ -125,8 +141,8 @@ class EncoderLayer(nn.Module):
         self.mlp = TransformerMLP(d, intermediate_size, activation)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None):
-        x = x + self.self_attn(self.layer_norm1(x), attn_bias)
-        return x + self.mlp(self.layer_norm2(x))
+        x = x + self.self_attn(x, self.layer_norm1, attn_bias)
+        return x + self.mlp(x, self.layer_norm2)
 
 
 class Encoder(nn.Module):

@@ -6,24 +6,33 @@ grid image, scored by one detector forward, and the detections splatted back
 to per-frame confidences and class-presence masks.  Text prompts are encoded
 once when the scorer is built.
 
-Only the reference's default path is ported: bf16/f32 detector at its native
-size over a resident cache.  The quantized tower, the reduced verification
-size, the composed projection, the grid-embed and Pallas-preprocess kernels
+Ported: the detector in its compute dtype or quantized
+(``SearchConfig.detector_quant``: 'int8' W8A8 through K4, 'w8a16'
+weight-only), at its native size or with verification at a reduced size
+(``verify_image_size``: a view of the detector with a resampled position
+embedding, ``models/owlvit.resize_detector``), over a resident cache.  The
+composed projection, the grid-embed and Pallas-preprocess kernels (K6, K7)
 and streaming caches are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tstar_tpu.utils.config import SearchConfig
 from tstar_tpu_torch.kernels.image import build_detector_grid, build_verify_batch
-from tstar_tpu_torch.models.owlvit import OwlViTDetector, postprocess_detections
+from tstar_tpu_torch.models.owlvit import (
+    OwlViTDetector,
+    interpolate_position_embedding,
+    postprocess_detections,
+    resize_detector,
+)
+from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
 from tstar_tpu_torch.ops.splat import splat_detections_to_cells
+from tstar_tpu_torch.utils.config import SearchConfig
 
 
 @dataclasses.dataclass
@@ -34,6 +43,14 @@ class OwlVitScorer:
     query_mask: torch.Tensor     # (Q,) bool: real prompts
     class_weights: torch.Tensor  # (Q,) f32: target 1.0 / cue 0.5 / pad 0.5
     config: SearchConfig
+    # Quantized vision tower (models/owlvit_quant.py), present iff
+    # config.detector_quant is set.
+    qvision: Optional[Dict[str, Any]] = None
+    # Reduced-resolution verification view (config.verify_image_size): the
+    # same weights with a resampled position embedding and, when quantized,
+    # a matching quantized tower.  None = verify with the main model.
+    verify_model: Optional[OwlViTDetector] = None
+    qvision_verify: Optional[Dict[str, Any]] = None
 
     @property
     def num_classes(self) -> int:
@@ -44,11 +61,31 @@ class OwlVitScorer:
         return self.model.cfg.vision.image_size
 
     @torch.no_grad()
-    def _detect(self, pixels: torch.Tensor):
-        feats = self.model.encode_image(pixels)
-        logits, boxes = self.model.predict(feats, self.query_embeds, self.query_mask)
-        size = self.detection_image_size
+    def _detect(self, pixels: torch.Tensor, model=None, qvision=None):
+        model = model or self.model
+        qvision = qvision if qvision is not None else self.qvision
+        if qvision is not None:
+            feats = encode_image_int8(
+                qvision, pixels, model.cfg, dtype=model.dtype,
+                weight_only=self.config.detector_quant == "w8a16",
+            )
+        else:
+            feats = model.encode_image(pixels)
+        logits, boxes = model.predict(feats, self.query_embeds, self.query_mask)
+        size = model.cfg.vision.image_size
         return postprocess_detections(logits, boxes, (size, size))
+
+    @property
+    def _verify_model(self) -> OwlViTDetector:
+        return self.verify_model or self.model
+
+    def _detect_verify(self, pixels: torch.Tensor):
+        """``_detect`` through the verification view (reduced-resolution model
+        and matching quantized tower when configured; the main ones else)."""
+        return self._detect(
+            pixels, model=self._verify_model,
+            qvision=self.qvision_verify if self.qvision_verify is not None else self.qvision,
+        )
 
     def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(K,) seconds -> one grid image -> (conf (K,), presence (K, C))."""
@@ -66,10 +103,9 @@ class OwlVitScorer:
         return conf_map.reshape(-1), presence
 
     def score_verify(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(T,) seconds, each rescored alone at full detector size."""
-        pixels = build_verify_batch(
-            self.cache, secs, self.detection_image_size, dtype=self.model.dtype
-        )
+        """(T,) seconds, each rescored alone at the verification view's size."""
+        size = self._verify_model.cfg.vision.image_size
+        pixels = build_verify_batch(self.cache, secs, size, dtype=self.model.dtype)
         return self._score_verify_pixels(pixels)
 
     def _score_verify_pixels(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,7 +114,7 @@ class OwlVitScorer:
         ``splat_detections_to_cells`` with one cell, batched over the K
         images: every box lands in cell 0, so the cell max is the max over
         all kept weighted scores (floored at the map's initial 0)."""
-        scores, class_ids, _ = self._detect(pixels)
+        scores, class_ids, _ = self._detect_verify(pixels)
         keep = scores > self.config.detector_threshold
         adjusted = scores * self.class_weights[class_ids]
         vals = torch.where(keep, adjusted, torch.zeros_like(adjusted))
@@ -129,6 +165,30 @@ def build_prompt_batch(
     return ids_pad, mask_pad, weights
 
 
+def _weight_views(model: OwlViTDetector, config: SearchConfig):
+    """-> (qvision, verify_model, qvision_verify) for ``config``'s
+    ``detector_quant`` and ``verify_image_size``; Nones where not set."""
+    if config.detector_quant not in (None, "int8", "w8a16"):
+        raise ValueError(
+            f"unknown detector_quant={config.detector_quant!r}; "
+            "supported: None (compute dtype), 'int8' (W8A8), 'w8a16' (weight-only)"
+        )
+    qvision = quantize_vision_tower(model) if config.detector_quant is not None else None
+    verify_model = qvision_verify = None
+    size = config.verify_image_size
+    if size is not None and size != model.cfg.vision.image_size:
+        verify_model = resize_detector(model, size)
+        if qvision is not None:
+            src = model.cfg.vision
+            qvision_verify = {
+                **qvision,
+                "pos": interpolate_position_embedding(
+                    qvision["pos"], src.num_patches_side, size // src.patch_size
+                ),
+            }
+    return qvision, verify_model, qvision_verify
+
+
 @torch.no_grad()
 def make_owlvit_scorer(
     model: OwlViTDetector,
@@ -137,28 +197,25 @@ def make_owlvit_scorer(
     cue_objects: Sequence[str],
     tokenizer,
     config: SearchConfig,
+    weight_views=None,
 ) -> OwlVitScorer:
     """Tokenize the prompts, encode them once, bind the cache and weights.
 
     (The reference also takes a ``variables`` pytree; here the weights live
-    in the module.)  The cache must be on the model's device.  Options of
-    branches not ported yet (quantized detector, reduced verification size,
-    Pallas preprocessing) raise instead of being ignored.
+    in the module.)  The cache must be on the model's device.
+    ``weight_views`` is a ``_weight_views(model, config)`` result to reuse
+    (the heuristic keeps one per configuration); None builds it here.
+    ``use_pallas_preprocess=True`` raises: its kernel (K7) is not ported.
     """
     if cache.device != model.device:
         raise ValueError(f"cache on {cache.device}, model on {model.device}")
-    unported = {
-        "detector_quant": config.detector_quant is not None,
-        "verify_image_size": config.verify_image_size not in (
-            None, model.cfg.vision.image_size
-        ),
-        "use_pallas_preprocess": bool(config.use_pallas_preprocess),
-    }
-    if any(unported.values()):
+    if config.use_pallas_preprocess:
         raise NotImplementedError(
-            "SearchConfig options not ported yet: "
-            + ", ".join(f"{k}={getattr(config, k)!r}" for k, v in unported.items() if v)
+            "SearchConfig options not ported yet: use_pallas_preprocess=True"
         )
+    qvision, verify_model, qvision_verify = (
+        weight_views if weight_views is not None else _weight_views(model, config)
+    )
     ids_pad, mask_pad, weights = build_prompt_batch(
         target_objects, cue_objects, tokenizer, config
     )
@@ -173,4 +230,7 @@ def make_owlvit_scorer(
         query_mask=torch.from_numpy(ids_pad[:, 0] > 0).to(device),
         class_weights=torch.from_numpy(weights).to(device),
         config=config,
+        qvision=qvision,
+        verify_model=verify_model,
+        qvision_verify=qvision_verify,
     )

@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.ops.percentile import masked_percentile
 from tstar_tpu_torch.ops.sampling import (
     gumbel_topk_without_replacement,

@@ -16,7 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.search.engine import run_search
 from tstar_tpu_torch.search.state import init_state
 from tstar_tpu_torch.video.cache import FrameCache, build_frame_cache

@@ -15,7 +15,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu_torch.utils.config import SearchConfig
 
 
 @dataclasses.dataclass

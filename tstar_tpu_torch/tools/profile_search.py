@@ -1,0 +1,164 @@
+"""Where the device time of the port's full-width search goes, on one GPU.
+
+    python -m tstar_tpu_torch.tools.profile_search [--out FILE.json] [--top N]
+
+The search of ``chip_smoke.py`` phases 5 and 6 (``owl-vit-random`` B/32 in
+bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
+under each detector configuration: bf16; ``detector_quant='int8'`` with
+``verify_image_size=512``; ``detector_quant='w8a16'``; bf16 with
+``TSTAR_LN_MATMUL=force``.  For each: one warm-up search, one search timed
+on the host clock (ending in ``torch.cuda.synchronize()``), then one under
+``torch.profiler`` (CPU + CUDA activities).  From the profiler's device
+events it reports the summed device time, the device-busy share of the
+profiled wall (the union of the device intervals), each port kernel's
+device time and launches, and the largest kernel lines.  Needs a CUDA
+device; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+# Device-kernel name fragments of the port's hand-written kernels.
+PORT_KERNELS = {
+    "K1 mha": "mha_kernel",
+    "K2 patch_embed": "patch_embed",
+    "K3 layernorm": "_ln_kernel",
+    "K4 w8a8": "w8a8_kernel",
+    "K5 ln_matmul": "ln_matmul_kernel",
+}
+
+
+@contextlib.contextmanager
+def environ(env):
+    """Set the environment variables of ``env`` inside the block; restore
+    (or unset) them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _busy_ms(intervals):
+    """Length of the union of (start, end) intervals, in ms."""
+    total, cur_s, cur_e = 0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e6
+
+
+def profile_config(heur, config, top):
+    from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    def make(seed):
+        return KeyframeSearcher(
+            "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"],
+            search_budget=0.5, config=config, seed=seed, decoder=default_scene(600.0),
+        )
+
+    make(1).search()                                    # warm-up
+    searcher = make(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    searcher.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    searcher = make(0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        searcher.search()
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[e.name()][0] += e.duration_ns() / 1e6
+        by_name[e.name()][1] += 1
+        intervals.append((e.start_ns(), e.end_ns()))
+    device_ms = sum(v[0] for v in by_name.values())
+    port = {}
+    for label, frag in PORT_KERNELS.items():
+        hits = [v for k, v in by_name.items() if frag in k]
+        port[label] = {"ms": sum(v[0] for v in hits), "launches": sum(v[1] for v in hits)}
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "wall_s": wall, "profiled_wall_s": profiled_wall, "device_ms": device_ms,
+        "busy_ms": _busy_ms(intervals), "busy_share": _busy_ms(intervals) / (profiled_wall * 1e3),
+        "device_events": sum(v[1] for v in by_name.values()),
+        "port_kernels": port,
+        "largest": [{"name": k[:120], "ms": v[0], "count": v[1]} for k, v in largest],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    ap.add_argument("--top", type=int, default=8, help="largest kernel lines to keep")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_search needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    base = dict(cache_hw=(192, 384))
+    runs = {
+        "bf16": (SearchConfig(**base), {}),
+        "int8+verify512": (SearchConfig(detector_quant="int8", verify_image_size=512, **base), {}),
+        "w8a16": (SearchConfig(detector_quant="w8a16", **base), {}),
+        "ln_matmul": (SearchConfig(**base), {"TSTAR_LN_MATMUL": "force"}),
+    }
+    results = {"card": card, "torch": torch.__version__, "runs": {}}
+    for label, (config, env) in runs.items():
+        with environ(env):
+            r = profile_config(heur, config, args.top)
+        results["runs"][label] = r
+        kern = ", ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}" for k, v in r["port_kernels"].items())
+        print(f"[{label}] wall {r['wall_s']:.4f} s, profiled wall {r['profiled_wall_s']:.4f} s, "
+              f"device {r['device_ms']:.2f} ms in {r['device_events']} events, busy "
+              f"{r['busy_ms']:.2f} ms ({100 * r['busy_share']:.1f}% of the profiled wall); "
+              f"{kern}  ({card})", flush=True)
+        for line in r["largest"]:
+            print(f"[{label}]   {line['ms']:9.3f} ms {line['count']:6d}x  {line['name']}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tstar_tpu.utils.config import SearchConfig
+from tstar_tpu_torch.utils.config import SearchConfig
 
 logger = logging.getLogger(__name__)
 
