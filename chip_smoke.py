@@ -6,12 +6,13 @@ Phases (any failed check exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles the port's CUDA kernels from ``tstar_tpu_torch/csrc``;
   3. kernels: each hand-written kernel (K1 attention, K2 patch embed, K3
-     LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul) against its plain
+     LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul, K6 cache->patch
+     embeddings, K7 grid pack, K8 flash attention) against its plain
      PyTorch version at the main paths' shapes, with the max abs error, its
      tolerance (K4: exactly equal), CUDA-event times of kernel, plain
      version and the one PyTorch call that computes the same function where
-     there is one (``library_ms``; K4 and K5 have none and get GEMM-only
-     yardsticks), and the bound the card sets for the same work;
+     there is one (``library_ms``; K4-K7 have none and get yardsticks that
+     do part of the work), and the bound the card sets for the same work;
   4. tower numerics: one 768^2 grid image through the full-width OWL-ViT B/32
      (seeded random weights) in bf16 on the card with the kernels, against
      the same weights in f32 on the CPU with the plain versions;
@@ -21,10 +22,20 @@ Phases (any failed check exits non-zero and prints no result line):
   5. the slice: ``initialize_heuristic('owl-vit-random')`` in bf16 on the card,
      ``KeyframeSearcher.search()`` over a synthetic 600 s video; K1, K2 and
      K3 must launch during the search;
+  4c. grid-input and attention routes in the tower: the phase-4 grid's
+     embeddings through K6 and ``encode_patches``, and the phase-4 image with
+     ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8), each against the CPU
+     f32 pixel chain of phase 4;
   6. the detector knobs on the same search: ``detector_quant='int8'`` with
      ``verify_image_size=512`` (K4), ``detector_quant='w8a16'``, and the bf16
-     tower with ``TSTAR_LN_MATMUL=force`` (K5); every kernel's launches must
-     equal its launches per forward times the forwards.
+     tower with ``TSTAR_LN_MATMUL=force`` (K5);
+  7. the grid-input and attention routes on the same search:
+     ``use_pallas_preprocess=True`` (K7 once per grid forward),
+     ``TSTAR_GRID_EMBED=force`` (K6 once per grid forward, K2 only in
+     verification) and ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8 12
+     times per forward, K1 never).
+In phases 5-7 every kernel's launches must equal its launches per grid and
+per verification forward times those forwards.
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -42,6 +53,16 @@ from typing import Callable, Dict, Optional
 # tensor-core bf16 and int8 rates, and f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+KERNELS = ("fused_mha_from_qkv", "patch_embed_matmul", "fused_layernorm", "w8a8_matmul",
+           "ln_matmul", "grid_cell_embed", "build_detector_grid_pallas", "flash_mha")
+
+
+def launches(**per_forward):
+    """Every kernel's launches per detector forward, 0 where not named; a
+    value is a count for every forward or (per grid, per verify) forward."""
+    return {k: per_forward.get(k, 0) for k in KERNELS}
 
 
 def log(msg: str) -> None:
@@ -113,7 +134,9 @@ def kernel_cases(torch):
     """Phase 3's cases: every kernel at every shape the main paths give it."""
     from torch.nn import functional as F
 
-    from tstar_tpu_torch.kernels import attention, layernorm, ln_matmul, patch_matmul, quant_matmul
+    from tstar_tpu_torch.kernels import (
+        attention, grid_embed, layernorm, ln_matmul, pallas_grid, patch_matmul, quant_matmul,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -128,6 +151,11 @@ def kernel_cases(torch):
         "K1": {bf16: (1e-3, bf16_ulp), f32: (1e-6, 1e-5)},
         "K2": {bf16: (1e-4, bf16_ulp), f32: (1e-4, 1e-5)},
         "K3": {bf16: (1e-5, bf16_ulp), f32: (1e-5, 1e-5)},
+        # K7: the same 2-4 tap products, summed in another order, rounded once.
+        "K7": {bf16: (1e-6, bf16_ulp), f32: (1e-5, 1e-5)},
+        # K8 bf16: the kernel rounds the unnormalized probabilities, the plain
+        # version (as the reference) the normalized ones, each within 2^-9.
+        "K8": {bf16: (2e-3, bf16_ulp), f32: (1e-5, 1e-5)},
     }
     cases = []
 
@@ -254,6 +282,69 @@ def kernel_cases(torch):
                         b, F.layer_norm(x2, (768,), s_b, lb_b, 1e-5), w),
                 },
             ))
+
+    # K7.  The 192x384 cache (identity height) and a 180x320 one (resized
+    # height) into the 768^2 grid of 4x4 cells, B=1 (the grid forward).
+    for hw in ((192, 384), (180, 320)):
+        cache = torch.randint(0, 256, (640, *hw, 3), generator=g, device=dev, dtype=torch.uint8)
+        secs = torch.randperm(640, generator=g, device=dev)[:16]
+        frames = cache[secs].permute(0, 3, 1, 2).float()     # prebuilt for the yardstick
+        taps = 2 if hw[0] == 192 else 6                       # multiply-adds per value
+        for dt in (bf16, f32):
+            es = torch.empty((), dtype=dt).element_size()
+            cases.append(Case(
+                "K7", f"cache {hw[0]}x{hw[1]} -> 768x768x3", names[dt],
+                run=lambda cache=cache, secs=secs, dt=dt: pallas_grid.build_detector_grid_pallas(
+                    cache, secs, (4, 4), 768, dt),
+                plain=lambda cache=cache, secs=secs, dt=dt: pallas_grid.build_detector_grid_pallas_plain(
+                    cache, secs, (4, 4), 768, dt),
+                check=_close(*tols["K7"][dt]),
+                n_bytes=16 * hw[0] * hw[1] * 3 + 768 * 768 * 3 * es,
+                n_ops=768 * 768 * 3 * 2 * (taps + 1), kind="f32",
+                yardsticks={"interpolate bilinear (resize only)": lambda frames=frames: F.interpolate(
+                    frames, size=(192, 192), mode="bilinear", align_corners=False)},
+            ))
+
+    # K6.  The grid forward (B=1) at both caches, and B=16 (the batched
+    # gate's regime) at 192x384; 64 frames per video.  bf16 out.
+    for b, hw in ((1, (192, 384)), (16, (192, 384)), (1, (180, 320))):
+        cache = torch.randint(0, 256, (b, 64, *hw, 3), generator=g, device=dev, dtype=torch.uint8)
+        secs = torch.randint(0, 64, (b, 16), generator=g, device=dev)
+        w = (torch.randn(32, 32, 3, 768, generator=g, device=dev) * 0.02).to(bf16)
+        awk, gbias = (torch.from_numpy(t).to(dev) for t in grid_embed._width_affine(hw[1], 192))
+        ah = grid_embed._height_matrix(hw[0], 192)
+        ah = None if ah is None else torch.from_numpy(ah).to(dev)
+        canvas = torch.randn(b, 3, 768, 768, generator=g, device=dev).to(bf16)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        kw = dict(grid_shape=(4, 4), cell_hw=(192, 192), patch_size=32)
+        cases.append(Case(
+            "K6", f"B={b} cache {hw[0]}x{hw[1]} -> 576x768", "u8->bf16",
+            run=lambda a=(cache, secs, awk, gbias, ah, w): grid_embed.grid_cell_embed(*a, **kw),
+            plain=lambda a=(cache, secs, awk, gbias, ah, w): grid_embed.grid_cell_embed_plain(*a, **kw),
+            check=_close(1e-4, bf16_ulp),
+            n_bytes=b * 16 * hw[0] * hw[1] * 3 + 3072 * 768 * 2 + b * 576 * 768 * 2,
+            n_ops=2 * b * 576 * 3072 * 768, kind="bf16",
+            yardsticks={"conv2d stride 32 on a built canvas (GEMM only)":
+                        lambda x=canvas, w=w_oihw: F.conv2d(x, w, stride=32)},
+        ))
+
+    # K8.  (B, S, 12, 64) views into the fused (B, S, 3*768) projection:
+    # B=1 the grid forward, 8 / 16 the verify forwards, S=257 verify at 512.
+    for b, s in ((1, 577), (8, 577), (16, 577), (16, 257)):
+        base = torch.randn(b, s, 3 * 768, generator=g, device=dev)
+        for dt in (bf16, f32):
+            qkv = base.to(dt)
+            q, k, v = (t.view(b, s, 12, 64) for t in qkv.split(768, dim=-1))
+            es = qkv.element_size()
+            cases.append(Case(
+                "K8", f"B={b} S={s} 12x64", names[dt],
+                run=lambda q=q, k=k, v=v: attention.flash_mha(q, k, v),
+                plain=lambda q=q, k=k, v=v: attention.flash_mha_plain(q, k, v),
+                check=_close(*tols["K8"][dt]),
+                n_bytes=4 * b * s * 768 * es, n_ops=4 * b * 12 * s * s * 64, kind=names[dt],
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            ))
     return cases
 
 
@@ -343,7 +434,7 @@ def phase_tower(torch):
     if not ok:
         raise SystemExit("full-width tower on the card disagrees with the CPU reference")
     return {"cfg": cfg, "cpu_model": cpu_model, "gpu_model": gpu_model, "pixels": pixels,
-            "queries": queries, "cpu_scores": cs}
+            "queries": queries, "cpu_scores": cs, "host": host, "secs": secs}
 
 
 def phase_int8_tower(torch, tower):
@@ -397,12 +488,57 @@ def phase_int8_tower(torch, tower):
         raise SystemExit("int8 tower on the card disagrees with its references")
 
 
+def phase_route_tower(torch, tower):
+    """Phase 4c: the phase-4 grid on the card through K6 + ``encode_patches``,
+    and the phase-4 image under ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1``
+    (K8), each against the CPU f32 pixel chain's scores."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.kernels.grid_embed import _width_affine, grid_cell_embed
+    from tstar_tpu_torch.models.owlvit import postprocess_detections
+    from tstar_tpu_torch.tools.profile_search import environ
+
+    model = tower["gpu_model"]
+    with torch.no_grad():
+        q, qmask = tower["queries"](model, "cuda")
+
+        def scores(feats):
+            return postprocess_detections(*model.predict(feats, q, qmask), (768, 768))[0]
+
+        cache = torch.from_numpy(tower["host"].frames).to("cuda")
+        awk, bias = (torch.from_numpy(t).to("cuda") for t in _width_affine(384, 192))
+        reset_launch_counts()
+        emb = grid_cell_embed(
+            cache[None], tower["secs"].to("cuda")[None], awk, bias, None,
+            model.vision.patch_embedding.kernel, grid_shape=(4, 4), cell_hw=(192, 192),
+            patch_size=32,
+        )
+        runs = {"K6 + encode_patches": (scores(model.encode_patches(emb)), launch_counts())}
+        with environ({"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"}):
+            reset_launch_counts()
+            feats = model.encode_image(tower["pixels"]("cuda", torch.bfloat16))
+            runs["K8 flash route"] = (scores(feats), launch_counts())
+        torch.cuda.synchronize()
+    want = {"K6 + encode_patches": {"grid_cell_embed": 1, "patch_embed_matmul": 0},
+            "K8 flash route": {"flash_mha": 12, "fused_mha_from_qkv": 0}}
+    tol = 2e-2   # phase 4's: twelve layers of bf16 rounding on random weights
+    for label, (gs, counts) in runs.items():
+        err = (gs.float().cpu() - tower["cpu_scores"]).abs().max().item()
+        ok = (err <= tol and bool(torch.isfinite(gs).all()) and gs.shape == (1, 576)
+              and all(counts[k] == n for k, n in want[label].items()))
+        log(f"[route tower] {label}: B/32 full width, one 768^2 grid, max |score cuda-bf16 - "
+            f"cpu-f32 pixel chain| = {err:.3e} (tol {tol:.0e}); launches "
+            f"{ {k: counts[k] for k in want[label]} } {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: the full-width tower on the card disagrees")
+
+
 def run_search(torch, card, heur, label, config, per_forward, env=None):
     """One warm-up and one measured ``KeyframeSearcher.search()`` with
     ``config`` (and ``env`` set for both, restored after); the measured one
-    runs with every launch count set to 0 just before it.  ``per_forward``:
-    each kernel's launches per detector forward; the counts must equal it
-    times the forwards.  Returns the launch counts."""
+    runs with every launch count set to 0 just before it.  ``per_forward``
+    (see ``launches``): each kernel's launches per detector forward, or per
+    grid and per verification forward; the counts must equal it times the
+    forwards.  Returns the launch counts."""
     from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
     from tstar_tpu_torch.tools.profile_search import environ
@@ -448,13 +584,18 @@ def run_search(torch, card, heur, label, config, per_forward, env=None):
     state = searcher._final_state
     scores = searcher.score_distribution
     forwards = counted["grid"] + len(counted["verify_batches"])
+
+    def expected(n):
+        grid_n, verify_n = n if isinstance(n, tuple) else (n, n)
+        return grid_n * counted["grid"] + verify_n * len(counted["verify_batches"])
+
     checks = {
         "8 timestamps": len(stamps) == 8 and len(frames) == 8,
         "timestamps in range": all(0 <= t < searcher.duration for t in stamps),
         "timestamps sorted": stamps == sorted(stamps),
         "finite scores": bool(torch.isfinite(state.scores).all()) and len(scores) == 600,
         "frames at native size": all(f.shape == (360, 640, 3) for f in frames),
-        **{f"{k} launched {n} x {forwards} forwards": counts[k] == n * forwards
+        **{f"{k} launched {n} per (grid, verify) forward": counts[k] == expected(n)
            for k, n in per_forward.items()},
     }
     log(f"[{label}] iterations={state.iteration} frames_scored={counted['frames']} "
@@ -474,8 +615,7 @@ def phase_slice(torch, card, heur):
     from tstar_tpu_torch import SearchConfig
 
     cfg = SearchConfig(cache_hw=(192, 384))
-    per_forward = {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "fused_layernorm": 27,
-                   "w8a8_matmul": 0, "ln_matmul": 0}
+    per_forward = launches(fused_mha_from_qkv=12, patch_embed_matmul=1, fused_layernorm=27)
     counts, _ = run_search(torch, card, heur, "slice", cfg, per_forward)
     return counts
 
@@ -488,20 +628,43 @@ def phase_knobs(torch, card, heur):
     base = dict(cache_hw=(192, 384))
     runs = {
         "int8+verify512": (SearchConfig(detector_quant="int8", verify_image_size=512, **base), None,
-                           {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "w8a8_matmul": 48,
-                            "fused_layernorm": 0, "ln_matmul": 0}),
+                           launches(fused_mha_from_qkv=12, patch_embed_matmul=1, w8a8_matmul=48)),
         "w8a16": (SearchConfig(detector_quant="w8a16", **base), None,
-                  {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "w8a8_matmul": 0,
-                   "fused_layernorm": 0, "ln_matmul": 0}),
+                  launches(fused_mha_from_qkv=12, patch_embed_matmul=1)),
         "ln_matmul": (SearchConfig(**base), {"TSTAR_LN_MATMUL": "force"},
-                      {"fused_mha_from_qkv": 12, "patch_embed_matmul": 1, "ln_matmul": 24,
-                       "fused_layernorm": 3, "w8a8_matmul": 0}),
+                      launches(fused_mha_from_qkv=12, patch_embed_matmul=1, ln_matmul=24,
+                               fused_layernorm=3)),
     }
     out = {}
     for label, (cfg, env, per_forward) in runs.items():
         counts, counted = run_search(torch, card, heur, label, cfg, per_forward, env=env)
         if label == "int8+verify512" and not counted["verify_batches"]:
             raise SystemExit("int8+verify512: no verification ran, the 512 tower was not driven")
+        out[label] = counts
+    return out
+
+
+def phase_routes(torch, card, heur):
+    """Phase 7: the same search over the grid-input and attention routes;
+    returns each run's launch counts."""
+    from tstar_tpu_torch import SearchConfig
+
+    base = dict(cache_hw=(192, 384))
+    tower = dict(fused_mha_from_qkv=12, fused_layernorm=27)
+    runs = {
+        "k7 pallas preprocess": (
+            SearchConfig(use_pallas_preprocess=True, **base), None,
+            launches(build_detector_grid_pallas=(1, 0), patch_embed_matmul=1, **tower)),
+        "k6 grid embed": (
+            SearchConfig(**base), {"TSTAR_GRID_EMBED": "force"},
+            launches(grid_cell_embed=(1, 0), patch_embed_matmul=(0, 1), **tower)),
+        "k8 flash": (
+            SearchConfig(**base), {"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"},
+            launches(flash_mha=12, patch_embed_matmul=1, fused_layernorm=27)),
+    }
+    out = {}
+    for label, (cfg, env, per_forward) in runs.items():
+        counts, _ = run_search(torch, card, heur, label, cfg, per_forward, env=env)
         out[label] = counts
     return out
 
@@ -530,10 +693,12 @@ def main() -> int:
     rows = phase_kernels(torch, card)
     tower = phase_tower(torch)
     phase_int8_tower(torch, tower)
+    phase_route_tower(torch, tower)
     del tower
     heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
     counts = phase_slice(torch, card, heur)
     knobs = phase_knobs(torch, card, heur)
+    routes = phase_routes(torch, card, heur)
 
     # name, route, source, TPU kernel, launches (from the run of its path)
     meta = {
@@ -547,6 +712,13 @@ def main() -> int:
                "tstar_tpu/kernels/quant_matmul.py:64", knobs["int8+verify512"]["w8a8_matmul"]),
         "K5": ("ln_matmul", "cuda", "tstar_tpu_torch/csrc/ln_matmul.cu",
                "tstar_tpu/kernels/ln_matmul.py:86", knobs["ln_matmul"]["ln_matmul"]),
+        "K6": ("grid_cell_embed", "cuda", "tstar_tpu_torch/csrc/grid_embed.cu",
+               "tstar_tpu/kernels/grid_embed.py:181", routes["k6 grid embed"]["grid_cell_embed"]),
+        "K7": ("build_detector_grid_pallas", "triton", "tstar_tpu_torch/kernels/pallas_grid.py",
+               "tstar_tpu/kernels/pallas_grid.py:141",
+               routes["k7 pallas preprocess"]["build_detector_grid_pallas"]),
+        "K8": ("flash_mha", "cuda", "tstar_tpu_torch/csrc/flash_attn.cu",
+               "tstar_tpu/kernels/attention.py:621", routes["k8 flash"]["flash_mha"]),
     }
     kernels = []
     for k, (name, route, source, replaces, launches) in meta.items():

@@ -11,18 +11,32 @@ forward), 8 and 16 (verify forwards), and S=257 (verify at 512); 768^2 and
 512^2 images with 32-pixel patches; LayerNorm over 577, 8*577 and 16*577
 rows of 768, and 256 rows of 512 (the text tower); the int8 tower's four
 dense layers (K4) and the two LayerNorm->matmul folds (K5) at 577, 16*257
-and 16*577 rows.
+and 16*577 rows; the grid inputs (K6, K7) over a 192x384 cache (identity
+height) and a 180x320 one (resized height) into 4x4 cells of 192^2; flash
+attention (K8) on the fused projection's strided views.
 """
 
 import pytest
 import torch
 
 from tstar_tpu_torch.kernels.attention import (
+    flash_mha,
+    flash_mha_plain,
     fused_mha_from_qkv,
     fused_mha_from_qkv_plain,
 )
+from tstar_tpu_torch.kernels.grid_embed import (
+    _height_matrix,
+    _width_affine,
+    grid_cell_embed,
+    grid_cell_embed_plain,
+)
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, fused_layernorm_plain
 from tstar_tpu_torch.kernels.ln_matmul import bf16_error_bound, ln_matmul, ln_matmul_plain
+from tstar_tpu_torch.kernels.pallas_grid import (
+    build_detector_grid_pallas,
+    build_detector_grid_pallas_plain,
+)
 from tstar_tpu_torch.kernels.patch_matmul import (
     patch_embed_matmul,
     patch_embed_matmul_plain,
@@ -57,8 +71,12 @@ def _assert_close(got, want, tol):
     atol, rtol = tol
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    bad = (got - want).abs() > atol + rtol * want.abs()
-    assert not bad.any(), f"max abs err {(got - want).abs().max().item():.3e}"
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    assert not bad.any(), (
+        f"max abs err {err.max().item():.3e}; {int(bad.sum())} outside the tolerance, worst "
+        f"{err[bad].max().item():.3e} where the reference is {want[bad][err[bad].argmax()].item():.6e}"
+    )
 
 
 @pytest.mark.cuda
@@ -174,3 +192,69 @@ def test_ln_matmul_kernel_matches_plain_on_card(cuda, rows, n):
     assert torch.isfinite(got.float()).all()
     bound = bf16_error_bound(x, scale, bias, w, b, 1e-5, want)
     assert bool((err <= bound).all()), f"max abs err {err.max().item():.3e}"
+
+
+def _frames(cuda, seed, n, hw):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cache = torch.randint(0, 256, (n, *hw, 3), generator=g, device=cuda, dtype=torch.int32)
+    secs = torch.randperm(n, generator=g, device=cuda)[:16]
+    return cache.to(torch.uint8), secs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(192, 384), (180, 320)])
+def test_grid_pack_kernel_matches_plain_on_card(cuda, dtype, hw):
+    """K7: f32 within 1e-5 (the same 2-4 tap products summed in another
+    order); bf16 within one ulp of the same value, plus 1e-6 where ``* scale
+    + bias`` cancels to near 0 and bf16 keeps the f32 difference."""
+    cache, secs = _frames(cuda, 1, 640, hw)
+    before = build_detector_grid_pallas.launches
+    got = build_detector_grid_pallas(cache, secs, (4, 4), 768, dtype)
+    torch.cuda.synchronize()
+    assert build_detector_grid_pallas.launches == before + 1
+    assert got.shape == (1, 768, 768, 3) and got.dtype == dtype
+    want = build_detector_grid_pallas_plain(cache, secs, (4, 4), 768, dtype)
+    _assert_close(got, want, (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, _BF16_ULP))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw", [(1, (192, 384)), (16, (192, 384)), (1, (180, 320))])
+def test_grid_embed_kernel_matches_plain_on_card(cuda, b, hw):
+    """K6: the canvas values round as the plain version's; the bf16 patch
+    GEMM sums 3072 products in another order: one bf16 ulp plus 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    cache = torch.randint(0, 256, (b, 640, *hw, 3), generator=g, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+    secs = torch.randint(0, 640, (b, 16), generator=g, device=cuda)
+    w = (torch.randn(32, 32, 3, 768, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    awk, bias = (torch.from_numpy(t).to(cuda) for t in _width_affine(hw[1], 192))
+    ah = _height_matrix(hw[0], 192)
+    ah = None if ah is None else torch.from_numpy(ah).to(cuda)
+    kw = dict(grid_shape=(4, 4), cell_hw=(192, 192), patch_size=32)
+    before = grid_cell_embed.launches
+    got = grid_cell_embed(cache, secs, awk, bias, ah, w, **kw)
+    torch.cuda.synchronize()
+    assert grid_cell_embed.launches == before + 1
+    assert got.shape == (b, 576, 768) and got.dtype == torch.bfloat16
+    _assert_close(got, grid_cell_embed_plain(cache, secs, awk, bias, ah, w, **kw), (1e-4, _BF16_ULP))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(1, 577), (8, 577), (16, 577), (16, 257), (2, 70)])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s):
+    """K8 on (B, S, 12, 64) views into a (B, S, 3*768) projection.  f32: sums
+    and exp in other orders, (1e-5, 1e-5).  bf16: the kernel rounds the
+    unnormalized probabilities, the plain version (as the reference) the
+    normalized ones, each within 2^-9: one bf16 ulp of the output plus 2e-3."""
+    g = torch.Generator(device=cuda).manual_seed(b * s)
+    qkv = torch.randn(b, s, 3 * 768, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.view(b, s, 12, 64) for t in qkv.split(768, dim=-1))
+    before = flash_mha.launches
+    got = flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    assert got.shape == (b, s, 12, 64) and got.dtype == dtype
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (2e-3, _BF16_ULP)
+    _assert_close(got, flash_mha_plain(q, k, v), tol)

@@ -22,8 +22,8 @@ import torch
 from tstar_tpu.kernels.attention import fused_mha_from_qkv as jax_mha
 from tstar_tpu.kernels.layernorm import fused_layernorm as jax_ln
 from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
-from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
-from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels import grid_embed, launch_counts, pallas_grid, reset_launch_counts
+from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
@@ -115,7 +115,14 @@ def test_cpu_wrappers_run_the_plain_versions():
                 torch.zeros(16), torch.float32)
     ln_matmul(torch.ones(1, 4, 32), torch.ones(32), torch.zeros(32), torch.ones(32, 16),
               torch.zeros(16), 1e-5)
+    cache, secs = torch.zeros(1, 4, 16, 32, 3, dtype=torch.uint8), torch.zeros(1, 4, dtype=torch.long)
+    awk, gbias = (torch.from_numpy(t) for t in grid_embed._width_affine(32, 16))
+    grid_embed.grid_cell_embed(cache, secs, awk, gbias, None, torch.zeros(8, 8, 3, 8),
+                               grid_shape=(2, 2), cell_hw=(16, 16), patch_size=8)
+    pallas_grid.build_detector_grid_pallas(cache[0], secs[0], (2, 2), 32)
+    flash_mha(*(torch.zeros(1, 8, 2, 64) for _ in range(3)))
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
-        "w8a8_matmul": 0, "ln_matmul": 0,
+        "w8a8_matmul": 0, "ln_matmul": 0, "grid_cell_embed": 0,
+        "build_detector_grid_pallas": 0, "flash_mha": 0,
     }

@@ -1,6 +1,7 @@
-"""Slices 1 and 2 of the port as a whole: detector scorer (in its compute
-dtype, quantized, and with a reduced verification size), frame cache,
-searcher.
+"""Slices 1 to 3 of the port as a whole: detector scorer (in its compute
+dtype, quantized, with a reduced verification size, and over the K7 grid
+kernel; the other slice-3 routes are in ``tests/test_torch_preprocess.py``
+and ``tests/test_torch_flash.py``), frame cache, searcher.
 
 The slice tests drive the reference and the port over the same synthetic
 frame cache, with the same tiny OWL-ViT weights (``params_from_jax``) and
@@ -152,14 +153,24 @@ def test_scorer_rejects_unknown_quant(pair):
 
 @pytest.mark.parametrize("override", [{"use_pallas_preprocess": True}])
 def test_scorer_rejects_unported_options(pair, override):
-    """A branch the port does not have raises instead of being ignored; the
-    native verification size and an explicit False are the ported path."""
+    """The option earlier slices refused, ``use_pallas_preprocess=True``, now
+    builds and routes each grid forward through K7 (its plain version on a
+    CPU tensor); the native verification size and an explicit False are the
+    default path."""
     tmodel, host = pair[2], pair[3]
     cache = torch.from_numpy(host.frames)
-    with pytest.raises(NotImplementedError, match=next(iter(override))):
-        tds.make_owlvit_scorer(
-            tmodel, cache, TARGETS, CUES, THash(100, 8), dataclasses.replace(CFG, **override)
-        )
+    cfg = dataclasses.replace(CFG, **override)
+    scorer = tds.make_owlvit_scorer(tmodel, cache, TARGETS, CUES, THash(100, 8), cfg)
+    assert scorer.config.use_pallas_preprocess is True
+    from tstar_tpu_torch.kernels import pallas_grid
+
+    calls = []
+    real = pallas_grid.build_detector_grid_pallas_plain
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pallas_grid, "build_detector_grid_pallas_plain",
+                   lambda *a, **k: calls.append(1) or real(*a, **k))
+        conf, _ = scorer.score_grid(torch.from_numpy(SECS))
+    assert calls == [1] and conf.shape == (16,) and torch.isfinite(conf).all()
     native = tmodel.cfg.vision.image_size
     ok = dataclasses.replace(CFG, verify_image_size=native, use_pallas_preprocess=False)
     scorer = tds.make_owlvit_scorer(tmodel, cache, TARGETS, CUES, THash(100, 8), ok)
@@ -261,6 +272,7 @@ PORT_MODULES = [
     "tstar_tpu_torch.kernels.patch_matmul", "tstar_tpu_torch.kernels.layernorm",
     "tstar_tpu_torch.kernels.quant_matmul", "tstar_tpu_torch.kernels.ln_matmul",
     "tstar_tpu_torch.kernels.image", "tstar_tpu_torch.kernels._build",
+    "tstar_tpu_torch.kernels.grid_embed", "tstar_tpu_torch.kernels.pallas_grid",
     "tstar_tpu_torch.models", "tstar_tpu_torch.models.transformer",
     "tstar_tpu_torch.models.owlvit_quant", "tstar_tpu_torch.video",
     "tstar_tpu_torch.framework", "tstar_tpu_torch.tools.profile_search", "chip_smoke",

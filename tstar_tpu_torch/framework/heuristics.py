@@ -44,7 +44,10 @@ class OwlVitHeuristic:
             vocab_size=cfg.text.vocab_size, context=cfg.text.max_length
         )
         # Quantized towers and reduced-resolution views, built once per
-        # (detector_quant, verify_image_size) and reused by later searches.
+        # (detector_quant, verify_image_size), all they depend on, and reused
+        # by later searches.  The grid-input views (composed projection, K6's
+        # matrices) also depend on the cache geometry and on environment
+        # switches: make_owlvit_scorer builds those for every scorer.
         self._weight_views = {}
 
     def build_scorer(self, cache, target_objects, cue_objects, config):

@@ -1,9 +1,13 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: K1 ``attention.fused_mha_from_qkv`` (CUDA), K2
 ``patch_matmul.patch_embed_matmul`` (CUDA), K3 ``layernorm.fused_layernorm``
-(Triton), K4 ``quant_matmul.w8a8_matmul`` (CUDA) and K5
-``ln_matmul.ln_matmul`` (CUDA).  ``image.py`` is plain PyTorch (the
-reference's is XLA code).
+(Triton), K4 ``quant_matmul.w8a8_matmul`` (CUDA), K5 ``ln_matmul.ln_matmul``
+(CUDA), K6 ``grid_embed.grid_cell_embed`` (CUDA), K7
+``pallas_grid.build_detector_grid_pallas`` (Triton) and K8
+``attention.flash_mha`` (CUDA): every TPU kernel of the reference has its
+counterpart.  ``image.py`` (the pixel chain and the composed projection) and
+``attention.bf16_probs_attention`` are plain PyTorch (the reference's are
+XLA code).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; ``launch_counts`` / ``reset_launch_counts`` read and clear them.
@@ -13,9 +17,11 @@ from typing import Dict
 
 
 def _wrappers():
-    from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+    from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
+    from tstar_tpu_torch.kernels.grid_embed import grid_cell_embed
     from tstar_tpu_torch.kernels.layernorm import fused_layernorm
     from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+    from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
     from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
     from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
 
@@ -25,6 +31,9 @@ def _wrappers():
         "fused_layernorm": fused_layernorm,
         "w8a8_matmul": w8a8_matmul,
         "ln_matmul": ln_matmul,
+        "grid_cell_embed": grid_cell_embed,
+        "build_detector_grid_pallas": build_detector_grid_pallas,
+        "flash_mha": flash_mha,
     }
 
 

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``tstar_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into ONE shared library with a plain C
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into ONE shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The build runs at first use, into ``tstar_tpu_torch/_build/``
 (git-ignored), under a name keyed by the sources' hash, so an edited source
@@ -51,25 +52,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library if it is not built yet; returns its path.  The
+    """Compile the library if it is not built yet; returns its path.  One
+    ``nvcc -c`` per source, all started together, then one link.  The
     compiler's register and shared-memory report (``-Xptxas -v``) is kept
-    beside it as ``<name>.ptxas.txt``."""
+    beside the library as ``<name>.ptxas.txt``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for obj, cmd, proc in jobs:          # wait for every job, failed or not
+        _, err = proc.communicate()
+        report.append(f"== {obj.name}\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp),
-        *[str(s) for s in sorted(CSRC.glob("*.cu"))],
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text(proc.stderr)
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for obj, _, _ in jobs:
+            obj.unlink(missing_ok=True)
+    (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text("\n".join(report))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -96,6 +112,16 @@ def load() -> ctypes.CDLL:
         # x, scale32, bias32, w, b, out, R, D, N, eps, stream
         lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
         lib.tstar_ln_matmul_bf16.restype = ci
+        # cache, secs, awk, bias, ah, wtap, htap, w, out,
+        # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, stream
+        lib.tstar_grid_embed.argtypes = [vp] * 9 + [ci] * 10 + [vp]
+        lib.tstar_grid_embed.restype = ci
+        for name in ("tstar_flash_bf16", "tstar_flash_f32"):
+            fn = getattr(lib, name)
+            # q, k, v, out, B, S, H, D, (batch, seq, head) strides of q, k, v,
+            # sm_scale, stream
+            fn.argtypes = [vp] * 4 + [ci] * 4 + [ctypes.c_longlong] * 9 + [cf, vp]
+            fn.restype = ci
         lib.tstar_error_string.argtypes = [ci]
         lib.tstar_error_string.restype = ctypes.c_char_p
         _lib = lib

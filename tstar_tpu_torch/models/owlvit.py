@@ -106,7 +106,13 @@ class VisionTower(nn.Module):
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalized pixels -> last hidden states (B, 1+P, D)."""
-        patches = self.patch_embedding(pixels)
+        return self.from_patches(self.patch_embedding(pixels))
+
+    def from_patches(self, patches: torch.Tensor) -> torch.Tensor:
+        """(B, P, D) patch embeddings -> last hidden states (B, 1+P, D); the
+        entry of the paths that embed the grid without detector pixels (the
+        composed projection, K6)."""
+        patches = patches.to(self.class_embedding.dtype)
         b = patches.shape[0]
         cls = self.class_embedding.expand(b, 1, -1)
         x = torch.cat([cls, patches], dim=1) + self.position_embedding[None]
@@ -220,7 +226,15 @@ class OwlViTDetector(nn.Module):
 
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> merged per-patch features (B, P, D)."""
-        hidden = self.post_layernorm(self.vision(pixels))
+        return self._merge(self.vision(pixels))
+
+    def encode_patches(self, patch_embeds: torch.Tensor) -> torch.Tensor:
+        """(B, P, D) patch embeddings -> merged features (B, P, D):
+        ``encode_image`` after the patch-embedding matmul."""
+        return self._merge(self.vision.from_patches(patch_embeds))
+
+    def _merge(self, hidden: torch.Tensor) -> torch.Tensor:
+        hidden = self.post_layernorm(hidden)
         feats = hidden[:, 1:, :] * hidden[:, :1, :]
         return self.merged_layernorm(feats)
 

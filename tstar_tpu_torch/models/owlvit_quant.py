@@ -4,8 +4,11 @@ The six dense matmuls of every encoder layer (q|k|v fused into one, out_proj,
 fc1, fc2) run as W8A8 (``ops/quant.dense_w8a8``, kernel K4 on the card) or,
 with ``weight_only``, as W8A16 (``dense_w8a16``).  What stays in floating
 point, as in the reference: the patch embedding (compute dtype, K2), the
-LayerNorms and softmax statistics (f32), and attention (K1 on the fused
-q|k|v projection).  ``SearchConfig.detector_quant`` selects it.
+LayerNorms and softmax statistics (f32), and attention (the reference's
+order: K1 on the fused q|k|v projection unless ``TSTAR_FUSED_MHA=0``, else
+K8 ``flash_mha`` under ``use_flash_attention``, else plain attention; this
+tower has no bf16-probabilities branch).  ``SearchConfig.detector_quant``
+selects it.
 
 Numerics follow the reference: its two-pass-variance LayerNorm that returns
 f32 (``_layernorm``, not K3's ``use_fast_variance`` formula), fc1 writing f32
@@ -15,14 +18,19 @@ so a bf16 model is quantized from its bf16 weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels.attention import (
+    flash_mha,
+    fused_mha_from_qkv,
+    use_flash_attention,
+    use_fused_mha,
+)
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
 from tstar_tpu_torch.models.owlvit import OwlViTConfig, OwlViTDetector
-from tstar_tpu_torch.models.transformer import ACTIVATIONS, LayerNorm
+from tstar_tpu_torch.models.transformer import ACTIVATIONS, LayerNorm, dot_product_attention
 from tstar_tpu_torch.ops.quant import dense_w8a8, dense_w8a16, quantize_weight
 
 
@@ -85,16 +93,19 @@ def _layernorm(x: torch.Tensor, ln: Dict[str, torch.Tensor], eps: float) -> torc
 @torch.no_grad()
 def encode_image_int8(
     qparams: Dict[str, Any],
-    pixels: torch.Tensor,        # (B, S, S, 3) CLIP-normalized
+    pixels: Optional[torch.Tensor],   # (B, S, S, 3) CLIP-normalized, or None
     cfg: OwlViTConfig,
     dtype: torch.dtype = torch.bfloat16,
     weight_only: bool = False,
+    patch_embeds: Optional[torch.Tensor] = None,   # (B, P, D) precomputed
 ) -> torch.Tensor:
     """Quantized counterpart of ``OwlViTDetector.encode_image``:
     (B, S, S, 3) pixels -> merged per-patch features (B, P, D) in ``dtype``.
 
     ``weight_only`` (``detector_quant='w8a16'``) runs the same int8 weights
-    through ``dense_w8a16`` with activations in ``dtype``.
+    through ``dense_w8a16`` with activations in ``dtype``.  With
+    ``patch_embeds`` (the composed projection or K6) ``pixels`` is ignored
+    and the tower starts after the patch-embedding matmul.
     """
     if weight_only:
         def dense(x, w, s, b, out_dtype):
@@ -103,10 +114,14 @@ def encode_image_int8(
         dense = dense_w8a8
     c = cfg.vision
     eps = c.eps
-    patches = patch_embed_matmul(
-        pixels.to(dtype).contiguous(), qparams["patch_kernel"].to(dtype).contiguous()
-    )
-    b = patches.shape[0]
+    if patch_embeds is not None:
+        patches = patch_embeds.to(dtype)
+    else:
+        patches = patch_embed_matmul(
+            pixels.to(dtype).contiguous(), qparams["patch_kernel"].to(dtype).contiguous()
+        )
+    b, seq = patches.shape[0], patches.shape[1] + 1
+    head_dim = c.hidden_size // c.num_heads
     cls = qparams["cls"].to(dtype).expand(b, 1, c.hidden_size)
     x = torch.cat([cls, patches], dim=1) + qparams["pos"].to(dtype)[None]
     x = _layernorm(x, qparams["pre_ln"], eps).to(dtype)
@@ -115,7 +130,17 @@ def encode_image_int8(
     for lyr in qparams["layers"]:
         h = _layernorm(x, lyr["ln1"], eps)
         qkv = dense(h, lyr["qkv"]["w"], lyr["qkv"]["s"], lyr["qkv"]["b"], out_dtype=dtype)
-        attn = fused_mha_from_qkv(qkv, c.num_heads)
+        if use_fused_mha():
+            attn = fused_mha_from_qkv(qkv, c.num_heads)
+        else:
+            q, k, v = (
+                t.reshape(b, seq, c.num_heads, head_dim) for t in qkv.split(c.hidden_size, -1)
+            )
+            if use_flash_attention(q, None):
+                attn = flash_mha(q, k, v)
+            else:
+                attn = dot_product_attention(q, k, v, None)
+            attn = attn.reshape(b, seq, c.hidden_size)
         x = x + dense(attn, lyr["o"]["w"], lyr["o"]["s"], lyr["o"]["b"], out_dtype=dtype)
         h = _layernorm(x, lyr["ln2"], eps)
         h = dense(h, lyr["fc1"]["w"], lyr["fc1"]["s"], lyr["fc1"]["b"], out_dtype=torch.float32)

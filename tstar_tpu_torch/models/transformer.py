@@ -4,9 +4,13 @@ Layouts follow the reference: Dense kernels are (in, out), and the q/k/v
 projections run as ONE (D, 3D) matmul whose (B, S, 3D) output the fused
 attention kernel (K1) reads directly.  A module computes in the dtype of its
 parameters (``model.to(torch.bfloat16)`` for the card, float32 for parity
-tests).  LayerNorms go through K3 and unbiased self-attention through K1;
-the text tower's causal + padding bias takes plain masked softmax attention,
-as in the reference.  Each pre-norm LayerNorm is handed to the projection it
+tests).  LayerNorms go through K3.  Self-attention takes the reference's
+order: K1 when there is no bias and ``use_fused_mha`` (off under
+``TSTAR_FUSED_MHA=0``); otherwise the heads are split and the call goes to
+K8 ``flash_mha`` if ``use_flash_attention``, else to
+``bf16_probs_attention`` if ``use_bf16_probs``, else to plain masked softmax
+attention, which the text tower's causal + padding bias always takes.  Each
+pre-norm LayerNorm is handed to the projection it
 feeds (ln1 -> qkv, ln2 -> fc1), which folds it into its matmul through K5
 when ``use_ln_matmul`` says so (``TSTAR_LN_MATMUL``); otherwise it is K3,
 then ``torch.matmul``.
@@ -20,7 +24,14 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from tstar_tpu_torch.kernels.attention import fused_mha_from_qkv
+from tstar_tpu_torch.kernels.attention import (
+    bf16_probs_attention,
+    flash_mha,
+    fused_mha_from_qkv,
+    use_bf16_probs,
+    use_flash_attention,
+    use_fused_mha,
+)
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul, use_ln_matmul
 
@@ -101,15 +112,19 @@ class MultiHeadAttention(nn.Module):
             qkv = ln_matmul(x, ln.scale, ln.bias, self.qkv_kernel, self.qkv_bias, ln.eps)
         else:
             qkv = torch.matmul(ln(x), self.qkv_kernel) + self.qkv_bias   # (B, S, 3D)
-        if attn_bias is None:
-            out = fused_mha_from_qkv(qkv, self.num_heads)
+        if attn_bias is None and use_fused_mha():
+            return self.out_proj(fused_mha_from_qkv(qkv, self.num_heads))
+        q, k, v = (
+            t.reshape(*t.shape[:-1], self.num_heads, d // self.num_heads)
+            for t in qkv.split(d, dim=-1)
+        )
+        if use_flash_attention(q, attn_bias):
+            out = flash_mha(q, k, v)
+        elif use_bf16_probs(q, attn_bias):
+            out = bf16_probs_attention(q, k, v)
         else:
-            q, k, v = (
-                t.reshape(*t.shape[:-1], self.num_heads, d // self.num_heads)
-                for t in qkv.split(d, dim=-1)
-            )
-            out = dot_product_attention(q, k, v, attn_bias).reshape(x.shape)
-        return self.out_proj(out)
+            out = dot_product_attention(q, k, v, attn_bias)
+        return self.out_proj(out.reshape(x.shape))
 
 
 class TransformerMLP(nn.Module):

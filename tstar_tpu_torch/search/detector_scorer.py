@@ -10,20 +10,36 @@ Ported: the detector in its compute dtype or quantized
 (``SearchConfig.detector_quant``: 'int8' W8A8 through K4, 'w8a16'
 weight-only), at its native size or with verification at a reduced size
 (``verify_image_size``: a view of the detector with a resampled position
-embedding, ``models/owlvit.resize_detector``), over a resident cache.  The
-composed projection, the grid-embed and Pallas-preprocess kernels (K6, K7)
-and streaming caches are later slices.
+embedding, ``models/owlvit.resize_detector``), over a resident cache; and
+the grid forward's four input routes, in the reference's branch order: the
+fused cache -> patch-embedding kernel K6 (``TSTAR_GRID_EMBED``), the
+composed projection (``TSTAR_COMPOSED_PATCH=1``), the fused grid-pack kernel K7
+(``use_pallas_preprocess=True``), and the default pixel chain.  Streaming
+caches and the batched / detailed methods are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tstar_tpu_torch.kernels.image import build_detector_grid, build_verify_batch
+from tstar_tpu_torch.kernels.grid_embed import (
+    _height_matrix,
+    _width_affine,
+    grid_cell_embed,
+    use_grid_embed_kernel,
+)
+from tstar_tpu_torch.kernels.image import (
+    build_detector_grid,
+    build_verify_batch,
+    composed_patch_projection,
+    grid_patch_embeddings,
+)
+from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
 from tstar_tpu_torch.models.owlvit import (
     OwlViTDetector,
     interpolate_position_embedding,
@@ -33,6 +49,15 @@ from tstar_tpu_torch.models.owlvit import (
 from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
 from tstar_tpu_torch.ops.splat import splat_detections_to_cells
 from tstar_tpu_torch.utils.config import SearchConfig
+
+
+def resolve_pallas_preprocess(config: SearchConfig, batched: bool = False) -> SearchConfig:
+    """``use_pallas_preprocess=None`` (auto) resolves to False, and so does
+    True in a batched search, as in the reference; an explicit value is kept
+    otherwise."""
+    if config.use_pallas_preprocess is None or (config.use_pallas_preprocess and batched):
+        return dataclasses.replace(config, use_pallas_preprocess=False)
+    return config
 
 
 @dataclasses.dataclass
@@ -51,6 +76,19 @@ class OwlVitScorer:
     # a matching quantized tower.  None = verify with the main model.
     verify_model: Optional[OwlViTDetector] = None
     qvision_verify: Optional[Dict[str, Any]] = None
+    # Composed cache -> patch-embedding projection (``_grid_projection``,
+    # opt-in through TSTAR_COMPOSED_PATCH=1): weight (s_h, s_w*3, D) in the
+    # model dtype, bias (D,) f32, source patch (s_h, s_w).
+    grid_proj_w: Optional[torch.Tensor] = None
+    grid_proj_b: Optional[torch.Tensor] = None
+    grid_src_patch: Optional[Tuple[int, int]] = None
+    grid_proj_opt_in: bool = False
+    # K6's folded resize + normalize matrices (``_grid_kernel_mats``, opt-in
+    # through TSTAR_GRID_EMBED): width (cw*3, cell_w*3) bf16, its bias
+    # (cell_w*3,) f32, height (cell_h, ch) bf16 or None at identity.
+    gb_awk: Optional[torch.Tensor] = None
+    gb_bias: Optional[torch.Tensor] = None
+    gb_ah: Optional[torch.Tensor] = None
 
     @property
     def num_classes(self) -> int:
@@ -71,9 +109,53 @@ class OwlVitScorer:
             )
         else:
             feats = model.encode_image(pixels)
+        return self._heads(feats, model)
+
+    def _heads(self, feats: torch.Tensor, model: OwlViTDetector):
         logits, boxes = model.predict(feats, self.query_embeds, self.query_mask)
         size = model.cfg.vision.image_size
         return postprocess_detections(logits, boxes, (size, size))
+
+    @torch.no_grad()
+    def _detect_embeds(self, patch_embeds: torch.Tensor):
+        """``_detect`` entered after the patch-embedding matmul (the composed
+        projection and K6 compute the embeddings themselves)."""
+        if self.qvision is not None:
+            feats = encode_image_int8(
+                self.qvision, None, self.model.cfg, dtype=self.model.dtype,
+                weight_only=self.config.detector_quant == "w8a16", patch_embeds=patch_embeds,
+            )
+        else:
+            feats = self.model.encode_patches(patch_embeds)
+        return self._heads(feats, self.model)
+
+    def _grid_embeds(self, cache: torch.Tensor, secs: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        return grid_patch_embeddings(
+            cache, secs, self.grid_proj_w.reshape(-1, self.grid_proj_w.shape[-1]),
+            self.grid_proj_b, (cfg.grid_rows, cfg.grid_cols), self.grid_src_patch,
+            dtype=self.model.dtype,
+        )
+
+    def _use_grid_embed_kernel(self, cache_shape) -> bool:
+        if self.gb_awk is None or self.config.use_pallas_preprocess:
+            return False
+        c = self.model.cfg.vision
+        return use_grid_embed_kernel(
+            cache_shape, c.image_size, c.patch_size, c.hidden_size, self.config
+        )
+
+    def _grid_embeds_kernel(self, cache: torch.Tensor, secs: torch.Tensor) -> torch.Tensor:
+        """K6: cache (B, N, ch, cw, 3), secs (B, K) -> (B, P, D) bf16."""
+        cfg = self.config
+        c = self.model.cfg.vision
+        return grid_cell_embed(
+            cache, secs, self.gb_awk, self.gb_bias, self.gb_ah,
+            self.model.vision.patch_embedding.kernel,
+            grid_shape=(cfg.grid_rows, cfg.grid_cols),
+            cell_hw=(c.image_size // cfg.grid_rows, c.image_size // cfg.grid_cols),
+            patch_size=c.patch_size,
+        )
 
     @property
     def _verify_model(self) -> OwlViTDetector:
@@ -92,8 +174,23 @@ class OwlVitScorer:
         cfg = self.config
         grid_shape = (cfg.grid_rows, cfg.grid_cols)
         size = self.detection_image_size
-        pixels = build_detector_grid(self.cache, secs, grid_shape, size, dtype=self.model.dtype)
-        scores, class_ids, boxes = self._detect(pixels)
+        if self._use_grid_embed_kernel((1,) + tuple(self.cache.shape)):
+            # K6, the single video as a batch of one; reaches the batch gate
+            # only under TSTAR_GRID_EMBED=force
+            dets = self._detect_embeds(self._grid_embeds_kernel(self.cache[None], secs[None]))
+        elif self.grid_proj_w is not None and self.grid_proj_opt_in and (
+            not cfg.use_pallas_preprocess
+        ):
+            dets = self._detect_embeds(self._grid_embeds(self.cache, secs))
+        elif cfg.use_pallas_preprocess:
+            dets = self._detect(build_detector_grid_pallas(
+                self.cache, secs, grid_shape, size, dtype=self.model.dtype
+            ))
+        else:
+            dets = self._detect(build_detector_grid(
+                self.cache, secs, grid_shape, size, dtype=self.model.dtype
+            ))
+        scores, class_ids, boxes = dets
         keep = scores[0] > cfg.detector_threshold
         conf_map, presence = splat_detections_to_cells(
             boxes[0], scores[0], class_ids[0], keep, self.class_weights,
@@ -189,6 +286,54 @@ def _weight_views(model: OwlViTDetector, config: SearchConfig):
     return qvision, verify_model, qvision_verify
 
 
+def _grid_projection(model: OwlViTDetector, cache_hw, config: SearchConfig):
+    """-> (proj_w, proj_b, src_patch_hw, opt_in), or (None, None, None,
+    False) when TSTAR_COMPOSED_PATCH is not "1", under
+    ``use_pallas_preprocess``, or at a geometry that is not block-aligned.
+    Folded on the host from the model's patch kernel (as f32)."""
+    if os.environ.get("TSTAR_COMPOSED_PATCH", "0") != "1" or config.use_pallas_preprocess:
+        return None, None, None, False
+    c = model.cfg.vision
+    if c.image_size % config.grid_rows or c.image_size % config.grid_cols:
+        return None, None, None, False
+    cell_hw = (c.image_size // config.grid_rows, c.image_size // config.grid_cols)
+    kernel = model.vision.patch_embedding.kernel.detach().float().cpu().numpy()
+    composed = composed_patch_projection(kernel, tuple(cache_hw), cell_hw, c.patch_size)
+    if composed is None:
+        return None, None, None, False
+    w, bias, (s_h, s_w) = composed
+    return (
+        torch.from_numpy(w.reshape(s_h, s_w * 3, -1)).to(model.device, model.dtype),
+        torch.from_numpy(bias).to(model.device),
+        (s_h, s_w),
+        True,
+    )
+
+
+def _grid_kernel_mats(model: OwlViTDetector, cache_hw, config: SearchConfig):
+    """-> (gb_awk, gb_bias, gb_ah) on the model's device for K6, or (None,
+    None, None) when TSTAR_GRID_EMBED is unset or "0", under
+    ``use_pallas_preprocess``, or at a geometry the path does not take (the
+    reference's conditions less its TPU backend check)."""
+    if os.environ.get("TSTAR_GRID_EMBED", "0") == "0" or config.use_pallas_preprocess:
+        return None, None, None
+    c = model.cfg.vision
+    if c.image_size % config.grid_rows or c.image_size % config.grid_cols:
+        return None, None, None
+    if 128 % c.patch_size or 3 > 128 // c.patch_size:
+        return None, None, None
+    ch, cw = cache_hw
+    cell_h, cell_w = c.image_size // config.grid_rows, c.image_size // config.grid_cols
+    awk, bias = _width_affine(cw, cell_w)
+    ah = _height_matrix(ch, cell_h)
+    dev = model.device
+    return (
+        torch.from_numpy(awk).to(dev, torch.bfloat16),
+        torch.from_numpy(bias).to(dev),
+        None if ah is None else torch.from_numpy(ah).to(dev, torch.bfloat16),
+    )
+
+
 @torch.no_grad()
 def make_owlvit_scorer(
     model: OwlViTDetector,
@@ -204,15 +349,14 @@ def make_owlvit_scorer(
     (The reference also takes a ``variables`` pytree; here the weights live
     in the module.)  The cache must be on the model's device.
     ``weight_views`` is a ``_weight_views(model, config)`` result to reuse
-    (the heuristic keeps one per configuration); None builds it here.
-    ``use_pallas_preprocess=True`` raises: its kernel (K7) is not ported.
+    (the heuristic keeps one per (detector_quant, verify_image_size)); None
+    builds it here.  The grid-input views (composed projection, K6's
+    matrices) depend on the cache geometry and on environment switches, so
+    they are built here for every scorer.
     """
     if cache.device != model.device:
         raise ValueError(f"cache on {cache.device}, model on {model.device}")
-    if config.use_pallas_preprocess:
-        raise NotImplementedError(
-            "SearchConfig options not ported yet: use_pallas_preprocess=True"
-        )
+    config = resolve_pallas_preprocess(config)
     qvision, verify_model, qvision_verify = (
         weight_views if weight_views is not None else _weight_views(model, config)
     )
@@ -220,6 +364,11 @@ def make_owlvit_scorer(
         target_objects, cue_objects, tokenizer, config
     )
     device = model.device
+    cache_hw = tuple(cache.shape[1:3])
+    grid_proj_w, grid_proj_b, grid_src_patch, grid_proj_opt_in = _grid_projection(
+        model, cache_hw, config
+    )
+    gb_awk, gb_bias, gb_ah = _grid_kernel_mats(model, cache_hw, config)
     query_embeds = model.encode_text(
         torch.from_numpy(ids_pad).to(device), torch.from_numpy(mask_pad).to(device)
     )
@@ -233,4 +382,11 @@ def make_owlvit_scorer(
         qvision=qvision,
         verify_model=verify_model,
         qvision_verify=qvision_verify,
+        grid_proj_w=grid_proj_w,
+        grid_proj_b=grid_proj_b,
+        grid_src_patch=grid_src_patch,
+        grid_proj_opt_in=grid_proj_opt_in,
+        gb_awk=gb_awk,
+        gb_bias=gb_bias,
+        gb_ah=gb_ah,
     )

@@ -1,12 +1,15 @@
 """Where the device time of the port's full-width search goes, on one GPU.
 
     python -m tstar_tpu_torch.tools.profile_search [--out FILE.json] [--top N]
+        [--runs LABEL ...]
 
-The search of ``chip_smoke.py`` phases 5 and 6 (``owl-vit-random`` B/32 in
+The search of ``chip_smoke.py`` phases 5 to 7 (``owl-vit-random`` B/32 in
 bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
-under each detector configuration: bf16; ``detector_quant='int8'`` with
-``verify_image_size=512``; ``detector_quant='w8a16'``; bf16 with
-``TSTAR_LN_MATMUL=force``.  For each: one warm-up search, one search timed
+under each configuration (all by default, or those named by ``--runs``):
+bf16; ``detector_quant='int8'`` with ``verify_image_size=512``;
+``detector_quant='w8a16'``; bf16 with ``TSTAR_LN_MATMUL=force``;
+``use_pallas_preprocess=True`` (K7); ``TSTAR_GRID_EMBED=force`` (K6);
+``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8).  For each: one warm-up search, one search timed
 on the host clock (ending in ``torch.cuda.synchronize()``), then one under
 ``torch.profiler`` (CPU + CUDA activities).  From the profiler's device
 events it reports the summed device time, the device-busy share of the
@@ -34,6 +37,9 @@ PORT_KERNELS = {
     "K3 layernorm": "_ln_kernel",
     "K4 w8a8": "w8a8_kernel",
     "K5 ln_matmul": "ln_matmul_kernel",
+    "K6 grid_embed": "grid_embed_kernel",
+    "K7 grid pack": "_grid_kernel",
+    "K8 flash": "flash_kernel",
 }
 
 
@@ -120,6 +126,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     ap.add_argument("--top", type=int, default=8, help="largest kernel lines to keep")
+    ap.add_argument("--runs", nargs="*", default=None, help="configurations to profile (labels)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
@@ -141,9 +148,17 @@ def main(argv=None) -> int:
         "int8+verify512": (SearchConfig(detector_quant="int8", verify_image_size=512, **base), {}),
         "w8a16": (SearchConfig(detector_quant="w8a16", **base), {}),
         "ln_matmul": (SearchConfig(**base), {"TSTAR_LN_MATMUL": "force"}),
+        "k7 pallas preprocess": (SearchConfig(use_pallas_preprocess=True, **base), {}),
+        "k6 grid embed": (SearchConfig(**base), {"TSTAR_GRID_EMBED": "force"}),
+        "k8 flash": (SearchConfig(**base), {"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"}),
     }
+    unknown = set(args.runs or ()) - set(runs)
+    if unknown:
+        raise SystemExit(f"unknown runs {sorted(unknown)}; choose from {sorted(runs)}")
     results = {"card": card, "torch": torch.__version__, "runs": {}}
     for label, (config, env) in runs.items():
+        if args.runs and label not in args.runs:
+            continue
         with environ(env):
             r = profile_config(heur, config, args.top)
         results["runs"][label] = r

@@ -84,7 +84,7 @@ class SearchConfig:
     # --- engine behaviour (ours) ---
     deterministic_pop: bool = False   # True: top-k keyframes instead of sampled
     max_iterations: Optional[int] = None  # override; default derived from budget
-    # Fused grid-builder kernel (K7, a later slice).  None resolves to off.
+    # Fused gather + resize + normalize + pack kernel (K7).  None resolves to off.
     use_pallas_preprocess: Optional[bool] = None
 
     @property
