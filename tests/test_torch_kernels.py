@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tstar_tpu.kernels.attention import _mha_pallas
 from tstar_tpu.kernels.attention import fused_mha_from_qkv as jax_mha
 from tstar_tpu.kernels.layernorm import fused_layernorm as jax_ln
 from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
@@ -56,6 +57,30 @@ def test_mha_plain_matches_pallas_bf16():
     got = fused_mha_from_qkv(_t(qkv, torch.bfloat16), 4)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_mha_plain_p16_matches_pallas_bf16(monkeypatch):
+    """``TSTAR_MHA_P16=1``: the probabilities rounded to bf16 and the row sum
+    taken from the rounded values, as the reference kernel's p16 branch
+    (``_mha_pallas`` called directly: the jitted entry caches its trace by
+    static arguments only).  Within one bf16 ulp plus 1e-3 everywhere and bit
+    for bit on 99.9% of the outputs (the f32 sums run in other orders); the
+    default mode agrees bit for bit on fewer than 99%, so the mode is what
+    matches."""
+    rng = np.random.default_rng(11)
+    qkv = rng.normal(size=(2, 80, 3 * 4 * 64)).astype(np.float32)
+    x = _t(qkv, torch.bfloat16)
+    monkeypatch.setenv("TSTAR_MHA_P16", "0")
+    default = _np(fused_mha_from_qkv(x, 4))
+    monkeypatch.setenv("TSTAR_MHA_P16", "1")
+    want = np.asarray(_mha_pallas(jnp.asarray(qkv, jnp.bfloat16), 4, interpret=True), np.float32)
+    got = fused_mha_from_qkv(x, 4)
+    assert got.dtype == torch.bfloat16
+    got = _np(got)
+    err = np.abs(got - want)
+    assert (err <= 1e-3 + 2.0 ** -7 * np.abs(want)).all(), err.max()
+    assert (got == want).mean() >= 0.999
+    assert (default == want).mean() < 0.99
 
 
 # ---- K2: patchify + patch-embed matmul ------------------------------------

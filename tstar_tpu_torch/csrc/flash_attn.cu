@@ -1,10 +1,12 @@
-// K8: flash attention on (B, S, H, 64) q, k, v read through their strides.
+// K8 in f32: flash attention on (B, S, H, 64) q, k, v read through their
+// strides.  (bf16, the tower's type on the card, runs in attn_sm90.cu.)
 //
 // Replaces tstar_tpu/kernels/attention.py:flash_mha, which reaches
 // pl.pallas_call through JAX's stock TPU flash_attention.  Per query row:
-// f32 logits q.k (f32 sum) times sm_scale; keys beyond S masked out; the
-// softmax's exp in the natural base; probabilities cast to v's dtype before
-// the PV product, which sums in f32; the result cast to the input dtype.
+// f32 logits q.k times sm_scale; keys beyond S masked out; the softmax's exp
+// in the natural base; the PV product summed in f32.  In f32 this online
+// softmax differs from the reference's single key block by summation order
+// only.
 //
 // The TPU kernel padded S to a multiple of 128 (masking the pads by segment
 // ids) and transposed to (B, H, S, D): both were its layout needs.  Here the
@@ -13,30 +15,16 @@
 // (B, S, 3D) q|k|v projection (row stride 3D) need no copy.  The output is a
 // contiguous (B, S, H, 64).
 //
-// Where it differs from the reference: with S_pad <= 1024 the reference sees
-// one key block and normalizes the probabilities before rounding them to
-// v's dtype.  This kernel streams keys in 64-wide tiles with an online max
-// and sum (FlashAttention), so it rounds the unnormalized probabilities and
-// divides the f32 accumulator by the row sum at the end.  In f32 the two
-// differ by summation order only; in bf16 each probability's rounding
-// differs (2^-9 relative either way).
-//
-// What bounds it on the H100: 4*B*H*S^2*64 operations (16 GFLOP at B=16,
-// S=577) against 43 MB of q, k, v and output: compute-bound for bf16 at
-// B >= 8.  One 128-thread block owns (batch, head, 64 query rows); Q stays
-// in shared memory, each K/V tile of 64 keys is staged through shared
-// memory, and the two products run on the tensor cores for bf16 (WMMA
-// 16x16x16, f32 accumulators, each warp 16 query rows) and on the CUDA cores
-// for f32 (each thread a 4x8 block).  The logits and PV tiles pass through
-// shared memory in f32, where two threads per query row run the online
+// What bounds it on the H100: 4*B*H*S^2*64 f32 operations on the CUDA cores
+// (wgmma has no full-f32 form, and TF32 would break the f32 tolerances).  One
+// 128-thread block owns (batch, head, 64 query rows); Q stays in shared
+// memory, each K/V tile of 64 keys is staged through shared memory, and each
+// thread computes a 4x8 block of each tile product.  The logits and PV tiles
+// pass through shared memory, where two threads per query row run the online
 // softmax; each thread keeps its 32 output columns in registers.  The (S, S)
-// matrix never exists.  cp.async double buffering and mma.sync register
-// fragments are later work.
+// matrix never exists.
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -44,22 +32,20 @@ namespace {
 
 constexpr int DH = 64, BQ = 64, BKV = 64, THREADS = 128;
 constexpr int LDT = DH + 8;   // q/k/v/p rows in shared memory (elements); BKV == DH
-constexpr int LDS = BKV + 4;  // f32 logits / PV rows
+constexpr int LDS = BKV + 4;  // logits / PV rows
 
-template <typename T>
 struct Tiles {
-  T q[BQ * LDT];
-  T k[BKV * LDT];
-  T v[BKV * LDT];
-  T p[BQ * LDT];
+  float q[BQ * LDT];
+  float k[BKV * LDT];
+  float v[BKV * LDT];
+  float p[BQ * LDT];
   float s[BQ * LDS];
 };
 
 // Rows [r0, r0 + 64) of one head's (S, 64) slice, row stride `stride`
 // elements, into a shared tile; rows at or past `n_valid` become zeros.
-template <typename T>
-__device__ void load_rows(T* dst, const T* src, long long stride, int r0, int n_valid) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+__device__ void load_rows(float* dst, const float* src, long long stride, int r0, int n_valid) {
+  constexpr int V = 4;  // elements per 16-byte vector
   constexpr int VPR = DH / V;
   for (int idx = threadIdx.x; idx < 64 * VPR; idx += THREADS) {
     const int r = idx / VPR, c = (idx % VPR) * V;
@@ -69,68 +55,44 @@ __device__ void load_rows(T* dst, const T* src, long long stride, int r0, int n_
   }
 }
 
-// out (64 x 64, f32, row stride LDS) = a (64 x 64) @ B, where B[k][n] is
-// bm[n][k] (TRANS_B, keys as rows: Q K^T) or bm[k][n] (P V).
-template <bool TRANS_B, typename T>
-__device__ void tile_product(const T* a, const T* bm, float* out) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    using LayoutB = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
-    const int row0 = (threadIdx.x / 32) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+// out (64 x 64, row stride LDS) = a (64 x 64) @ B, where B[k][n] is bm[n][k]
+// (TRANS_B, keys as rows: Q K^T) or bm[k][n] (P V).
+template <bool TRANS_B>
+__device__ void tile_product(const float* a, const float* bm, float* out) {
+  const int tr = threadIdx.x / 8, tc = threadIdx.x % 8;  // rows 4*tr.., columns tc + 8*jj
+  float acc[4][8] = {};
+  for (int k = 0; k < 64; ++k) {
+    float av[4], bv[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int i = 0; i < 4; ++i) av[i] = a[(tr * 4 + i) * LDT + k];
 #pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + row0 * LDT + kk, LDT);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> fb;
-        wmma::load_matrix_sync(fb, TRANS_B ? bm + (16 * j) * LDT + kk : bm + kk * LDT + 16 * j,
-                               LDT);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(out + row0 * LDS + 16 * j, acc[j], LDS, wmma::mem_row_major);
-  } else {
-    const int tr = threadIdx.x / 8, tc = threadIdx.x % 8;  // rows 4*tr.., columns tc + 8*jj
-    float acc[4][8] = {};
-    for (int k = 0; k < 64; ++k) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = tstar::to_float(a[(tr * 4 + i) * LDT + k]);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        bv[jj] = tstar::to_float(TRANS_B ? bm[(tc + 8 * jj) * LDT + k] : bm[k * LDT + tc + 8 * jj]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
+    for (int jj = 0; jj < 8; ++jj)
+      bv[jj] = TRANS_B ? bm[(tc + 8 * jj) * LDT + k] : bm[k * LDT + tc + 8 * jj];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) out[(tr * 4 + i) * LDS + tc + 8 * jj] = acc[i][jj];
+      for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) out[(tr * 4 + i) * LDS + tc + 8 * jj] = acc[i][jj];
 }
 
 struct Strides {
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int S, int H, const Strides st, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int S, int H,
+             const Strides st, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Tiles<T>& sm = *reinterpret_cast<Tiles<T>*>(smem_raw);
+  Tiles& sm = *reinterpret_cast<Tiles*>(smem_raw);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + h * st.kh;
-  const T* vp = v + b * st.vb + h * st.vh;
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
   load_rows(sm.q, qp, st.qs, q0, min(BQ, S - q0));
 
   // Two threads (lanes 2r, 2r+1 of a warp) share query row r of the tile;
@@ -165,8 +127,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int i = 0; i < BKV / 2; ++i) {
       const float p = expf(sv[i] - m_new);
-      rs += p;  // the f32 sum uses the probabilities before rounding
-      sm.p[r * LDT + half + 2 * i] = tstar::from_float<T>(p);
+      rs += p;
+      sm.p[r * LDT + half + 2 * i] = p;
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     l = rs + alpha * l;
@@ -181,16 +143,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   if (q0 + r < S) {
-    T* op = out + (((size_t)b * S + q0 + r) * H + h) * DH;
+    float* op = out + (((size_t)b * S + q0 + r) * H + h) * DH;
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) op[half + 2 * i] = tstar::from_float<T>(o[i] / l);
+    for (int i = 0; i < DH / 2; ++i) op[half + 2 * i] = o[i] / l;
   }
 }
 
-template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                  int D, const Strides& st, float scale, void* stream) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 4;  // elements per 16-byte vector
   const long long all[9] = {st.qb, st.qs, st.qh, st.kb, st.ks, st.kh, st.vb, st.vs, st.vh};
   if (D != DH || B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 9; ++i)
@@ -198,32 +159,24 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (ptrs % 16) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Tiles<T>);
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(Tiles);
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, st, scale);
+  flash_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, H, st, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v (B, S, H, 64) with element strides (batch, sequence, head) each and
-// a unit stride on the last axis; out a contiguous (B, S, H, 64).
-extern "C" int tstar_flash_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                                int S, int H, int D, long long qb, long long qs, long long qh,
-                                long long kb, long long ks, long long kh, long long vb,
-                                long long vs, long long vh, float scale, void* stream) {
-  return launch_flash<__nv_bfloat16>(q, k, v, out, B, S, H, D,
-                                     Strides{qb, qs, qh, kb, ks, kh, vb, vs, vh}, scale, stream);
-}
-
+// q, k, v (B, S, H, 64) f32 with element strides (batch, sequence, head) each
+// and a unit stride on the last axis; out a contiguous (B, S, H, 64).
 extern "C" int tstar_flash_f32(const void* q, const void* k, const void* v, void* out, int B,
                                int S, int H, int D, long long qb, long long qs, long long qh,
                                long long kb, long long ks, long long kh, long long vb,
                                long long vs, long long vh, float scale, void* stream) {
-  return launch_flash<float>(q, k, v, out, B, S, H, D,
-                             Strides{qb, qs, qh, kb, ks, kh, vb, vs, vh}, scale, stream);
+  return launch_flash(q, k, v, out, B, S, H, D,
+                      Strides{qb, qs, qh, kb, ks, kh, vb, vs, vh}, scale, stream);
 }

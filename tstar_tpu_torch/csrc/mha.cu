@@ -1,4 +1,5 @@
-// K1: multi-head self-attention read straight from the fused q|k|v projection.
+// K1 in f32: multi-head self-attention read straight from the fused q|k|v
+// projection.  (bf16, the tower's type on the card, runs in attn_sm90.cu.)
 //
 // Replaces tstar_tpu/kernels/attention.py:_mha_kernel (via _mha_pallas and
 // fused_mha_from_qkv).  Input (B, S, 3D): head h's q/k/v are the 64-wide
@@ -6,21 +7,16 @@
 // (B, S, D) head-major, ready for out_proj.
 //
 // Math, as the TPU kernel does it: logits in f32, scaled by scale*log2(e);
-// exact two-pass softmax (row max, exp2, f32 row sum); the unnormalized probs
-// rounded to the input type for the AV product, which accumulates in f32; the
-// divide by the row sum comes after AV.
+// exact two-pass softmax (row max, exp2, f32 row sum); the AV product
+// accumulates in f32; the divide by the row sum comes after AV.
 //
-// What bounds it on the H100: the TPU kernel keeps the whole (S, S) f32 logits
-// tile on chip (1.3 MB at S=577), far beyond a block's 227 KB of shared
-// memory.  Here one block owns (batch, head, 64 q rows); the head's K and V
-// stay resident in dynamic shared memory (2 x 577 x 66 x 2 B = 149 KB in
-// bf16, rows padded to 66 elements so lanes reading different rows hit
-// different banks), and each warp owns one q row at a time with its logits
-// row (S floats) in shared memory.  So the S x S tile never exists anywhere;
-// per row only S floats do.  f32 K/V (295 KB) do not fit: the same kernel then
-// streams K and V through shared memory in tiles and keeps the exact two
-// passes.  The math runs on the CUDA cores (FMA), not the tensor cores: this
-// is the simple correct version; mma/wgmma tiles are later work.
+// What bounds it on the H100: 4*B*H*S^2*64 f32 operations on the CUDA cores
+// (wgmma has no full-f32 form and TF32 would break the f32 tolerances).  One
+// block owns (batch, head, 64 q rows); the head's K and V stay resident in
+// dynamic shared memory when they fit (rows padded to 66 elements so lanes
+// reading different rows hit different banks), else they stream through it
+// in 32-row tiles; each warp owns one q row at a time with its logits row (S
+// floats) in shared memory, so the S x S tile never exists anywhere.
 #include <math.h>
 #include <stdint.h>
 
@@ -34,34 +30,29 @@ constexpr int LDK = DH + 2;         // padded shared-memory row, in elements
 constexpr int ROWS_PER_BLOCK = 64;  // q rows per block
 
 // Stage rows [j0, j0 + n) of one head's K or V columns into shared memory.
-template <typename T>
-__device__ void stage_rows(T* dst, const T* col0, int row_stride, int j0, int n) {
-  using P = typename tstar::Pair<T>::type;
+__device__ void stage_rows(float* dst, const float* col0, int row_stride, int j0, int n) {
   for (int idx = threadIdx.x; idx < n * (DH / 2); idx += blockDim.x) {
     const int r = idx / (DH / 2), c = idx % (DH / 2);
-    *reinterpret_cast<P*>(dst + r * LDK + 2 * c) =
-        *reinterpret_cast<const P*>(col0 + (size_t)(j0 + r) * row_stride + 2 * c);
+    *reinterpret_cast<float2*>(dst + r * LDK + 2 * c) =
+        *reinterpret_cast<const float2*>(col0 + (size_t)(j0 + r) * row_stride + 2 * c);
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NWARPS * 32)
-mha_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
+mha_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S, int D,
            float scale_log2e, int tk) {
-  using PT = tstar::Pair<T>;
-  using P = typename PT::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)tk * LDK;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + (size_t)tk * LDK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* logits = reinterpret_cast<float*>(vs + (size_t)tk * LDK) + (size_t)warp * S;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int row_stride = 3 * D;
-  const T* base = qkv + (size_t)b * S * row_stride;
-  const T* qcol = base + h * DH;
-  const T* kcol = base + D + h * DH;
-  const T* vcol = base + 2 * D + h * DH;
+  const float* base = qkv + (size_t)b * S * row_stride;
+  const float* qcol = base + h * DH;
+  const float* kcol = base + D + h * DH;
+  const float* vcol = base + 2 * D + h * DH;
   const int q0 = blockIdx.x * ROWS_PER_BLOCK;
   const int q_end = min(q0 + ROWS_PER_BLOCK, S);
   const bool resident = tk >= S;
@@ -79,8 +70,7 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
     if (active) {
 #pragma unroll
       for (int c = 0; c < DH / 2; ++c) {
-        const float2 f = PT::to_float2(
-            *reinterpret_cast<const P*>(qcol + (size_t)row * row_stride + 2 * c));
+        const float2 f = *reinterpret_cast<const float2*>(qcol + (size_t)row * row_stride + 2 * c);
         q[2 * c] = f.x;
         q[2 * c + 1] = f.y;
       }
@@ -97,11 +87,11 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
       }
       if (active) {
         for (int j = lane; j < n; j += 32) {
-          const P* krow = reinterpret_cast<const P*>(ks + j * LDK);
+          const float2* krow = reinterpret_cast<const float2*>(ks + j * LDK);
           float s = 0.f;
 #pragma unroll
           for (int c = 0; c < DH / 2; ++c) {
-            const float2 kf = PT::to_float2(krow[c]);
+            const float2 kf = krow[c];
             s = fmaf(q[2 * c], kf.x, s);
             s = fmaf(q[2 * c + 1], kf.y, s);
           }
@@ -114,13 +104,13 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
     m = tstar::warp_max(m);
     __syncwarp();
 
-    // Pass 2: unnormalized probs; the f32 sum uses them before rounding.
+    // Pass 2: unnormalized probs and their f32 sum.
     float ssum = 0.f;
     if (active) {
       for (int j = lane; j < S; j += 32) {
         const float p = exp2f(logits[j] - m);
         ssum += p;
-        logits[j] = tstar::round_to<T>(p);
+        logits[j] = p;
       }
     }
     ssum = tstar::warp_sum(ssum);
@@ -138,20 +128,19 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ out, int S, int D,
       if (active) {
         const float* pr = logits + j0;
         for (int j = 0; j < n; ++j) {
-          const float2 vf = PT::to_float2(*reinterpret_cast<const P*>(vs + j * LDK + 2 * lane));
+          const float2 vf = *reinterpret_cast<const float2*>(vs + j * LDK + 2 * lane);
           acc0 = fmaf(pr[j], vf.x, acc0);
           acc1 = fmaf(pr[j], vf.y, acc1);
         }
       }
     }
     if (active) {
-      *reinterpret_cast<P*>(out + ((size_t)b * S + row) * D + h * DH + 2 * lane) =
-          PT::from_float2(make_float2(acc0 / ssum, acc1 / ssum));
+      *reinterpret_cast<float2*>(out + ((size_t)b * S + row) * D + h * DH + 2 * lane) =
+          make_float2(acc0 / ssum, acc1 / ssum);
     }
   }
 }
 
-template <typename T>
 int launch_mha(const void* qkv, void* out, int B, int S, int D, int H,
                float scale_log2e, void* stream) {
   if (D != H * DH || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
@@ -161,29 +150,24 @@ int launch_mha(const void* qkv, void* out, int B, int S, int D, int H,
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   const size_t logits_bytes = (size_t)NWARPS * S * sizeof(float);
-  const size_t row_bytes = 2 * LDK * sizeof(T);  // one K row + one V row
+  const size_t row_bytes = 2 * LDK * sizeof(float);  // one K row + one V row
   if (logits_bytes + 32 * row_bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
   int tk = (int)(((size_t)optin - logits_bytes) / row_bytes);
   tk = tk >= S ? S : (tk / 32) * 32;  // whole head resident, else 32-row tiles
   const size_t smem = (size_t)tk * row_bytes + logits_bytes;
-  e = cudaFuncSetAttribute(mha_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cudaFuncSetAttribute(mha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, H, B);
-  mha_kernel<T><<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, D, scale_log2e, tk);
+  mha_kernel<<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), S, D, scale_log2e, tk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tstar_mha_bf16(const void* qkv, void* out, int B, int S, int D, int H,
-                              float scale_log2e, void* stream) {
-  return launch_mha<__nv_bfloat16>(qkv, out, B, S, D, H, scale_log2e, stream);
-}
-
 extern "C" int tstar_mha_f32(const void* qkv, void* out, int B, int S, int D, int H,
                              float scale_log2e, void* stream) {
-  return launch_mha<float>(qkv, out, B, S, D, H, scale_log2e, stream);
+  return launch_mha(qkv, out, B, S, D, H, scale_log2e, stream);
 }
 
 extern "C" const char* tstar_error_string(int err) {

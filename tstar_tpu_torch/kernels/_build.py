@@ -51,20 +51,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtstar_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet; returns its path.  One
-    ``nvcc -c`` per source, all started together, then one link.  The
-    compiler's register and shared-memory report (``-Xptxas -v``) is kept
-    beside the library as ``<name>.ptxas.txt``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(sources, out: Path, flags=()) -> Path:
+    """Compile ``sources`` into the shared library ``out``: one ``nvcc -c``
+    per source, all started together, then one link.  The compiler's
+    register, spill and shared-memory report (``-Xptxas -v``) is kept beside
+    the library as ``<name>.ptxas.txt``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    for src in sources:
+        obj = out.parent / f"{tag}.{Path(src).stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", *flags,
                "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
         jobs.append((obj, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -78,53 +75,77 @@ def build() -> Path:
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs]]
+        # libcuda: the attention kernels encode their TMA tensor maps
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs],
+               "-lcuda"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
     finally:
         for obj, _, _ in jobs:
             obj.unlink(missing_ok=True)
-    (BUILD_DIR / (out.stem + ".ptxas.txt")).write_text("\n".join(report))
+    ptxas_report(out).write_text("\n".join(report))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def ptxas_report(lib: Path) -> Path:
+    """Where ``compile_library`` keeps the ``-Xptxas -v`` report of ``lib``."""
+    return lib.parent / (lib.stem + ".ptxas.txt")
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    return compile_library(sorted(CSRC.glob("*.cu")), out)
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a library built by ``compile_library`` from every source and
+    declare its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("tstar_mha_bf16", "tstar_mha_p16_bf16", "tstar_mha_f32"):
+        fn = getattr(lib, name)
+        # qkv, out, B, S, D, H, scale_log2e, stream
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
+        fn.restype = ci
+    for name in ("tstar_patch_embed_bf16", "tstar_patch_embed_f32"):
+        fn = getattr(lib, name)
+        # pixels, kernel, out, B, H, W, C, p, D, stream
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    # x, w, w_scale, bias, out, R, K, N, x dtype, out dtype, stream
+    lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.tstar_w8a8.restype = ci
+    # x, scale32, bias32, w, b, out, R, D, N, eps, stream
+    lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
+    lib.tstar_ln_matmul_bf16.restype = ci
+    # cache, secs, awk, bias, ah, wtap, htap, w, out,
+    # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, stream
+    lib.tstar_grid_embed.argtypes = [vp] * 9 + [ci] * 10 + [vp]
+    lib.tstar_grid_embed.restype = ci
+    for name in ("tstar_flash_bf16", "tstar_flash_f32"):
+        fn = getattr(lib, name)
+        # q, k, v, out, B, S, H, D, (batch, seq, head) strides of q, k, v,
+        # sm_scale, stream
+        fn.argtypes = [vp] * 4 + [ci] * 4 + [ctypes.c_longlong] * 9 + [cf, vp]
+        fn.restype = ci
+    # B, S, H, int[4] out: warpgroups per CTA, stages, resident, smem bytes
+    lib.tstar_attn_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.tstar_attn_config.restype = ci
+    lib.tstar_error_string.argtypes = [ci]
+    lib.tstar_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("tstar_mha_bf16", "tstar_mha_f32"):
-            fn = getattr(lib, name)
-            # qkv, out, B, S, D, H, scale_log2e, stream
-            fn.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
-            fn.restype = ci
-        for name in ("tstar_patch_embed_bf16", "tstar_patch_embed_f32"):
-            fn = getattr(lib, name)
-            # pixels, kernel, out, B, H, W, C, p, D, stream
-            fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-            fn.restype = ci
-        # x, w, w_scale, bias, out, R, K, N, x dtype, out dtype, stream
-        lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.tstar_w8a8.restype = ci
-        # x, scale32, bias32, w, b, out, R, D, N, eps, stream
-        lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
-        lib.tstar_ln_matmul_bf16.restype = ci
-        # cache, secs, awk, bias, ah, wtap, htap, w, out,
-        # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, stream
-        lib.tstar_grid_embed.argtypes = [vp] * 9 + [ci] * 10 + [vp]
-        lib.tstar_grid_embed.restype = ci
-        for name in ("tstar_flash_bf16", "tstar_flash_f32"):
-            fn = getattr(lib, name)
-            # q, k, v, out, B, S, H, D, (batch, seq, head) strides of q, k, v,
-            # sm_scale, stream
-            fn.argtypes = [vp] * 4 + [ci] * 4 + [ctypes.c_longlong] * 9 + [cf, vp]
-            fn.restype = ci
-        lib.tstar_error_string.argtypes = [ci]
-        lib.tstar_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = open_library(build())
     return _lib
 
 

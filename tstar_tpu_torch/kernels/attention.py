@@ -1,16 +1,21 @@
 """Attention of the encoder towers (port of ``tstar_tpu/kernels/attention.py``).
 
 K1 ``fused_mha_from_qkv``: self-attention straight from the fused q|k|v
-projection.  The CUDA kernel is ``csrc/mha.cu`` (design and H100 bounds in
-its header); ``fused_mha_from_qkv_plain`` is the same math in plain PyTorch.
-The TPU's batch gate (B >= 8) does not carry over: ``use_fused_mha`` keeps
-K1 on for every unbiased call unless ``TSTAR_FUSED_MHA=0``.
+projection.  ``fused_mha_from_qkv_plain`` is the same math in plain PyTorch,
+with the reference's opt-in ``TSTAR_MHA_P16`` (bf16: the row sum taken from
+the rounded probabilities), read at call time.  The TPU's batch gate (B >= 8)
+does not carry over: ``use_fused_mha`` keeps K1 on for every unbiased call
+unless ``TSTAR_FUSED_MHA=0``.
 
 K8 ``flash_mha``: (B, S, H, D) flash attention, the port of the reference's
 opt-in route through JAX's TPU ``flash_attention``
-(``TSTAR_FLASH_ATTENTION``, taken where K1 is off).  The CUDA kernel is
-``csrc/flash_attn.cu``; ``flash_mha_plain`` mirrors the reference kernel's
-rounding points.
+(``TSTAR_FLASH_ATTENTION``, taken where K1 is off).  ``flash_mha_plain``
+mirrors the reference kernel's rounding points.
+
+The CUDA kernels: in bf16 both are ``csrc/attn_sm90.cu``, one wgmma + TMA
+kernel with two exact passes that rounds where each reference does (design
+and H100 bounds in its header); in f32 ``csrc/mha.cu`` and
+``csrc/flash_attn.cu`` on the CUDA cores.
 
 ``bf16_probs_attention`` (``TSTAR_ATTN_PROBS_BF16``) is an einsum in the
 reference and plain PyTorch here.  Each wrapper runs its plain version for a
@@ -33,12 +38,19 @@ LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the CUDA kernel's head width
 
 
+def use_mha_p16(dtype: torch.dtype) -> bool:
+    """``TSTAR_MHA_P16=1`` (opt-in, bf16 only): K1's row sum is taken from
+    the bf16-rounded probabilities the AV product consumes."""
+    return os.environ.get("TSTAR_MHA_P16", "0") == "1" and dtype == torch.bfloat16
+
+
 def fused_mha_from_qkv_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, S, 3D) fused projection -> (B, S, D) head-major attention output.
 
     f32 logits scaled by scale*log2(e); exact softmax in the exp2 domain;
     unnormalized probs rounded to the input type for an f32-accumulated AV
-    product; the divide by the f32 row sum after AV.
+    product; the divide by the f32 row sum after AV.  The row sum is of the
+    unrounded probs, or under ``use_mha_p16`` of the rounded ones.
     """
     b, s, three_d = qkv.shape
     d = three_d // 3
@@ -52,8 +64,12 @@ def fused_mha_from_qkv_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * LOG2E)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp2(logits - m)
-    denom = p.sum(dim=-1, keepdim=True)
-    p = p.to(qkv.dtype).float()
+    if use_mha_p16(qkv.dtype):
+        p = p.to(qkv.dtype).float()
+        denom = p.sum(dim=-1, keepdim=True)
+    else:
+        denom = p.sum(dim=-1, keepdim=True)
+        p = p.to(qkv.dtype).float()
     out = torch.matmul(p, v) / denom
     return out.permute(0, 2, 1, 3).reshape(b, s, d).to(qkv.dtype)
 
@@ -66,7 +82,8 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             f"mha kernel takes head width {HEAD_DIM}: got D={d}, heads={num_heads}"
         )
     if qkv.dtype == torch.bfloat16:
-        fn = _build.load().tstar_mha_bf16
+        lib = _build.load()
+        fn = lib.tstar_mha_p16_bf16 if use_mha_p16(qkv.dtype) else lib.tstar_mha_bf16
     elif qkv.dtype == torch.float32:
         fn = _build.load().tstar_mha_f32
     else:

@@ -30,16 +30,18 @@ import time
 
 import torch
 
-# Device-kernel name fragments of the port's hand-written kernels.
+# Device-kernel name fragments of the port's hand-written kernels (K1 and K8
+# in bf16 share attn_sm90_kernel; its first template argument is the mode:
+# 0 / 1 K1, 2 K8).
 PORT_KERNELS = {
-    "K1 mha": "mha_kernel",
+    "K1 mha": ("mha_kernel", "attn_sm90_kernel<0", "attn_sm90_kernel<1"),
     "K2 patch_embed": "patch_embed",
     "K3 layernorm": "_ln_kernel",
     "K4 w8a8": "w8a8_kernel",
     "K5 ln_matmul": "ln_matmul_kernel",
     "K6 grid_embed": "grid_embed_kernel",
     "K7 grid pack": "_grid_kernel",
-    "K8 flash": "flash_kernel",
+    "K8 flash": ("flash_kernel", "attn_sm90_kernel<2"),
 }
 
 
@@ -110,7 +112,8 @@ def profile_config(heur, config, top):
     device_ms = sum(v[0] for v in by_name.values())
     port = {}
     for label, frag in PORT_KERNELS.items():
-        hits = [v for k, v in by_name.items() if frag in k]
+        frags = (frag,) if isinstance(frag, str) else frag
+        hits = [v for k, v in by_name.items() if any(f in k for f in frags)]
         port[label] = {"ms": sum(v[0] for v in hits), "launches": sum(v[1] for v in hits)}
     largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
