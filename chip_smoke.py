@@ -7,7 +7,10 @@ Phases (any failed check exits non-zero and prints no result line):
   2. build: compiles the port's CUDA kernels from ``tstar_tpu_torch/csrc``;
      the bf16 attention kernels (K1, K8: ``attn_sm90_kernel``) must hold
      ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
-     library's SASS (``cuobjdump -sass``) and spill no register (ptxas);
+     library's SASS (``cuobjdump -sass``) and spill no register (ptxas), the
+     int8 GEMM (K4: ``w8a8_kernel``) ``IGMMA`` (integer wgmma) and
+     ``UTMALDG`` with no spills; K3's (``layernorm_kernel``) registers and
+     spills are printed;
   3. kernels: each hand-written kernel (K1 attention, K2 patch embed, K3
      LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul, K6 cache->patch
      embeddings, K7 grid pack, K8 flash attention) against its plain
@@ -30,8 +33,10 @@ Phases (any failed check exits non-zero and prints no result line):
      ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8), each against the CPU
      f32 pixel chain of phase 4;
   6. the detector knobs on the same search: ``detector_quant='int8'`` with
-     ``verify_image_size=512`` (K4), ``detector_quant='w8a16'``, and the bf16
-     tower with ``TSTAR_LN_MATMUL=force`` (K5);
+     ``verify_image_size=512`` (K4; every launch must read one of the 48
+     (N, K) weight copies made once for the scorer: no weight is transposed
+     per call), ``detector_quant='w8a16'``, and the bf16 tower with
+     ``TSTAR_LN_MATMUL=force`` (K5);
   7. the grid-input and attention routes on the same search:
      ``use_pallas_preprocess=True`` (K7 once per grid forward),
      ``TSTAR_GRID_EMBED=force`` (K6 once per grid forward, K2 only in
@@ -45,6 +50,7 @@ The second-to-last line is a JSON object of per-kernel results; the last is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -208,7 +214,8 @@ def kernel_cases(torch):
                 library=lambda x=x_nchw, w=w_oihw: torch.nn.functional.conv2d(x, w, stride=32),
             ))
 
-    # K3.  577 / 8x577 / 16x577 rows of the vision tower, 256 of the text tower.
+    # K3.  577 / 8x577 / 16x577 rows of the vision tower, 256 of the text
+    # tower; scale and bias in x's dtype, as the towers hold them.
     for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512)):
         base = torch.randn(rows, d, generator=g, device=dev) * 3 + 1
         s = torch.randn(d, generator=g, device=dev)
@@ -219,15 +226,17 @@ def kernel_cases(torch):
             es = x.element_size()
             cases.append(Case(
                 "K3", f"{rows}x{d}", names[dt],
-                run=lambda x=x, s=s, bias=bias: layernorm.fused_layernorm(x, s, bias),
-                plain=lambda x=x, s=s, bias=bias: layernorm.fused_layernorm_plain(x, s, bias),
+                run=lambda x=x, s_dt=s_dt, b_dt=b_dt: layernorm.fused_layernorm(x, s_dt, b_dt),
+                plain=lambda x=x, s_dt=s_dt, b_dt=b_dt: layernorm.fused_layernorm_plain(x, s_dt, b_dt),
                 check=_close(*tols["K3"][dt]),
-                n_bytes=2 * rows * d * es + 2 * d * 4, n_ops=8 * rows * d, kind=names[dt],
+                n_bytes=2 * rows * d * es + 2 * d * es, n_ops=8 * rows * d, kind=names[dt],
                 library=lambda x=x, d=d, s_dt=s_dt, b_dt=b_dt: F.layer_norm(x, (d,), s_dt, b_dt, 1e-5),
             ))
 
     # K4.  The int8 tower's four dense layers at R = 577 (grid), 16 x 257
-    # (verify at 512) and 16 x 577 (wide verify).  Exactly equal.
+    # (verify at 512) and 16 x 577 (wide verify).  Exactly equal.  The kernel
+    # reads the weight's (N, K) copy, made once here as the tower makes it
+    # once per scorer.
     def exact(got, want, x=None):
         return (got.float() - want.float()).abs().max().item(), bool(torch.equal(got, want)), "exact"
 
@@ -237,13 +246,15 @@ def kernel_cases(torch):
         for name, k, n, xd, od in layers:
             x = (torch.randn(rows, k, generator=g, device=dev) * 3).to(xd)
             w = torch.randint(-127, 128, (k, n), generator=g, device=dev).to(torch.int8)
+            wt = w.T.contiguous()
             ws = torch.rand(n, generator=g, device=dev) * 1e-3
             b = torch.randn(n, generator=g, device=dev) * 0.1
             q, _ = quant_matmul.quantize_activation(x)
             xb, wb, bb = x.to(bf16), w.to(bf16), b.to(bf16)
             cases.append(Case(
                 "K4", f"{name} R={rows} {k}->{n}", f"{names[xd]}->{names[od]}",
-                run=lambda x=x, w=w, ws=ws, b=b, od=od: quant_matmul.w8a8_matmul(x, w, ws, b, od),
+                run=lambda x=x, w=w, wt=wt, ws=ws, b=b, od=od: quant_matmul.w8a8_matmul(
+                    x, w, ws, b, od, w_t=wt),
                 plain=lambda x=x, w=w, ws=ws, b=b, od=od: quant_matmul.w8a8_matmul_plain(x, w, ws, b, od),
                 check=exact,
                 n_bytes=rows * k * x.element_size() + k * n + 2 * n * 4
@@ -352,7 +363,9 @@ def kernel_cases(torch):
 
 def phase_build(torch):
     """Phase 2: build the kernels; the bf16 attention kernels must run on
-    wgmma and TMA (their SASS holds HGMMA and UTMALDG) and spill nothing."""
+    wgmma and TMA (their SASS holds HGMMA and UTMALDG), K4 on integer wgmma
+    and TMA (IGMMA, UTMALDG), and neither spills; K3's registers and spills
+    are printed, and the grids K4 and the attention kernel take."""
     import ctypes
     import re
     import shutil
@@ -383,21 +396,53 @@ def phase_build(torch):
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             props.setdefault(current, {})["registers"] = int(m.group(1))
-    attn = sorted(n for n in bodies if "attn_sm90_kernel" in n)
+    def sass_check(name, label, ops):
+        """SASS counts of ``ops`` (each must occur) and ptxas's spills (0)."""
+        body, prop = bodies[name], props.get(name, {})
+        counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
+        ok = all(counts[op] > 0 for op in ops[:2]) and prop.get("spills") == 0
+        log(f"[build] {label}: SASS {counts}; ptxas {prop.get('registers')} registers, "
+            f"{prop.get('spills')} bytes spilled {'OK' if ok else 'FAIL'}")
+        return ok
+
     failed = []
+    attn = sorted(n for n in bodies if "attn_sm90_kernel" in n)
     for name in attn:
         m = re.search(r"attn_sm90_kernelILi(\d)ELi(\d)E", name)
         label = f"mode {m.group(1)} ({['K1', 'K1 P16', 'K8'][int(m.group(1))]}), {m.group(2)} warpgroup(s)" if m else name
-        body, prop = bodies[name], props.get(name, {})
-        counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-        ok = counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and prop.get("spills") == 0
-        log(f"[build] attn_sm90_kernel {label}: SASS {counts}; ptxas {prop.get('registers')} registers, "
-            f"{prop.get('spills')} bytes spilled {'OK' if ok else 'FAIL'}")
-        if not ok:
+        if not sass_check(name, f"attn_sm90_kernel {label}", ("HGMMA", "UTMALDG", "UTMASTG")):
             failed.append(label)
     if len(attn) != 6 or failed:
         raise SystemExit(f"bf16 attention kernels: {len(attn)} found (want 6), failing {failed}")
-    cfg = (ctypes.c_int * 4)()
+    # K4: one instance per (x, out) dtype pair and tile (128-row slab with
+    # wgmma n = 128, or 64-row with n = 64), each on integer wgmma fed by TMA.
+    w8a8 = sorted(n for n in bodies if "w8a8_kernel" in n)
+    for name in w8a8:
+        m = re.search(r"w8a8_kernelI(\w+?)(S1_|f|13__nv_bfloat16)Li(\d)E", name)
+        label = f"K4 w8a8_kernel {name}" if not m else (
+            f"K4 w8a8_kernel x {'f32' if m.group(1) == 'f' else 'bf16'} -> "
+            f"{'f32' if m.group(2) == 'f' else 'bf16'}, {64 * int(m.group(3))}-row slab")
+        if not sass_check(name, label, ("IGMMA", "UTMALDG")):
+            failed.append(label)
+    if len(w8a8) != 8 or failed:
+        raise SystemExit(f"K4 kernels: {len(w8a8)} found (want 8), failing {failed}")
+    # K3: one instance per dtype and 16-byte vectors a lane; the towers' are
+    # 3 (D = 768) and 2 (D = 512) in bf16, 6 and 4 in f32.
+    ln = sorted(n for n in props if "layernorm_kernel" in n)
+    regs = [props[n].get("registers") for n in ln]
+    spills = sum(props[n].get("spills", 0) for n in ln)
+    log(f"[build] K3 layernorm_kernel: {len(ln)} instances, {min(regs)}-{max(regs)} registers, "
+        f"{spills} bytes spilled in all")
+    for name in ln:
+        log(f"[build]   {name}: {props[name].get('registers')} registers, "
+            f"{props[name].get('spills')} bytes spilled")
+    cfg = (ctypes.c_int * 6)()
+    for r in (577, 16 * 257, 16 * 577):
+        for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+            _build.check(lib.tstar_w8a8_config(r, k, n, cfg), "tstar_w8a8_config")
+            log(f"[build] K4 grid at R={r} K={k} N={n}: {cfg[0]} CTAs of {cfg[3]} rows x {cfg[1]} N "
+                f"tile(s) of 128 in clusters of {cfg[5]} (sharing a slab's quantization), "
+                f"{cfg[2]} W^T stages, {cfg[4]} B dynamic shared memory")
     for b, s in ((1, 577), (8, 577), (16, 577), (16, 257)):
         _build.check(lib.tstar_attn_config(b, s, 12, cfg), "tstar_attn_config")
         log(f"[build] attention grid at B={b} S={s} 12 heads: {cfg[0]} consumer warpgroup(s) "
@@ -694,11 +739,56 @@ def phase_knobs(torch, card, heur):
     }
     out = {}
     for label, (cfg, env, per_forward) in runs.items():
-        counts, counted = run_search(torch, card, heur, label, cfg, per_forward, env=env)
-        if label == "int8+verify512" and not counted["verify_batches"]:
-            raise SystemExit("int8+verify512: no verification ran, the 512 tower was not driven")
+        if label == "int8+verify512":
+            with w8a8_weights_read() as read:
+                counts, counted = run_search(torch, card, heur, label, cfg, per_forward, env=env)
+            check_weights_made_once(heur._weight_views[("int8", 512)], read, counts["w8a8_matmul"])
+            if not counted["verify_batches"]:
+                raise SystemExit("int8+verify512: no verification ran, the 512 tower was not driven")
+        else:
+            counts, _ = run_search(torch, card, heur, label, cfg, per_forward, env=env)
         out[label] = counts
     return out
+
+
+@contextlib.contextmanager
+def w8a8_weights_read():
+    """Records the address of the (N, K) weight that each K4 launch reads."""
+    from tstar_tpu_torch.kernels import quant_matmul
+
+    read, launch = [], quant_matmul._launch
+
+    def recording(x, w_i8, w_t, *rest):
+        read.append(w_t.data_ptr())
+        return launch(x, w_i8, w_t, *rest)
+
+    quant_matmul._launch = recording
+    try:
+        yield read
+    finally:
+        quant_matmul._launch = launch
+
+
+def check_weights_made_once(views, read, launched):
+    """Every K4 launch of the int8 searches (warm-up and measured) read one of
+    the 48 (N, K) copies that quantizing the tower made once for the
+    heuristic's int8 weight views (the grid's and the verification's share
+    them): no weight was transposed per call."""
+    qvision, _, qverify = views
+    held = {}
+    for tree in (qvision, qverify):
+        for lyr in tree["layers"]:
+            for name in ("qkv", "o", "fc1", "fc2"):
+                held[lyr[name]["wt"].data_ptr()] = lyr[name]["wt"]
+    mb = sum(t.numel() * t.element_size() for t in held.values()) / 1e6
+    ok = (len(held) == 48 and set(read) <= set(held) and len(set(read)) == 48
+          and len(read) >= launched > 0)
+    log(f"[int8+verify512] K4 read {len(set(read))} distinct (N, K) weights in {len(read)} "
+        f"launches (warm-up and measured search), all among the {len(held)} copies made once "
+        f"per scorer ({mb:.1f} MB of device memory beside the (K, N) kernels): "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("int8+verify512: a K4 launch read a weight not made once per scorer")
 
 
 def phase_routes(torch, card, heur):
@@ -758,7 +848,7 @@ def main() -> int:
                "tstar_tpu/kernels/attention.py:298", counts["fused_mha_from_qkv"]),
         "K2": ("patch_embed_matmul", "cuda", "tstar_tpu_torch/csrc/patch_embed.cu",
                "tstar_tpu/kernels/patch_matmul.py:76", counts["patch_embed_matmul"]),
-        "K3": ("fused_layernorm", "triton", "tstar_tpu_torch/kernels/layernorm.py",
+        "K3": ("fused_layernorm", "cuda", "tstar_tpu_torch/csrc/layernorm.cu",
                "tstar_tpu/kernels/layernorm.py:126", counts["fused_layernorm"]),
         "K4": ("w8a8_matmul", "cuda", "tstar_tpu_torch/csrc/w8a8.cu",
                "tstar_tpu/kernels/quant_matmul.py:64", knobs["int8+verify512"]["w8a8_matmul"]),

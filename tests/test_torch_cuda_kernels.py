@@ -9,8 +9,9 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
 are the main path's: S=577 tokens, D=768, 12 heads x 64, at batch 1 (grid
 forward), 8 and 16 (verify forwards), and S=257 (verify at 512); 768^2 and
 512^2 images with 32-pixel patches; LayerNorm over 577, 8*577 and 16*577
-rows of 768, and 256 rows of 512 (the text tower); the int8 tower's four
-dense layers (K4) and the two LayerNorm->matmul folds (K5) at 577, 16*257
+rows of 768, and 256 rows of 512 (the text tower), and at 1 and 33 rows in
+bf16, f16 and f32; the int8 tower's four dense layers (K4, reading the
+weight's (N, K) copy) and the two LayerNorm->matmul folds (K5) at 577, 16*257
 and 16*577 rows; the grid inputs (K6, K7) over a 192x384 cache (identity
 height) and a 180x320 one (resized height) into 4x4 cells of 192^2; flash
 attention (K8) on the fused projection's strided views.  The attention
@@ -167,6 +168,40 @@ def test_layernorm_kernel_matches_plain_on_card(cuda, dtype, rows, d):
     _assert_close(got, fused_layernorm_plain(x, s, bias), _TOL["ln"][dtype])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [512, 768])
+@pytest.mark.parametrize("rows", [1, 33, 577, 16 * 577])
+def test_layernorm_kernel_rows_and_dtypes_on_card(cuda, rows, d, dtype):
+    """K3 at one row, a ragged last CTA (33 rows, 8 a CTA), a grid forward
+    and a wide verify forward; the text tower's and the vision tower's
+    widths; every dtype it takes.  f16 keeps bf16's tolerance (its ulp is
+    smaller).  Scale and bias already in x's dtype, as the towers hold them."""
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = (torch.randn(rows, d, generator=g, device=cuda) * 3 + 1).to(dtype)
+    s = torch.randn(d, generator=g, device=cuda).to(dtype)
+    bias = torch.randn(d, generator=g, device=cuda).to(dtype)
+    before = fused_layernorm.launches
+    got = fused_layernorm(x, s, bias)
+    torch.cuda.synchronize()
+    assert fused_layernorm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    tol = _TOL["ln"][torch.float32 if dtype == torch.float32 else torch.bfloat16]
+    _assert_close(got, fused_layernorm_plain(x, s, bias), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(384, torch.bfloat16), (100, torch.float32),
+                                     (2304, torch.bfloat16), (1152, torch.float32)])
+def test_layernorm_kernel_raises_on_other_widths_on_card(cuda, d, dtype):
+    """A width the kernel does not hold in registers raises: no fallback."""
+    x = torch.ones(4, d, device=cuda, dtype=dtype)
+    before = fused_layernorm.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fused_layernorm(x, torch.ones(d, device=cuda), torch.zeros(d, device=cuda))
+    assert fused_layernorm.launches == before
+
+
 # K4: the int8 tower's dense layers, (K, N, input dtype, output dtype).
 _W8A8_LAYERS = [
     (768, 2304, torch.float32, torch.bfloat16),   # qkv
@@ -176,25 +211,88 @@ _W8A8_LAYERS = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [577, 16 * 257, 16 * 577, 33])
-@pytest.mark.parametrize("k,n,xd,od", _W8A8_LAYERS)
-def test_w8a8_kernel_equals_plain_on_card(cuda, rows, k, n, xd, od):
-    """Exactly equal: the integer product is exact and the divisions and the
-    epilogue round as the plain version's.  33 rows: a ragged row tile."""
+def _w8a8_inputs(cuda, rows, k, n, xd):
+    """x, the (K, N) int8 kernel, its (N, K) copy (made once, here), scales
+    and bias."""
     g = torch.Generator(device=cuda).manual_seed(rows + k + n)
     x = (torch.randn(rows, k, generator=g, device=cuda) * 3).to(xd)
     w = torch.randint(-127, 128, (k, n), generator=g, device=cuda).to(torch.int8)
     ws = torch.rand(n, generator=g, device=cuda) * 1e-3
     b = torch.randn(n, generator=g, device=cuda) * 0.1
+    return x, w, w.T.contiguous(), ws, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [577, 16 * 257, 16 * 577, 33])
+@pytest.mark.parametrize("k,n,xd,od", _W8A8_LAYERS)
+def test_w8a8_kernel_equals_plain_on_card(cuda, rows, k, n, xd, od):
+    """Exactly equal: the integer product is exact and the divisions and the
+    epilogue round as the plain version's.  33 rows: a ragged row tile.  The
+    kernel reads the (N, K) copy of the weight, the plain version the (K, N)
+    kernel."""
+    x, w, wt, ws, b = _w8a8_inputs(cuda, rows, k, n, xd)
     before = w8a8_matmul.launches
-    got = w8a8_matmul(x, w, ws, b, od)
+    got = w8a8_matmul(x, w, ws, b, od, w_t=wt)
     torch.cuda.synchronize()
     assert w8a8_matmul.launches == before + 1
     assert got.dtype == od and got.shape == (rows, n)
     want = w8a8_matmul_plain(x, w, ws, b, od)
     assert torch.isfinite(got.float()).all()
     assert torch.equal(got, want), f"max abs err {(got.float() - want.float()).abs().max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,xd,od", _W8A8_LAYERS)
+def test_w8a8_kernel_equals_plain_at_half_steps_on_card(cuda, k, n, xd, od):
+    """Inputs at and one ulp around (j + 1/2) quantization steps, where
+    x / xs lies within a few ulps of a rounding boundary: the kernel's
+    multiply by 1 / xs must hand these to the IEEE quotient and round as
+    the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(k + 3 * n)
+    rows = 97
+    amax = torch.rand(rows, 1, generator=g, device=cuda) * 10 + 0.1
+    xs = amax / torch.full_like(amax, 127.0)
+    j = torch.randint(-127, 127, (rows, k), generator=g, device=cuda).float()
+    x = (j + 0.5) * xs
+    step = torch.randint(-1, 2, (rows, k), generator=g, device=cuda).float()
+    x = torch.nextafter(x, x + step * x.abs().clamp_min(1e-30))
+    x[:, 0] = amax[:, 0]                       # the row's absmax, as above
+    x = x.to(xd)
+    _, w, wt, ws, b = _w8a8_inputs(cuda, rows, k, n, xd)
+    got = w8a8_matmul(x, w, ws, b, od, w_t=wt)
+    torch.cuda.synchronize()
+    want = w8a8_matmul_plain(x, w, ws, b, od)
+    assert torch.equal(got, want), f"max abs err {(got.float() - want.float()).abs().max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,xd,od", _W8A8_LAYERS)
+def test_w8a8_launch_transposes_no_weight_on_card(cuda, k, n, xd, od):
+    """A launch allocates its output and nothing else: no per-call copy or
+    transpose of the weight (fc1's would be 2.4 MB), of x or of the f32
+    scale and bias."""
+    x, w, wt, ws, b = _w8a8_inputs(cuda, 577, k, n, xd)
+    w8a8_matmul(x, w, ws, b, od, w_t=wt)   # the library is loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = w8a8_matmul(x, w, ws, b, od, w_t=wt)
+    torch.cuda.synchronize()
+    out_bytes = got.numel() * got.element_size()
+    assert torch.cuda.max_memory_allocated() - before <= -(-out_bytes // 512) * 512
+
+
+@pytest.mark.cuda
+def test_w8a8_kernel_needs_the_transposed_weight_on_card(cuda):
+    """Without ``w_t`` (or with the (K, N) kernel in its place) the wrapper
+    raises rather than transposing per call."""
+    x, w, _, ws, b = _w8a8_inputs(cuda, 33, 768, 768, torch.bfloat16)
+    before = w8a8_matmul.launches
+    with pytest.raises(ValueError, match="w_t"):
+        w8a8_matmul(x, w, ws, b, torch.bfloat16)
+    with pytest.raises(ValueError, match="transpose"):
+        w8a8_matmul(x, w[:, :384], ws[:384], b[:384], torch.bfloat16, w_t=w[:, :384])
+    assert w8a8_matmul.launches == before
 
 
 @pytest.mark.cuda

@@ -25,7 +25,8 @@ from tstar_tpu.kernels.layernorm import fused_layernorm as jax_ln
 from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
 from tstar_tpu_torch.kernels import grid_embed, launch_counts, pallas_grid, reset_launch_counts
 from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
-from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+from tstar_tpu_torch.kernels import layernorm as layernorm_module
+from tstar_tpu_torch.kernels.layernorm import fused_layernorm, supported_width
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
 from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
@@ -128,6 +129,27 @@ def test_layernorm_plain_matches_pallas_bf16():
     got = fused_layernorm(_t(x, torch.bfloat16), _t(s), _t(b))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=0.15, rtol=0.02)
+
+
+@pytest.mark.parametrize("d,dtype,ok", [
+    (768, torch.bfloat16, True), (512, torch.bfloat16, True), (768, torch.float16, True),
+    (768, torch.float32, True), (512, torch.float32, True), (128, torch.float32, True),
+    (2048, torch.bfloat16, True), (1024, torch.float32, True),
+    (384, torch.bfloat16, False), (100, torch.float32, False), (2304, torch.bfloat16, False),
+    (1152, torch.float32, False), (64, torch.bfloat16, False),
+])
+def test_layernorm_kernel_widths(d, dtype, ok):
+    """K3 holds a row in registers, whole 16-byte vectors on every lane of a
+    warp and at most 8 a lane: D = 768 and 512 (the towers) are taken in
+    every dtype; the wrapper raises on the others (card test)."""
+    assert supported_width(d, dtype) is ok
+
+
+def test_layernorm_module_has_no_triton():
+    """K3 is CUDA C++ in the kernel library; its module names no Triton."""
+    import inspect
+
+    assert "triton" not in inspect.getsource(layernorm_module).lower()
 
 
 def test_cpu_wrappers_run_the_plain_versions():

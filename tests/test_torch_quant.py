@@ -96,6 +96,36 @@ def test_dense_w8a8_bit_equal(k, n, xd, od):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
 
 
+@pytest.mark.parametrize("k,n,xd,od", LAYERS)
+def test_dense_w8a8_with_transposed_weight_bit_equal(k, n, xd, od):
+    """The int8 tower hands ``dense_w8a8`` the (N, K) copy that K4 reads on
+    the card; given it, the result is still bit-equal to the reference."""
+    rng = np.random.default_rng(k * n)
+    _, w_i8, w_s, b = _layer(rng, k, n)
+    x = (rng.normal(size=(3, 19, k)) * 3).astype(np.float32)
+    want = jops.dense_w8a8(
+        jnp.asarray(x, JDT[xd]), jnp.asarray(w_i8), jnp.asarray(w_s), jnp.asarray(b),
+        out_dtype=JDT[od],
+    )
+    got = tops.dense_w8a8(
+        torch.from_numpy(x).to(TDT[xd]), torch.from_numpy(w_i8), torch.from_numpy(w_s),
+        torch.from_numpy(b), out_dtype=TDT[od],
+        w_t=torch.from_numpy(np.ascontiguousarray(w_i8.T)),
+    )
+    assert got.dtype == TDT[od] and got.shape == (3, 19, n)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def test_dense_w8a8_rejects_an_untransposed_weight():
+    """A (K, N) array passed as ``w_t`` is refused, on the CPU too."""
+    rng = np.random.default_rng(11)
+    _, w_i8, w_s, b = _layer(rng, 64, 48)
+    x = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32))
+    with pytest.raises(ValueError, match="transpose"):
+        tops.dense_w8a8(x, torch.from_numpy(w_i8), torch.from_numpy(w_s), torch.from_numpy(b),
+                        w_t=torch.from_numpy(w_i8))
+
+
 def test_dense_w8a8_without_bias_bit_equal():
     rng = np.random.default_rng(9)
     _, w_i8, w_s, _ = _layer(rng, 64, 48)
@@ -156,14 +186,32 @@ def _leaves(tree, prefix=""):
 
 
 def test_quantize_vision_tower_bit_equal(models):
+    """Every array of the reference's quantized tower, bit-equal; the port
+    adds only each dense layer's (N, K) copy ``wt`` (checked below)."""
     _, variables, tmodel = models
     want = dict(_leaves(jq.quantize_vision_tower(variables, tiny_pair(jow))))
     got = dict(_leaves(tq.quantize_vision_tower(tmodel)))
-    assert set(got) == set(want)
+    transposed = {k + "t" for k in want if k.startswith("layers.") and k.endswith(".w")}
+    assert len(transposed) == 4 * len(tmodel.vision.encoder.layers)
+    assert set(got) == set(want) | transposed
     for key, w in want.items():
         g = got[key].numpy()
         assert g.dtype == np.asarray(w).dtype, key
         np.testing.assert_array_equal(g, np.asarray(w), err_msg=key)
+
+
+def test_quantize_vision_tower_transposes_each_weight_once(models):
+    """Each dense layer carries ``wt``: its int8 kernel transposed to (N, K)
+    and contiguous, made here once per scorer for K4 (never per call)."""
+    _, _, tmodel = models
+    qp = tq.quantize_vision_tower(tmodel)
+    for lyr in qp["layers"]:
+        for name in ("qkv", "o", "fc1", "fc2"):
+            w, wt = lyr[name]["w"], lyr[name]["wt"]
+            assert wt.dtype == torch.int8 and wt.is_contiguous(), name
+            assert wt.shape == (w.shape[1], w.shape[0]), name
+            assert torch.equal(wt, w.T), name
+            assert wt.data_ptr() != w.data_ptr(), name
 
 
 @pytest.mark.parametrize("weight_only,atol", [(False, 5e-2), (True, 2e-5)])

@@ -19,6 +19,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -117,9 +119,19 @@ def open_library(path: Path) -> ctypes.CDLL:
         # pixels, kernel, out, B, H, W, C, p, D, stream
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
-    # x, w, w_scale, bias, out, R, K, N, x dtype, out dtype, stream
+    # x, w^T (N, K), w_scale, bias, out, R, K, N, x dtype, out dtype, stream
     lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.tstar_w8a8.restype = ci
+    # R, K, N, int[6] out: CTAs, N tiles per CTA, stages, rows per CTA, smem bytes,
+    # CTAs per cluster
+    lib.tstar_w8a8_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.tstar_w8a8_config.restype = ci
+    if hasattr(lib, "tstar_w8a8_trace"):  # a build with -DTSTAR_W8A8_TRACE
+        lib.tstar_w8a8_trace.argtypes = [ctypes.POINTER(ctypes.c_longlong), ci]
+        lib.tstar_w8a8_trace.restype = ci
+    # x, scale, bias, out, R, D, dtype, eps, stream
+    lib.tstar_layernorm.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, vp]
+    lib.tstar_layernorm.restype = ci
     # x, scale32, bias32, w, b, out, R, D, N, eps, stream
     lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
     lib.tstar_ln_matmul_bf16.restype = ci
@@ -147,6 +159,22 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = open_library(build())
     return _lib
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of ``device_index``'s current CUDA stream, without building
+    a ``torch.cuda.Stream`` object: a launch's host path is on the search's
+    critical path."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def call(fn, device_index: int, *args) -> int:
+    """``fn(*args, stream)`` on ``device_index``'s current stream, with that
+    device current (made so for the call only where it is not already)."""
+    if device_index == torch.cuda.current_device():
+        return fn(*args, raw_stream(device_index))
+    with torch.cuda.device(device_index):
+        return fn(*args, raw_stream(device_index))
 
 
 def check(status: int, what: str) -> None:

@@ -1,27 +1,29 @@
 """K3: one-pass row LayerNorm (port of ``tstar_tpu/kernels/layernorm.py``
-``fused_layernorm``), a Triton kernel.
+``fused_layernorm``), a CUDA kernel.
 
 Math (flax ``use_fast_variance``, not Welford): f32 statistics with
 var = E[x^2] - mean^2; scale and bias cast to x's dtype, then to f32;
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` cast to x's dtype.
 
-What bounds it on the H100: it reads and writes each element once and does a
-few flops per element, so it is bound by memory bandwidth (a (8*577, 768)
-bf16 tensor moves ~14 MB).  One program per row holds the whole row in
-registers as a masked ``BLOCK_D = next_pow2(D)`` block, so each element is
-read once and written once, and no state crosses programs.  The TPU's row
-gate (<= 1024 rows) does not carry over: on the card every call runs the
-kernel.
-
-``triton`` is imported inside the launching function: the CPU tests import
-this module on machines without it.
+The kernel is ``csrc/layernorm.cu`` (design and H100 bounds in its header):
+one warp per row, the row held in registers, bf16, f16 and f32.  The TPU's
+row gate (<= 1024 rows) does not carry over: on the card every call runs the
+kernel.  The wrapper is the whole host path of a launch, which lies on the
+search's critical path: it copies nothing when scale and bias are already
+contiguous in x's dtype, and makes one C call.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-_KERNEL = None
+from tstar_tpu_torch.kernels import _build
+
+# dtype -> (the C entry point's dtype code, values per 16-byte vector)
+_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8), torch.float16: (2, 8)}
+MAX_VECTORS_PER_LANE = 8   # csrc/layernorm.cu MAX_VPL
 
 
 def fused_layernorm_plain(
@@ -35,50 +37,38 @@ def fused_layernorm_plain(
     return ((x32 - mean) * mul + bias.to(x.dtype).float()).to(x.dtype)
 
 
-def _kernel():
-    # ``tl`` becomes a module global: Triton resolves the names a kernel
-    # uses through the module's globals, not through closures.
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def _ln_kernel(x_ptr, w_ptr, b_ptr, o_ptr, D, eps, BLOCK_D: tl.constexpr):
-            row = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, BLOCK_D)
-            mask = cols < D
-            x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / D
-            var = tl.sum(x * x, axis=0) / D - mean * mean
-            w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-            b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-            y = (x - mean) * (tl.rsqrt(var + eps) * w) + b
-            tl.store(o_ptr + row * D + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-        _KERNEL = (triton, _ln_kernel)
-    return _KERNEL
+def supported_width(d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes rows of ``d`` values of ``dtype``: whole
+    16-byte vectors on every lane of a warp, at most 8 a lane."""
+    lane_row = 32 * _DTYPES[dtype][1]
+    return d % lane_row == 0 and 0 < d // lane_row <= MAX_VECTORS_PER_LANE
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"layernorm kernel takes a float tensor, got {x.dtype}")
+    dtype = x.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"layernorm kernel takes a float tensor, got {dtype}")
     d = x.shape[-1]
+    if not supported_width(d, dtype):
+        raise ValueError(f"layernorm kernel does not take D={d} in {dtype}")
     if scale.shape != (d,) or bias.shape != (d,):
         raise ValueError(f"scale/bias must be ({d},), got {tuple(scale.shape)}, {tuple(bias.shape)}")
-    if scale.device != x.device or bias.device != x.device:
+    dev = x.get_device()
+    if scale.get_device() != dev or bias.get_device() != dev:
         raise ValueError("layernorm params must be on the input's device")
     if not x.is_contiguous():
         raise ValueError("layernorm kernel needs a contiguous input")
-    triton, kern = _kernel()
-    rows = x.numel() // d
+    # the towers hold scale and bias contiguous in x's dtype: no copy then
+    if scale.dtype != dtype or not scale.is_contiguous():
+        scale = scale.to(dtype).contiguous()
+    if bias.dtype != dtype or not bias.is_contiguous():
+        bias = bias.to(dtype).contiguous()
     out = torch.empty_like(x)
-    w = scale.to(x.dtype).contiguous()
-    b = bias.to(x.dtype).contiguous()
-    block = triton.next_power_of_2(d)
-    with torch.cuda.device(x.device):
-        kern[(rows,)](x, w, b, out, d, float(eps), BLOCK_D=block,
-                      num_warps=4 if block <= 1024 else 8)
+    status = _build.call(
+        _build.load().tstar_layernorm, dev, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), x.numel() // d, d, _DTYPES[dtype][0], ctypes.c_float(eps),
+    )
+    _build.check(status, "tstar_layernorm")
     fused_layernorm.launches += 1
     return out
 
@@ -87,10 +77,10 @@ def fused_layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """LayerNorm over the last axis, one pass.  CPU tensor: the plain version.
-    CUDA tensor: the K3 Triton kernel, or raise."""
-    if x.device.type == "cpu":
-        return fused_layernorm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
+    CUDA tensor: the K3 kernel, or raise."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return fused_layernorm_plain(x, scale, bias, eps)
         raise ValueError(f"no layernorm kernel for device {x.device}")
     if x.numel() == 0:
         raise ValueError("layernorm kernel got an empty tensor")

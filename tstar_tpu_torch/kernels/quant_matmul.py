@@ -9,7 +9,9 @@ Math (``dense_w8a8`` of the reference, bit for bit):
     y   = ((f32(acc) * xs) * w_scale[n]) + bias[n]       (f32, each op rounded)
 
 then one rounding to the output dtype.  The CUDA kernel is ``csrc/w8a8.cu``
-(design and H100 bounds in its header).  ``w8a8_matmul_plain`` is the same
+(design and H100 bounds in its header); its integer wgmma reads the weight
+K-major, so it takes ``w_t``, the (N, K) transpose, which the int8 tower
+makes once per scorer beside the (K, N) kernel.  ``w8a8_matmul_plain`` is the same
 math in plain PyTorch; it forms the integer product exactly as a float64
 matmul (|acc| <= 127^2 * K is far below 2^53), because an int8
 ``torch.matmul`` returns int8 and overflows, and an f32 product is not exact
@@ -21,7 +23,7 @@ call runs the kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,39 +58,57 @@ def w8a8_matmul_plain(
     return y.to(out_dtype)
 
 
-def _launch(x, w_i8, w_scale, bias, out_dtype):
+# csrc/w8a8.cu: K in whole rows of a warp's 8-value groups, N in 128-column
+# tiles, and the 64-row int8 slab (64 K bytes) plus two 16 KB weight stages
+# within one CTA's 227 KB of shared memory.
+_K_STEP, _N_STEP = 256, 128
+MAX_K = 3072
+
+
+def _check_transposed(w_i8: torch.Tensor, w_t: torch.Tensor) -> None:
+    k, n = w_i8.shape
+    if w_t.shape != (n, k):
+        raise ValueError(f"w_t must be the ({n}, {k}) transpose of the kernel, got {tuple(w_t.shape)}")
+
+
+def _launch(x, w_i8, w_t, w_scale, bias, out_dtype):
     k, n = w_i8.shape
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, the int8 kernel has K={k}")
-    if k % 16 or n % 16:
-        raise ValueError(f"w8a8 kernel needs K and N multiples of 16, got K={k}, N={n}")
+    if k % _K_STEP or n % _N_STEP or k > MAX_K:
+        raise ValueError(f"w8a8 kernel needs K a multiple of {_K_STEP} up to {MAX_K} and N a "
+                         f"multiple of {_N_STEP}, got K={k}, N={n}")
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise TypeError(f"w8a8 kernel takes bf16/f32 in and out, got {x.dtype} -> {out_dtype}")
-    if w_i8.dtype != torch.int8:
-        raise TypeError(f"w8a8 kernel needs an int8 weight, got {w_i8.dtype}")
+    if w_t is None:
+        raise ValueError("w8a8 kernel reads the weight as W^T (N, K): pass w_t, made once "
+                         "beside the (K, N) kernel (models/owlvit_quant.quantize_vision_tower)")
+    _check_transposed(w_i8, w_t)
+    if w_t.dtype != torch.int8:
+        raise TypeError(f"w8a8 kernel needs an int8 weight, got {w_t.dtype}")
     if w_scale.shape != (n,) or bias.shape != (n,):
         raise ValueError(f"w_scale/bias must be ({n},), got {tuple(w_scale.shape)}, {tuple(bias.shape)}")
     if w_scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("w8a8 kernel needs f32 w_scale and bias")
-    for t in (w_i8, w_scale, bias):
-        if t.device != x.device:
+    dev = x.get_device()
+    for t in (w_t, w_scale, bias):
+        if t.get_device() != dev:
             raise ValueError(f"w8a8 operands on {t.device} and {x.device}")
-    if not (x.is_contiguous() and w_i8.is_contiguous()):
-        raise ValueError("w8a8 kernel needs a contiguous x and (K, N) weight")
-    if x.data_ptr() % 16 or w_i8.data_ptr() % 16:
+    if not (x.is_contiguous() and w_t.is_contiguous()):
+        raise ValueError("w8a8 kernel needs a contiguous x and (N, K) weight")
+    if x.data_ptr() % 16 or w_t.data_ptr() % 16:
         raise ValueError("w8a8 kernel needs 16-byte aligned x and weight")
-    lead = x.shape[:-1]
     rows = x.numel() // k
     if rows == 0:
         raise ValueError("w8a8 kernel got an empty input")
-    out = torch.empty(*lead, n, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.load().tstar_w8a8(
-            x.data_ptr(), w_i8.data_ptr(), w_scale.contiguous().data_ptr(),
-            bias.contiguous().data_ptr(), out.data_ptr(), rows, k, n,
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream,
-        )
+    if not (w_scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("w8a8 kernel needs a contiguous w_scale and bias")
+    out = torch.empty(*x.shape[:-1], n, dtype=out_dtype, device=x.device)
+    status = _build.call(
+        _build.load().tstar_w8a8, dev, x.data_ptr(), w_t.data_ptr(), w_scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), rows, k, n, _DTYPE_CODES[x.dtype],
+        _DTYPE_CODES[out_dtype],
+    )
     _build.check(status, "tstar_w8a8")
     w8a8_matmul.launches += 1
     return out
@@ -100,14 +120,18 @@ def w8a8_matmul(
     w_scale: torch.Tensor,    # (N,) f32 per-channel scale
     bias: torch.Tensor,       # (N,) f32 (zeros when the layer has none)
     out_dtype: torch.dtype,
+    w_t: Optional[torch.Tensor] = None,   # (N, K) int8: w_i8 transposed, contiguous
 ) -> torch.Tensor:
-    """Fused ``dense_w8a8``.  CPU tensor: the plain version.  CUDA tensor:
-    the K4 kernel, or raise."""
+    """Fused ``dense_w8a8``.  CPU tensor: the plain version (``w_t``, if
+    given, only checked).  CUDA tensor: the K4 kernel, which reads ``w_t``
+    (made once per scorer, never per call), or raise."""
     if x.device.type == "cpu":
+        if w_t is not None:
+            _check_transposed(w_i8, w_t)
         return w8a8_matmul_plain(x, w_i8, w_scale, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no w8a8 kernel for device {x.device}")
-    return _launch(x, w_i8, w_scale, bias, out_dtype)
+    return _launch(x, w_i8, w_t, w_scale, bias, out_dtype)
 
 
 w8a8_matmul.launches = 0  # kernel launches (not plain-version calls)

@@ -35,10 +35,15 @@ from tstar_tpu_torch.ops.quant import dense_w8a8, dense_w8a16, quantize_weight
 
 
 def _qlinear(kernel: torch.Tensor, bias: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One dense layer's int8 weights: the (K, N) kernel ``"w"`` (the CPU
+    plain version and ``dense_w8a16`` read it) and its (N, K) transpose
+    ``"wt"``, made here once: K4's integer wgmma reads the weight K-major."""
     w_i8, scale = quantize_weight(kernel.detach().float().cpu().numpy())
     dev = kernel.device
+    w = torch.from_numpy(w_i8).to(dev)
     return {
-        "w": torch.from_numpy(w_i8).to(dev),
+        "w": w,
+        "wt": w.T.contiguous(),
         "s": torch.from_numpy(scale).to(dev),
         "b": bias.detach().float(),
     }
@@ -50,8 +55,9 @@ def _ln_params(ln: LayerNorm) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def quantize_vision_tower(model: OwlViTDetector) -> Dict[str, Any]:
-    """Quantize the vision-tower weights once -> dict of int8 kernels, f32
-    scales, biases and LayerNorm params, on the model's device.
+    """Quantize the vision-tower weights once -> dict of int8 kernels (each
+    also transposed, for K4), f32 scales, biases and LayerNorm params, on the
+    model's device.
 
     The port's q|k|v projection is already the fused (D, 3D) kernel that the
     reference builds by concatenating q_proj, k_proj and v_proj; per-channel
@@ -108,10 +114,11 @@ def encode_image_int8(
     and the tower starts after the patch-embedding matmul.
     """
     if weight_only:
-        def dense(x, w, s, b, out_dtype):
-            return dense_w8a16(x.to(dtype), w, s, b, out_dtype=out_dtype)
+        def dense(x, p, out_dtype):
+            return dense_w8a16(x.to(dtype), p["w"], p["s"], p["b"], out_dtype=out_dtype)
     else:
-        dense = dense_w8a8
+        def dense(x, p, out_dtype):
+            return dense_w8a8(x, p["w"], p["s"], p["b"], out_dtype=out_dtype, w_t=p["wt"])
     c = cfg.vision
     eps = c.eps
     if patch_embeds is not None:
@@ -129,7 +136,7 @@ def encode_image_int8(
     act = ACTIVATIONS[c.activation]
     for lyr in qparams["layers"]:
         h = _layernorm(x, lyr["ln1"], eps)
-        qkv = dense(h, lyr["qkv"]["w"], lyr["qkv"]["s"], lyr["qkv"]["b"], out_dtype=dtype)
+        qkv = dense(h, lyr["qkv"], out_dtype=dtype)
         if use_fused_mha():
             attn = fused_mha_from_qkv(qkv, c.num_heads)
         else:
@@ -141,11 +148,11 @@ def encode_image_int8(
             else:
                 attn = dot_product_attention(q, k, v, None)
             attn = attn.reshape(b, seq, c.hidden_size)
-        x = x + dense(attn, lyr["o"]["w"], lyr["o"]["s"], lyr["o"]["b"], out_dtype=dtype)
+        x = x + dense(attn, lyr["o"], out_dtype=dtype)
         h = _layernorm(x, lyr["ln2"], eps)
-        h = dense(h, lyr["fc1"]["w"], lyr["fc1"]["s"], lyr["fc1"]["b"], out_dtype=torch.float32)
+        h = dense(h, lyr["fc1"], out_dtype=torch.float32)
         h = act(h)
-        x = x + dense(h, lyr["fc2"]["w"], lyr["fc2"]["s"], lyr["fc2"]["b"], out_dtype=dtype)
+        x = x + dense(h, lyr["fc2"], out_dtype=dtype)
 
     hidden = _layernorm(x, qparams["post_ln"], eps)    # (B, 1+P, D) f32
     feats = hidden[:, 1:, :] * hidden[:, :1, :]

@@ -61,13 +61,15 @@ def dense_w8a8(
     w_scale: torch.Tensor,                # (N,) f32 per-channel scale
     bias: Optional[torch.Tensor] = None,  # (N,) f32
     out_dtype: Optional[torch.dtype] = None,
+    w_t: Optional[torch.Tensor] = None,   # (N, K) int8, w_i8 transposed once
 ) -> torch.Tensor:
     """Quantized dense layer: ``round(x/sx) @ w_int8 * sx * sw + b``.
 
-    K4 on a CUDA tensor, its plain version on a CPU tensor.  A missing bias
-    adds zeros (the same values as the reference, which skips the add).
+    K4 on a CUDA tensor (it reads ``w_t``), its plain version on a CPU
+    tensor.  A missing bias adds zeros (the same values as the reference,
+    which skips the add).
     """
     out_dtype = out_dtype or x.dtype
     if bias is None:
         bias = torch.zeros(w_i8.shape[1], dtype=torch.float32, device=x.device)
-    return w8a8_matmul(x, w_i8, w_scale, bias, out_dtype)
+    return w8a8_matmul(x, w_i8, w_scale, bias, out_dtype, w_t=w_t)

@@ -36,7 +36,7 @@ import torch
 PORT_KERNELS = {
     "K1 mha": ("mha_kernel", "attn_sm90_kernel<0", "attn_sm90_kernel<1"),
     "K2 patch_embed": "patch_embed",
-    "K3 layernorm": "_ln_kernel",
+    "K3 layernorm": "layernorm_kernel",
     "K4 w8a8": "w8a8_kernel",
     "K5 ln_matmul": "ln_matmul_kernel",
     "K6 grid_embed": "grid_embed_kernel",
