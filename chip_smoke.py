@@ -5,12 +5,14 @@
 Phases (any failed check exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles the port's CUDA kernels from ``tstar_tpu_torch/csrc``;
-     the bf16 attention kernels (K1, K8: ``attn_sm90_kernel``) must hold
-     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
-     library's SASS (``cuobjdump -sass``) and spill no register (ptxas), the
-     int8 GEMM (K4: ``w8a8_kernel``) ``IGMMA`` (integer wgmma) and
-     ``UTMALDG`` with no spills; K3's (``layernorm_kernel``) registers and
-     spills are printed;
+     the bf16 attention kernels (K1, K8: ``attn_sm90_kernel``), the bf16
+     patch-embed GEMM (K2: ``patch_embed_sm90_kernel``) and LayerNorm->matmul
+     (K5: ``ln_matmul_kernel``) must hold ``HGMMA`` (wgmma) and ``UTMALDG``
+     (TMA load) instructions in the library's SASS (``cuobjdump -sass``) and
+     spill no register (ptxas), the int8 GEMM (K4: ``w8a8_kernel``)
+     ``IGMMA`` (integer wgmma) and ``UTMALDG`` with no spills; K3's
+     (``layernorm_kernel``) registers and spills are printed, and the grids
+     K2, K4, K5 and the attention kernel take at the main shapes;
   3. kernels: each hand-written kernel (K1 attention, K2 patch embed, K3
      LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul, K6 cache->patch
      embeddings, K7 grid pack, K8 flash attention) against its plain
@@ -32,6 +34,12 @@ Phases (any failed check exits non-zero and prints no result line):
      embeddings through K6 and ``encode_patches``, and the phase-4 image with
      ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8), each against the CPU
      f32 pixel chain of phase 4;
+  4d. widths: an encoder layer at SigLIP's D = 1152, 16 heads x 72 on the
+     card in bf16 and f32 against the same layer on the CPU, launching K3
+     for its two LayerNorms (1152 = 9 x 128, as the reference's kernel takes
+     it) and no K1 (heads of 72 take the split-head route, the reference's
+     XLA); the phase-4 B/32 towers launch K3 for every LayerNorm and K1 for
+     every unbiased attention;
   6. the detector knobs on the same search: ``detector_quant='int8'`` with
      ``verify_image_size=512`` (K4; every launch must read one of the 48
      (N, K) weight copies made once for the scorer: no weight is transposed
@@ -188,11 +196,12 @@ def kernel_cases(torch):
                 library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
             ))
 
-    # K2.  768^2 grid and verify images, 512^2 verification images.
+    # K2.  768^2 grid and verify images, 512^2 verification images; bf16 also
+    # at B=3 (72 patch rows: a ragged last tile of the wgmma kernel).
     w32 = torch.randn(32, 32, 3, 768, generator=g, device=dev) * 0.02
-    for b, hw in ((1, 768), (8, 768), (16, 768), (16, 512)):
+    for b, hw in ((1, 768), (8, 768), (16, 768), (8, 512), (16, 512), (3, 768)):
         base = torch.randn(b, hw, hw, 3, generator=g, device=dev)
-        for dt in (bf16, f32):
+        for dt in (bf16, f32) if b != 3 else (bf16,):
             px, w = base.to(dt), w32.to(dt)
             x_nchw = px.permute(0, 3, 1, 2)            # a channels-last view
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
@@ -213,10 +222,28 @@ def kernel_cases(torch):
                 n_ops=2 * b * p * 3072 * 768, kind=names[dt],
                 library=lambda x=x_nchw, w=w_oihw: torch.nn.functional.conv2d(x, w, stride=32),
             ))
+    # K2 at patch 16 (the B/16 detectors' 48-value (pw, c) runs: 16-value TMA
+    # segments), one 768^2 image; its own generator keeps the inputs of the
+    # other cases as they were.
+    g16 = torch.Generator(device=dev).manual_seed(16)
+    px16 = torch.randn(1, 768, 768, 3, generator=g16, device=dev).to(bf16)
+    w16 = (torch.randn(16, 16, 3, 768, generator=g16, device=dev) * 0.02).to(bf16)
+    cases.append(Case(
+        "K2", "B=1 768x768x3->768 patch 16", "bf16",
+        run=lambda: patch_matmul.patch_embed_matmul(px16, w16),
+        plain=lambda: patch_matmul.patch_embed_matmul_plain(px16, w16),
+        check=_close(*tols["K2"][bf16], ref=lambda x: patch_matmul.patch_embed_matmul_plain(
+            px16.float(), w16.float()).to(bf16)),
+        n_bytes=(px16.numel() + w16.numel() + 48 * 48 * 768) * 2,
+        n_ops=2 * 48 * 48 * 768 * 768, kind="bf16",
+        library=lambda x=px16.permute(0, 3, 1, 2), w=w16.permute(3, 2, 0, 1).contiguous():
+            torch.nn.functional.conv2d(x, w, stride=16),
+    ))
 
     # K3.  577 / 8x577 / 16x577 rows of the vision tower, 256 of the text
-    # tower; scale and bias in x's dtype, as the towers hold them.
-    for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512)):
+    # tower, 2 x 37 of phase 4d's SigLIP-width layer (rows read twice in
+    # bf16); scale and bias in x's dtype, as the towers hold them.
+    for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512), (74, 1152)):
         base = torch.randn(rows, d, generator=g, device=dev) * 3 + 1
         s = torch.randn(d, generator=g, device=dev)
         bias = torch.randn(d, generator=g, device=dev)
@@ -266,15 +293,17 @@ def kernel_cases(torch):
                 },
             ))
 
-    # K5.  ln1 -> qkv and ln2 -> fc1 at R = 577 and 16 x 577, bf16.
-    for rows in (577, 16 * 577):
+    # K5.  ln1 -> qkv and ln2 -> fc1, bf16, at R = 577 (grid), 8 x 577 and
+    # 16 x 577 (verify), 16 x 257 (verify at 512) and the ragged 1, 33, 70;
+    # the LayerNorm's scale and bias in bf16, as the towers hold them.
+    for rows in (577, 8 * 577, 16 * 577, 16 * 257, 1, 33, 70):
         for name, n in (("ln1->qkv", 2304), ("ln2->fc1", 3072)):
             x = (torch.randn(1, rows, 768, generator=g, device=dev) * 3 + 1).to(bf16)
-            scale = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
-            lbias = 0.1 * torch.randn(768, generator=g, device=dev)
+            scale = (1 + 0.1 * torch.randn(768, generator=g, device=dev)).to(bf16)
+            lbias = (0.1 * torch.randn(768, generator=g, device=dev)).to(bf16)
             w = (torch.randn(768, n, generator=g, device=dev) * 0.036).to(bf16)
             b = (0.1 * torch.randn(n, generator=g, device=dev)).to(bf16)
-            x2, s_b, lb_b = x[0], scale.to(bf16), lbias.to(bf16)
+            x2, s_b, lb_b = x[0], scale, lbias
 
             def within_bound(got, want, x=x, scale=scale, lbias=lbias, w=w, b=b):
                 bound = ln_matmul.bf16_error_bound(x, scale, lbias, w, b, 1e-5, want)
@@ -287,7 +316,7 @@ def kernel_cases(torch):
                 run=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul(x, scale, lbias, w, b, 1e-5),
                 plain=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul_plain(x, scale, lbias, w, b, 1e-5),
                 check=within_bound,
-                n_bytes=rows * 768 * 2 + 768 * n * 2 + 2 * 768 * 4 + n * 2 + rows * n * 2,
+                n_bytes=rows * 768 * 2 + 768 * n * 2 + 2 * 768 * 2 + n * 2 + rows * n * 2,
                 n_ops=2 * rows * 768 * n, kind="bf16",
                 yardsticks={
                     "addmm bf16 (GEMM + bias only)": lambda x2=x2, w=w, b=b: torch.addmm(b, x2, w),
@@ -426,9 +455,23 @@ def phase_build(torch):
             failed.append(label)
     if len(w8a8) != 8 or failed:
         raise SystemExit(f"K4 kernels: {len(w8a8)} found (want 8), failing {failed}")
-    # K3: one instance per dtype and 16-byte vectors a lane; the towers' are
-    # 3 (D = 768) and 2 (D = 512) in bf16, 6 and 4 in f32.
-    ln = sorted(n for n in props if "layernorm_kernel" in n)
+    # K2 (bf16): one instance per output columns per CTA (64, 128, 256) and
+    # values per TMA segment of a (pw, c) run (32, 16); K5: one per row path
+    # (D = 768 in registers, other widths read twice) and columns per
+    # warpgroup (64, 128); each on bf16 wgmma fed by TMA.
+    for kernel, label, want in (("patch_embed_sm90_kernel", "K2", 6), ("ln_matmul_kernel", "K5", 4)):
+        found = sorted(n for n in bodies if kernel in n)
+        for name in found:
+            m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)E", name)
+            tag = f"{label} {kernel}<{m.group(1)}, {m.group(2)}>" if m else f"{label} {name}"
+            if not sass_check(name, tag, ("HGMMA", "UTMALDG")):
+                failed.append(tag)
+        if len(found) != want or failed:
+            raise SystemExit(f"{label} kernels: {len(found)} found (want {want}), failing {failed}")
+    # K3: one instance per dtype and 16-byte vectors a lane (the towers' are
+    # 3 (D = 768) and 2 (D = 512) in bf16, 6 and 4 in f32), and one per dtype
+    # of the version that reads a row twice (layernorm_wide_kernel).
+    ln = sorted(n for n in props if "layernorm_" in n)
     regs = [props[n].get("registers") for n in ln]
     spills = sum(props[n].get("spills", 0) for n in ln)
     log(f"[build] K3 layernorm_kernel: {len(ln)} instances, {min(regs)}-{max(regs)} registers, "
@@ -443,6 +486,20 @@ def phase_build(torch):
             log(f"[build] K4 grid at R={r} K={k} N={n}: {cfg[0]} CTAs of {cfg[3]} rows x {cfg[1]} N "
                 f"tile(s) of 128 in clusters of {cfg[5]} (sharing a slab's quantization), "
                 f"{cfg[2]} W^T stages, {cfg[4]} B dynamic shared memory")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, hw, p in ((1, 768, 32), (3, 768, 32), (8, 768, 32), (16, 768, 32), (8, 512, 32),
+                     (16, 512, 32), (1, 768, 16)):
+        _build.check(lib.tstar_patch_embed_config(b, hw, hw, 3, p, 768, cfg),
+                     "tstar_patch_embed_config")
+        log(f"[build] K2 grid at B={b} {hw}x{hw} patch {p}: {cfg[0]} CTAs of 16x8 patches x "
+            f"{cfg[1]} columns ({-(-cfg[0] // sms)} wave(s) on {sms} SMs, one CTA an SM), "
+            f"{cfg[2]} stages of {cfg[4]} K chunk(s) of {cfg[5]}, {cfg[3]} B dynamic shared memory")
+    for r in (1, 577, 8 * 577, 16 * 257, 16 * 577):
+        for n in (2304, 3072):
+            _build.check(lib.tstar_ln_matmul_config(r, 768, n, cfg), "tstar_ln_matmul_config")
+            log(f"[build] K5 grid at R={r} D=768 N={n}: {cfg[0]} CTAs of 64 rows x {cfg[1]} N "
+                f"tile(s) of {2 * cfg[5]} in clusters of {cfg[3]} (sharing a slab's "
+                f"normalization), {cfg[2]} W stages, {cfg[4]} B dynamic shared memory")
     for b, s in ((1, 577), (8, 577), (16, 577), (16, 257)):
         _build.check(lib.tstar_attn_config(b, s, 12, cfg), "tstar_attn_config")
         log(f"[build] attention grid at B={b} S={s} 12 heads: {cfg[0]} consumer warpgroup(s) "
@@ -632,6 +689,80 @@ def phase_route_tower(torch, tower):
             f"{ {k: counts[k] for k in want[label]} } {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{label}: the full-width tower on the card disagrees")
+
+
+def phase_widths(torch, tower):
+    """Phase 4d: an encoder layer at SigLIP's widths (D = 1152 for K3, heads
+    of 72 that K1 does not take) on the card against the same layer on the
+    CPU, in bf16 and f32, launching K3 twice and no other kernel; then the
+    phase-4 B/32 towers' LayerNorms and unbiased attentions, each of which
+    must launch K3 / K1."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models import transformer
+    from tstar_tpu_torch.tools.profile_search import environ
+
+    torch.manual_seed(0)
+    layer = transformer.EncoderLayer(1152, 16, 4304, eps=1e-6).requires_grad_(False)
+    for name, p in layer.named_parameters():
+        if "kernel" in name:
+            torch.nn.init.normal_(p, std=p.shape[0] ** -0.5)
+        else:
+            torch.nn.init.normal_(p, mean=1.0 if "scale" in name else 0.0, std=0.1)
+    x = 2 * torch.randn(2, 37, 1152)
+    # f32: summation order only; bf16: two ulps of the residual stream's
+    # magnitude plus 2e-2 relative (tests/test_torch_widths.py)
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6.25e-2, 2e-2)}
+    plain = {"TSTAR_FUSED_MHA": "1", "TSTAR_LN_MATMUL": "0", "TSTAR_FLASH_ATTENTION": ""}
+    with torch.no_grad(), environ(plain):
+        for dt, (atol, rtol) in tols.items():
+            lyr = layer.to(dt)
+            want = lyr(x.to(dt)).float()
+            reset_launch_counts()
+            got = lyr.to("cuda")(x.to("cuda", dt)).float().cpu()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            layer = lyr.to("cpu")
+            diff = (got - want).abs()
+            others = sum(v for k, v in counts.items() if k != "fused_layernorm")
+            ok = (bool((diff <= atol + rtol * want.abs()).all()) and bool(got.isfinite().all())
+                  and counts["fused_layernorm"] == 2 and others == 0)
+            log(f"[widths] EncoderLayer D=1152, 16 heads x 72, S=37, {str(dt)[6:]}: max |cuda - "
+                f"cpu| = {diff.max().item():.3e} (atol {atol:.0e} + rtol {rtol:.0e}*|ref|), "
+                f"K3 launches {counts['fused_layernorm']} (want 2), other kernels {others} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("SigLIP-width layer on the card disagrees with the CPU")
+
+        model, cfg = tower["gpu_model"], tower["cfg"]
+        norms, apply_ln = [], transformer.apply_layernorm
+
+        def counted(x, *args):
+            norms.append(x.shape[-1])
+            return apply_ln(x, *args)
+
+        transformer.apply_layernorm = counted
+        try:
+            ids = torch.randint(1, cfg.text.vocab_size, (2, cfg.text.max_length), device="cuda")
+            runs = {"vision (one 768^2 grid)": (
+                        lambda: model.encode_image(tower["pixels"]("cuda", torch.bfloat16)),
+                        cfg.vision.num_layers),
+                    "text (causal, biased)": (
+                        lambda: model.encode_text(ids, torch.ones_like(ids)), 0)}
+            for label, (run, attn) in runs.items():
+                norms.clear()
+                reset_launch_counts()
+                run()
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                ok = (counts["fused_layernorm"] == len(norms) > 0
+                      and counts["fused_mha_from_qkv"] == attn)
+                log(f"[widths] B/32 {label} tower: {len(norms)} LayerNorms, K3 launches "
+                    f"{counts['fused_layernorm']}; K1 launches {counts['fused_mha_from_qkv']} "
+                    f"(want {attn}) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"B/32 {label}: a LayerNorm or attention missed its kernel")
+        finally:
+            transformer.apply_layernorm = apply_ln
 
 
 def run_search(torch, card, heur, label, config, per_forward, env=None):
@@ -836,39 +967,48 @@ def main() -> int:
     tower = phase_tower(torch)
     phase_int8_tower(torch, tower)
     phase_route_tower(torch, tower)
+    phase_widths(torch, tower)
     del tower
     heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
     counts = phase_slice(torch, card, heur)
     knobs = phase_knobs(torch, card, heur)
     routes = phase_routes(torch, card, heur)
 
-    # name, route, source, TPU kernel, launches (from the run of its path)
+    # name, route, source, TPU kernel, launches (from the run of its path),
+    # the device kernel that implements it in bf16
     meta = {
         "K1": ("fused_mha_from_qkv", "cuda", "tstar_tpu_torch/csrc/attn_sm90.cu",
-               "tstar_tpu/kernels/attention.py:298", counts["fused_mha_from_qkv"]),
+               "tstar_tpu/kernels/attention.py:298", counts["fused_mha_from_qkv"],
+               "attn_sm90_kernel (wgmma + TMA)"),
         "K2": ("patch_embed_matmul", "cuda", "tstar_tpu_torch/csrc/patch_embed.cu",
-               "tstar_tpu/kernels/patch_matmul.py:76", counts["patch_embed_matmul"]),
+               "tstar_tpu/kernels/patch_matmul.py:76", counts["patch_embed_matmul"],
+               "patch_embed_sm90_kernel (wgmma + TMA)"),
         "K3": ("fused_layernorm", "cuda", "tstar_tpu_torch/csrc/layernorm.cu",
-               "tstar_tpu/kernels/layernorm.py:126", counts["fused_layernorm"]),
+               "tstar_tpu/kernels/layernorm.py:126", counts["fused_layernorm"],
+               "layernorm_kernel (a warp a row)"),
         "K4": ("w8a8_matmul", "cuda", "tstar_tpu_torch/csrc/w8a8.cu",
-               "tstar_tpu/kernels/quant_matmul.py:64", knobs["int8+verify512"]["w8a8_matmul"]),
+               "tstar_tpu/kernels/quant_matmul.py:64", knobs["int8+verify512"]["w8a8_matmul"],
+               "w8a8_kernel (integer wgmma + TMA, clusters)"),
         "K5": ("ln_matmul", "cuda", "tstar_tpu_torch/csrc/ln_matmul.cu",
-               "tstar_tpu/kernels/ln_matmul.py:86", knobs["ln_matmul"]["ln_matmul"]),
+               "tstar_tpu/kernels/ln_matmul.py:86", knobs["ln_matmul"]["ln_matmul"],
+               "ln_matmul_kernel (wgmma + TMA, clusters)"),
         "K6": ("grid_cell_embed", "cuda", "tstar_tpu_torch/csrc/grid_embed.cu",
-               "tstar_tpu/kernels/grid_embed.py:181", routes["k6 grid embed"]["grid_cell_embed"]),
+               "tstar_tpu/kernels/grid_embed.py:181", routes["k6 grid embed"]["grid_cell_embed"],
+               "grid_embed_kernel (WMMA)"),
         "K7": ("build_detector_grid_pallas", "triton", "tstar_tpu_torch/kernels/pallas_grid.py",
                "tstar_tpu/kernels/pallas_grid.py:141",
-               routes["k7 pallas preprocess"]["build_detector_grid_pallas"]),
+               routes["k7 pallas preprocess"]["build_detector_grid_pallas"], "_grid_kernel"),
         "K8": ("flash_mha", "cuda", "tstar_tpu_torch/csrc/attn_sm90.cu",
-               "tstar_tpu/kernels/attention.py:621", routes["k8 flash"]["flash_mha"]),
+               "tstar_tpu/kernels/attention.py:621", routes["k8 flash"]["flash_mha"],
+               "attn_sm90_kernel (wgmma + TMA)"),
     }
     kernels = []
-    for k, (name, route, source, replaces, launches) in meta.items():
+    for k, (name, route, source, replaces, launches, impl) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
         main_row = mine[0]    # the B=1 grid forward's shape: most of the launches
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches,
+            "impl": impl, "launches": launches,
             "max_abs_err": max(r["err"] for r in mine),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -144,8 +144,8 @@ def test_patch_kernel_matches_plain_on_card(cuda, dtype, b, hw):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hw,p,c,d", [(2, 64, 16, 3, 32), (3, 56, 14, 3, 40)])
 def test_patch_kernel_other_shapes_on_card(cuda, dtype, b, hw, p, c, d):
-    """Small shapes; p*C = 42 is not a multiple of 8, so bf16 takes the
-    CUDA-core kernel instead of the tensor-core one."""
+    """Small shapes; in bf16, p*C = 48 (a multiple of 16) takes the wgmma
+    kernel in 16-value segments, 42 the CUDA-core kernel."""
     g = torch.Generator(device=cuda).manual_seed(hw)
     px = torch.randn(b, hw, hw, c, generator=g, device=cuda).to(dtype)
     w = (torch.randn(p, p, c, d, generator=g, device=cuda) * 0.05).to(dtype)
@@ -153,6 +153,107 @@ def test_patch_kernel_other_shapes_on_card(cuda, dtype, b, hw, p, c, d):
     torch.cuda.synchronize()
     assert got.shape == (b, (hw // p) ** 2, d)
     _assert_close(got, _patch_reference(px, w), _TOL["patch"][dtype])
+    cfg = _patch_config(b, hw, c, p, d)
+    assert (cfg[0] > 0) == ((p * c) % 16 == 0)
+
+
+def _patch_config(b, hw, c, p, d):
+    """The bf16 wgmma kernel's launch configuration for a shape (all 0 where
+    the CUDA-core kernel takes it): CTAs, columns, stages, shared memory, K
+    chunks a stage, values a chunk."""
+    import ctypes
+
+    from tstar_tpu_torch.kernels import _build
+
+    cfg = (ctypes.c_int * 6)()
+    _build.check(_build.load().tstar_patch_embed_config(b, hw, hw, c, p, d, cfg),
+                 "tstar_patch_embed_config")
+    return list(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,p,c,d,pk", [(1, 768, 16, 3, 768, 16), (2, 224, 14, 16, 64, 32),
+                                           (2, 224, 14, 8, 64, 16)])
+def test_patch_kernel_segments_on_card(cuda, b, hw, p, c, d, pk):
+    """bf16 wgmma kernel beyond the main path's 96-value (pw, c) runs: patch
+    16 RGB (48 values: three 16-value segments, 32-byte swizzle), and runs of
+    224 and 112 values at patch 14, whose 98 chunks leave the last stage part
+    empty (TMA fills the chunks past the last with zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(p * c)
+    px = torch.randn(b, hw, hw, c, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(p, p, c, d, generator=g, device=cuda) * (p * p * c) ** -0.5).to(torch.bfloat16)
+    cfg = _patch_config(b, hw, c, p, d)
+    assert cfg[0] > 0 and cfg[5] == pk
+    before = patch_embed_matmul.launches
+    got = patch_embed_matmul(px, w)
+    torch.cuda.synchronize()
+    assert patch_embed_matmul.launches == before + 1
+    assert got.shape == (b, (hw // p) ** 2, d)
+    _assert_close(got, _patch_reference(px, w), _TOL["patch"][torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw", [(3, 768), (8, 512), (5, 448)])
+def test_patch_kernel_ragged_tiles_on_card(cuda, b, hw):
+    """bf16 wgmma kernel at batches whose patch rows do not fill its 16 x 8
+    patch tiles: B=3 at 768^2 (72 patch rows, M = 1728, not a multiple of
+    its 128-patch tiles), B=8 at 512^2 (verification at 512, 64-column
+    tiles) and 448^2 (14 x 14 patches: both tile edges ragged)."""
+    g = torch.Generator(device=cuda).manual_seed(b * hw)
+    px = torch.randn(b, hw, hw, 3, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(32, 32, 3, 768, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    before = patch_embed_matmul.launches
+    got = patch_embed_matmul(px, w)
+    torch.cuda.synchronize()
+    assert patch_embed_matmul.launches == before + 1
+    assert got.shape == (b, (hw // 32) ** 2, 768)
+    _assert_close(got, _patch_reference(px, w), _TOL["patch"][torch.bfloat16])
+
+
+def _record_weight_pointer(monkeypatch, entry):
+    """Records the weight pointer (second / fourth argument) that reaches the
+    C entry point ``entry`` of the kernel library."""
+    from tstar_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    fn, seen = getattr(lib, entry), []
+
+    def recording(*args):
+        seen.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(lib, entry, recording)
+    return seen
+
+
+@pytest.mark.cuda
+def test_patch_and_ln_matmul_read_the_weight_in_place_on_card(cuda, monkeypatch):
+    """K2 and K5 read the bf16 (K, N) weight as it is stored: the pointer that
+    reaches the kernel is the weight's own (no transposed or cast copy), and
+    a launch allocates its output and nothing else of that size."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    px = torch.randn(1, 768, 768, 3, generator=g, device=cuda).to(torch.bfloat16)
+    w2 = (torch.randn(32, 32, 3, 768, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    x = torch.randn(1, 577, 768, generator=g, device=cuda).to(torch.bfloat16)
+    scale, bias = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    w5 = (torch.randn(768, 2304, generator=g, device=cuda) * 0.036).to(torch.bfloat16)
+    b5 = torch.zeros(2304, device=cuda).to(torch.bfloat16)
+    patch_embed_matmul(px, w2)
+    ln_matmul(x, scale, bias, w5, b5, 1e-5)
+    torch.cuda.synchronize()
+    k2 = _record_weight_pointer(monkeypatch, "tstar_patch_embed_bf16")
+    k5 = _record_weight_pointer(monkeypatch, "tstar_ln_matmul_bf16")
+    for run, weight_bytes in ((lambda: patch_embed_matmul(px, w2), w2.numel() * 2),
+                              (lambda: ln_matmul(x, scale, bias, w5, b5, 1e-5), w5.numel() * 2)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = run()
+        torch.cuda.synchronize()
+        out_bytes = got.numel() * got.element_size()
+        assert torch.cuda.max_memory_allocated() - before < out_bytes + weight_bytes // 2
+    assert [a[1] for a in k2] == [w2.data_ptr()]
+    assert [a[3] for a in k5] == [w5.data_ptr()]
 
 
 @pytest.mark.cuda
@@ -191,10 +292,31 @@ def test_layernorm_kernel_rows_and_dtypes_on_card(cuda, rows, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,dtype", [(384, torch.bfloat16), (100, torch.float32),
-                                     (2304, torch.bfloat16), (1152, torch.float32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [128, 384, 1152, 2304, 4096])
+@pytest.mark.parametrize("rows", [1, 33, 74])
+def test_layernorm_kernel_reference_widths_on_card(cuda, rows, d, dtype):
+    """K3 at the widths the reference's kernel takes beyond the towers' (a
+    multiple of 128): held in registers (128 and 384 in f32) or read twice
+    (every other case here); SigLIP's 1152 at its two sequences of 37 rows."""
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = (torch.randn(rows, d, generator=g, device=cuda) * 3 + 1).to(dtype)
+    s = torch.randn(d, generator=g, device=cuda).to(dtype)
+    bias = torch.randn(d, generator=g, device=cuda).to(dtype)
+    before = fused_layernorm.launches
+    got = fused_layernorm(x, s, bias)
+    torch.cuda.synchronize()
+    assert fused_layernorm.launches == before + 1
+    tol = _TOL["ln"][torch.float32 if dtype == torch.float32 else torch.bfloat16]
+    _assert_close(got, fused_layernorm_plain(x, s, bias), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(200, torch.bfloat16), (100, torch.float32),
+                                     (1160, torch.bfloat16), (64, torch.float32)])
 def test_layernorm_kernel_raises_on_other_widths_on_card(cuda, d, dtype):
-    """A width the kernel does not hold in registers raises: no fallback."""
+    """A width the reference's kernel does not take (not a multiple of 128)
+    raises: no fallback."""
     x = torch.ones(4, d, device=cuda, dtype=dtype)
     before = fused_layernorm.launches
     with pytest.raises(ValueError, match="does not take"):
@@ -319,6 +441,62 @@ def test_ln_matmul_kernel_matches_plain_on_card(cuda, rows, n):
     assert bool((err <= bound).all()), f"max abs err {err.max().item():.3e}"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 33, 8 * 577, 16 * 257])
+@pytest.mark.parametrize("n", [2304, 3072])
+def test_ln_matmul_kernel_ragged_rows_on_card(cuda, rows, n):
+    """K5 at one row, a ragged 64-row slab (33), the 8-image verify forward
+    and 16 x 257 (4112 rows, verification at 512), within
+    ``bf16_error_bound``."""
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + n)
+    x = (torch.randn(1, rows, 768, generator=g, device=cuda) * 3 + 1).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(768, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(768, generator=g, device=cuda)
+    w = (torch.randn(768, n, generator=g, device=cuda) * 0.036).to(torch.bfloat16)
+    b = (0.1 * torch.randn(n, generator=g, device=cuda)).to(torch.bfloat16)
+    before = ln_matmul.launches
+    got = ln_matmul(x, scale, bias, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ln_matmul.launches == before + 1
+    want = ln_matmul_plain(x, scale, bias, w, b, 1e-5)
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    bound = bf16_error_bound(x, scale, bias, w, b, 1e-5, want)
+    assert bool((err <= bound).all()), f"max abs err {err.max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(1152, 3456), (256, 128)])
+def test_ln_matmul_kernel_other_widths_on_card(cuda, d, n):
+    """K5 at widths other than the towers' 768 (the kernel's two-pass row
+    path): SigLIP's 1152 -> 3456 q|k|v and the smallest it takes."""
+    g = torch.Generator(device=cuda).manual_seed(d + n)
+    x = (torch.randn(2, 70, d, generator=g, device=cuda) * 3 + 1).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(d, generator=g, device=cuda)
+    w = (torch.randn(d, n, generator=g, device=cuda) * d ** -0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(n, generator=g, device=cuda)).to(torch.bfloat16)
+    got = ln_matmul(x, scale, bias, w, b, 1e-6)
+    torch.cuda.synchronize()
+    want = ln_matmul_plain(x, scale, bias, w, b, 1e-6)
+    err = (got.float() - want.float()).abs()
+    bound = bf16_error_bound(x, scale, bias, w, b, 1e-6, want)
+    assert bool((err <= bound).all()), f"max abs err {err.max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(768, 100), (704, 256), (1664, 256)])
+def test_ln_matmul_kernel_raises_on_other_shapes_on_card(cuda, d, n):
+    """A width the kernel does not take raises: no fallback."""
+    x = torch.ones(1, 4, d, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(d, n, device=cuda, dtype=torch.bfloat16)
+    before = ln_matmul.launches
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ln_matmul(x, torch.ones(d, device=cuda), torch.zeros(d, device=cuda), w,
+                  torch.zeros(n, device=cuda, dtype=torch.bfloat16), 1e-5)
+    assert ln_matmul.launches == before
+
+
 def _frames(cuda, seed, n, hw):
     g = torch.Generator(device=cuda).manual_seed(seed)
     cache = torch.randint(0, 256, (n, *hw, 3), generator=g, device=cuda, dtype=torch.int32)
@@ -419,3 +597,79 @@ def test_flash_bf16_rounds_where_the_reference_does_on_card(cuda):
     want = flash_mha_plain(q, k, v)
     _assert_close(got, want, _TOL["mha"][torch.bfloat16])
     assert (got == want).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_siglip_width_layer_on_card(cuda, dtype, monkeypatch):
+    """An ``EncoderLayer`` at SigLIP's D = 1152, 16 heads x 72, on the card
+    against the same layer on the CPU: both LayerNorms launch K3 (1152 is
+    9 x 128, as the reference's kernel takes it), the 72-wide heads take the
+    plain split-head route (the reference's XLA), the projections are
+    cuBLAS's.  f32: summation order only, 1e-4 absolute + 1e-4 relative.
+    bf16: two ulps of the residual stream's magnitude (6.25e-2) + 2e-2
+    relative, as ``tests/test_torch_widths.py`` holds the CPU layer to the
+    reference."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.transformer import EncoderLayer
+
+    for var in ("TSTAR_FUSED_MHA", "TSTAR_FLASH_ATTENTION", "TSTAR_ATTN_PROBS_BF16",
+                "TSTAR_LN_MATMUL"):
+        monkeypatch.delenv(var, raising=False)
+    torch.manual_seed(0)
+    layer = EncoderLayer(1152, 16, 4304, eps=1e-6).requires_grad_(False)
+    for name, p in layer.named_parameters():
+        if "kernel" in name:
+            torch.nn.init.normal_(p, std=p.shape[0] ** -0.5)
+        else:
+            torch.nn.init.normal_(p, mean=1.0 if "scale" in name else 0.0, std=0.1)
+    layer = layer.to(dtype)
+    x = (2 * torch.randn(2, 37, 1152)).to(dtype)
+    want = layer(x)
+    reset_launch_counts()
+    got = layer.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_layernorm"] == 2
+    assert all(v == 0 for k, v in counts.items() if k != "fused_layernorm")
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (6.25e-2, 2e-2)
+    _assert_close(got.cpu(), want, tol)
+
+
+@pytest.mark.cuda
+def test_b32_towers_launch_k1_and_k3_on_every_layer_on_card(cuda, monkeypatch):
+    """OWL-ViT B/32 at full width in bf16: the width gates leave every
+    LayerNorm of both towers on K3 and every unbiased attention (the vision
+    tower's 12) on K1; the text tower's causal attention has a bias and takes
+    the plain route, as in the reference."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models import transformer
+    from tstar_tpu_torch.models.owlvit import OwlViTDetector, init_params, owlvit_base_patch32
+
+    for var in ("TSTAR_FUSED_MHA", "TSTAR_LN_MATMUL", "TSTAR_FLASH_ATTENTION"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = owlvit_base_patch32()
+    model = init_params(OwlViTDetector(cfg), seed=0).requires_grad_(False).to(cuda, torch.bfloat16)
+    norms = []
+    apply_ln = transformer.apply_layernorm
+
+    def counted(x, *args):
+        norms.append(x.shape[-1])
+        return apply_ln(x, *args)
+
+    monkeypatch.setattr(transformer, "apply_layernorm", counted)
+    px = torch.randn(1, 768, 768, 3, device=cuda).to(torch.bfloat16)
+    ids = torch.randint(1, cfg.text.vocab_size, (2, cfg.text.max_length), device=cuda)
+    mask = torch.ones_like(ids)
+    for run, layers, attn in ((lambda: model.encode_image(px), cfg.vision.num_layers,
+                               cfg.vision.num_layers),
+                              (lambda: model.encode_text(ids, mask), cfg.text.num_layers, 0)):
+        norms.clear()
+        reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert bool(torch.isfinite(out.float()).all())
+        assert len(norms) >= 2 * layers + 1
+        assert counts["fused_layernorm"] == len(norms)
+        assert counts["fused_mha_from_qkv"] == attn

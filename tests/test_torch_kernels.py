@@ -135,13 +135,15 @@ def test_layernorm_plain_matches_pallas_bf16():
     (768, torch.bfloat16, True), (512, torch.bfloat16, True), (768, torch.float16, True),
     (768, torch.float32, True), (512, torch.float32, True), (128, torch.float32, True),
     (2048, torch.bfloat16, True), (1024, torch.float32, True),
-    (384, torch.bfloat16, False), (100, torch.float32, False), (2304, torch.bfloat16, False),
-    (1152, torch.float32, False), (64, torch.bfloat16, False),
+    (384, torch.bfloat16, True), (100, torch.float32, False), (2304, torch.bfloat16, True),
+    (1152, torch.float32, True), (64, torch.bfloat16, False), (1152, torch.bfloat16, True),
+    (1160, torch.float32, False), (768, torch.float64, False),
 ])
 def test_layernorm_kernel_widths(d, dtype, ok):
-    """K3 holds a row in registers, whole 16-byte vectors on every lane of a
-    warp and at most 8 a lane: D = 768 and 512 (the towers) are taken in
-    every dtype; the wrapper raises on the others (card test)."""
+    """K3 takes the widths the reference's kernel takes, a multiple of 128
+    (``tstar_tpu/kernels/layernorm.py``; the towers' 768 and 512, SigLIP's
+    1152), in bf16, f16 and f32; the wrapper raises on the others (card
+    test)."""
     assert supported_width(d, dtype) is ok
 
 

@@ -54,7 +54,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace tstar::sm90;
 
 constexpr int DH = 64;                     // head width: one 128-byte bf16 line
 constexpr int TILE = 64;                   // query rows per warpgroup, keys per tile
@@ -76,39 +80,6 @@ struct Params {
   int S, n_tiles, stages, resident;
   float scale;     // K1: 1/sqrt(64) * log2(e); K8: 1/sqrt(64)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Spins until the phase of the given parity completes; a wait that never ends
-// (a fault in the pipeline) traps after ~2^26 tries instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 __device__ __forceinline__ void place(const Slots& sl, int h, int s, int b, int& c1, int& c2,
                                       int& c3) {
@@ -149,16 +120,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const Slots& s
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | ((uint64_t)64 << 32) |
          ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Waits until at most N committed wgmma groups are still running.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma registers across
@@ -231,11 +192,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Accumulator layout of a 64 x 64 f32 wgmma tile: thread t of the warpgroup
@@ -540,12 +496,12 @@ int encode(CUtensorMap* map, Slots* sl, const void* ptr, int B, int S, int H, lo
 
 // The device's SM count and opt-in shared memory per block.
 int device(int* sms, int* smem_block) {
+  DeviceInfo d{};
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)e;
+  const int e = device_info(&d, &dev);
+  *sms = d.sms;
+  *smem_block = d.optin;
+  return e;
 }
 
 template <int MODE, int NWG>

@@ -19,10 +19,14 @@
 // Design.  One warp per row, 8 rows per 256-thread CTA.  The row stays in
 // registers: lane l loads 16-byte vectors l, l + 32, ... (at D = 768: three in
 // bf16, six in f32), so each element is read once; sum(x) and sum(x^2) in f32
-// by warp shuffles; the output is written from the same registers.  D must be
-// a multiple of 32 vectors and at most 8 vectors a lane (bf16 / f16: D in
-// 256 .. 2048 step 256; f32: 128 .. 1024 step 128); the wrapper raises on
-// any other D.
+// by warp shuffles; the output is written from the same registers.  That
+// takes D a multiple of 32 vectors and at most 8 vectors a lane (bf16 / f16:
+// D in 256 .. 2048 step 256; f32: 128 .. 1024 step 128).  Every other D that
+// the reference's kernel takes (a multiple of 128: SigLIP's 1152, an LLM's
+// 3584) goes to a second version that reads the row twice through 8-byte
+// vectors (128 bf16 or 64 f32 values a warp), once for the statistics and
+// once to normalize it; the second read finds the row in L1 (a CTA's 8 rows
+// are 18 KB at 1152 bf16).  The wrapper raises on a D not a multiple of 128.
 #include <cuda_fp16.h>
 #include <stdint.h>
 
@@ -33,7 +37,8 @@ namespace {
 constexpr int ROWS_PER_CTA = 8;
 constexpr int MAX_VPL = 8;  // 16-byte vectors per lane
 
-template <typename T> struct Pack;  // a 16-byte vector of T <-> float[N]
+// A 16-byte vector of T <-> float[N]; an 8-byte one <-> float[N / 2].
+template <typename T> struct Pack;
 template <> struct Pack<float> {
   static constexpr int N = 4;
   static __device__ __forceinline__ void unpack(const uint4& u, float* v) {
@@ -43,6 +48,12 @@ template <> struct Pack<float> {
   static __device__ __forceinline__ uint4 pack(const float* v) {
     return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
                       __float_as_uint(v[3]));
+  }
+  static __device__ __forceinline__ void unpack(const uint2& u, float* v) {
+    v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  }
+  static __device__ __forceinline__ uint2 pack2(const float* v) {
+    return make_uint2(__float_as_uint(v[0]), __float_as_uint(v[1]));
   }
 };
 template <> struct Pack<__nv_bfloat16> {
@@ -63,6 +74,18 @@ template <> struct Pack<__nv_bfloat16> {
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     return u;
   }
+  static __device__ __forceinline__ void unpack(const uint2& u, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+  static __device__ __forceinline__ uint2 pack2(const float* v) {
+    uint2 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    h[0] = __floats2bfloat162_rn(v[0], v[1]);
+    h[1] = __floats2bfloat162_rn(v[2], v[3]);
+    return u;
+  }
 };
 template <> struct Pack<__half> {
   static constexpr int N = 8;
@@ -80,6 +103,18 @@ template <> struct Pack<__half> {
     __half2* h = reinterpret_cast<__half2*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    return u;
+  }
+  static __device__ __forceinline__ void unpack(const uint2& u, float* v) {
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+  static __device__ __forceinline__ uint2 pack2(const float* v) {
+    uint2 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+    h[0] = __floats2half2_rn(v[0], v[1]);
+    h[1] = __floats2half2_rn(v[2], v[3]);
     return u;
   }
 };
@@ -124,17 +159,62 @@ layernorm_kernel(const T* __restrict__ x, const T* __restrict__ scale, const T* 
   }
 }
 
+// The widths the register version does not hold: the row read twice, lane l
+// taking 8-byte vectors l, l + 32, ... (D a multiple of 32 of them).
+template <typename T>
+__global__ void __launch_bounds__(ROWS_PER_CTA * 32)
+layernorm_wide_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                      const T* __restrict__ bias, T* __restrict__ out, int R, int D, float eps) {
+  constexpr int N = Pack<T>::N / 2;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * ROWS_PER_CTA + threadIdx.x / 32;
+  if (row >= R) return;
+  const int vecs = D / N;
+  const uint2* xr = reinterpret_cast<const uint2*>(x + (size_t)row * D);
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = lane; i < vecs; i += 32) {
+    float v[N];
+    Pack<T>::unpack(__ldg(xr + i), v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      s1 += v[j];
+      s2 += v[j] * v[j];
+    }
+  }
+  s1 = tstar::warp_sum(s1);
+  s2 = tstar::warp_sum(s2);
+  const float mean = s1 / (float)D;
+  const float var = s2 / (float)D - mean * mean;
+  const float inv = rsqrtf(var + eps);
+  const uint2* sv = reinterpret_cast<const uint2*>(scale);
+  const uint2* bv = reinterpret_cast<const uint2*>(bias);
+  uint2* orow = reinterpret_cast<uint2*>(out + (size_t)row * D);
+  for (int i = lane; i < vecs; i += 32) {
+    float v[N], s[N], b[N], y[N];
+    Pack<T>::unpack(__ldg(xr + i), v);
+    Pack<T>::unpack(__ldg(sv + i), s);
+    Pack<T>::unpack(__ldg(bv + i), b);
+#pragma unroll
+    for (int j = 0; j < N; ++j) y[j] = (v[j] - mean) * (inv * s[j]) + b[j];
+    orow[i] = Pack<T>::pack2(y);
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, const void* bias, void* out, int R, int D, float eps,
            cudaStream_t stream) {
   constexpr int N = Pack<T>::N;
-  if (R < 1 || D % (32 * N)) return (int)cudaErrorInvalidValue;
-  const int vpl = D / (32 * N);
+  if (R < 1 || D < 128 || D % 128) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((R + ROWS_PER_CTA - 1) / ROWS_PER_CTA);
   const T* xp = static_cast<const T*>(x);
   const T* sp = static_cast<const T*>(scale);
   const T* bp = static_cast<const T*>(bias);
   T* op = static_cast<T*>(out);
+  const int vpl = D % (32 * N) ? 0 : D / (32 * N);
+  if (vpl < 1 || vpl > MAX_VPL) {
+    layernorm_wide_kernel<T><<<grid, ROWS_PER_CTA * 32, 0, stream>>>(xp, sp, bp, op, R, D, eps);
+    return (int)cudaGetLastError();
+  }
 #define TSTAR_LN_CASE(V)                                                                    \
   case V:                                                                                   \
     layernorm_kernel<T, V><<<grid, ROWS_PER_CTA * 32, 0, stream>>>(xp, sp, bp, op, R, eps); \
@@ -158,7 +238,8 @@ int launch(const void* x, const void* scale, const void* bias, void* out, int R,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16, 2 = f16.  x, scale, bias and out 16-byte aligned.
+// dtype: 0 = f32, 1 = bf16, 2 = f16; D a multiple of 128.  x, scale, bias and
+// out 16-byte aligned.
 extern "C" int tstar_layernorm(const void* x, const void* scale, const void* bias, void* out,
                                int R, int D, int dtype, float eps, void* stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(scale) |

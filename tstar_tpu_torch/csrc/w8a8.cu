@@ -68,8 +68,11 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace tstar::sm90;
 
 constexpr int BN = 128;                // columns per N tile: one W^T stage
 constexpr int BK = 128;                // K bytes per chunk: one swizzled line
@@ -84,7 +87,6 @@ constexpr int MAX_STAGES = 8;
 // CTAs sharing a slab (8: the portable cluster size; a build may lower it,
 // tools/kernel_bench.py compares)
 constexpr int MAX_CLUSTER = TSTAR_W8A8_MAX_CLUSTER;
-constexpr int MAX_DEVICES = 64;
 
 // MW, the consumer warpgroups stacked along M: 2 takes a 128-row slab, each
 // warpgroup 64 rows x 128 columns (wgmma n = 128); 1 a 64-row slab, each
@@ -129,39 +131,6 @@ __device__ long long g_trace[TRACE_CTAS][TRACE_POINTS];
 #define TSTAR_TRACE_NS(i) do {} while (0)
 #endif
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
-  return n;
-}
-
-// The cluster barrier, split: every thread of every CTA of the cluster
-// arrives (release: its shared-memory writes before) and waits (acquire:
-// the others' writes are then visible).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The address of shared-memory location `addr` of this CTA in cluster CTA `rank`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
 __device__ __forceinline__ void st_cluster(uint32_t addr, uint2 v) {
   asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(v.x), "r"(v.y)
                : "memory");
@@ -169,30 +138,6 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, uint2 v) {
 
 __device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Spins until the phase of the given parity completes; a wait that never ends
-// (a fault in the pipeline) traps after ~2^26 tries instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 // W^T rows n .. n + 127, K bytes k .. k + 127 into one stage.
@@ -213,16 +158,6 @@ __device__ __forceinline__ void tma_load_b(uint32_t dst, const CUtensorMap* map,
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
          ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Waits until at most N committed wgmma groups are still running.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators across
@@ -570,34 +505,9 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const TI* __restrict__ x,
   TSTAR_TRACE_NS(8);
 }
 
-struct DeviceInfo {
-  int sms, optin;
-};
-
 struct Config {
   int mw, groups, row_tiles, per, stages, smem, cluster;
 };
-
-// The device's SM count and opt-in shared memory per block, read once per
-// device.
-int device_info(DeviceInfo* info, int* dev_out) {
-  static DeviceInfo cache[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  DeviceInfo& d = cache[dev];
-  if (d.sms == 0) {
-    DeviceInfo q{};
-    e = cudaDeviceGetAttribute(&q.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&q.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    d = q;
-  }
-  *info = d;
-  *dev_out = dev;
-  return 0;
-}
 
 // How many clusters of `cluster` CTAs of `kernel` with `smem` bytes the
 // device holds at once (the GPCs' sizes leave some SMs out), once per

@@ -77,7 +77,7 @@ def compile_library(sources, out: Path, flags=()) -> Path:
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
-        # libcuda: the attention kernels encode their TMA tensor maps
+        # libcuda: the wgmma kernels encode their TMA tensor maps
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in jobs],
                "-lcuda"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -119,6 +119,10 @@ def open_library(path: Path) -> ctypes.CDLL:
         # pixels, kernel, out, B, H, W, C, p, D, stream
         fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
+    # B, H, W, C, p, D, int[5] out: CTAs, columns per CTA, stages, smem bytes,
+    # K chunks per stage
+    lib.tstar_patch_embed_config.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+    lib.tstar_patch_embed_config.restype = ci
     # x, w^T (N, K), w_scale, bias, out, R, K, N, x dtype, out dtype, stream
     lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.tstar_w8a8.restype = ci
@@ -132,9 +136,13 @@ def open_library(path: Path) -> ctypes.CDLL:
     # x, scale, bias, out, R, D, dtype, eps, stream
     lib.tstar_layernorm.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, vp]
     lib.tstar_layernorm.restype = ci
-    # x, scale32, bias32, w, b, out, R, D, N, eps, stream
+    # x, scale, bias, w, b (all bf16), out, R, D, N, eps, stream
     lib.tstar_ln_matmul_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, vp]
     lib.tstar_ln_matmul_bf16.restype = ci
+    # R, D, N, int[6] out: CTAs, N tiles per CTA, W stages, CTAs per cluster, smem bytes,
+    # columns per warpgroup
+    lib.tstar_ln_matmul_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.tstar_ln_matmul_config.restype = ci
     # cache, secs, awk, bias, ah, wtap, htap, w, out,
     # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, stream
     lib.tstar_grid_embed.argtypes = [vp] * 9 + [ci] * 10 + [vp]

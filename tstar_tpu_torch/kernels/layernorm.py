@@ -6,8 +6,10 @@ var = E[x^2] - mean^2; scale and bias cast to x's dtype, then to f32;
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` cast to x's dtype.
 
 The kernel is ``csrc/layernorm.cu`` (design and H100 bounds in its header):
-one warp per row, the row held in registers, bf16, f16 and f32.  The TPU's
-row gate (<= 1024 rows) does not carry over: on the card every call runs the
+one warp per row, bf16, f16 and f32, at every width the reference's kernel
+takes (a multiple of 128): the row held in registers up to 2048 values (1024
+in f32) in whole 16-byte vectors a lane, else read twice.  The TPU's row
+gate (<= 1024 rows) does not carry over: on the card every call runs the
 kernel.  The wrapper is the whole host path of a launch, which lies on the
 search's critical path: it copies nothing when scale and bias are already
 contiguous in x's dtype, and makes one C call.
@@ -21,9 +23,8 @@ import torch
 
 from tstar_tpu_torch.kernels import _build
 
-# dtype -> (the C entry point's dtype code, values per 16-byte vector)
-_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8), torch.float16: (2, 8)}
-MAX_VECTORS_PER_LANE = 8   # csrc/layernorm.cu MAX_VPL
+# dtype -> the C entry point's dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_layernorm_plain(
@@ -38,10 +39,10 @@ def fused_layernorm_plain(
 
 
 def supported_width(d: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel takes rows of ``d`` values of ``dtype``: whole
-    16-byte vectors on every lane of a warp, at most 8 a lane."""
-    lane_row = 32 * _DTYPES[dtype][1]
-    return d % lane_row == 0 and 0 < d // lane_row <= MAX_VECTORS_PER_LANE
+    """Whether the kernel takes rows of ``d`` values of ``dtype``: the
+    reference's rule (``tstar_tpu/kernels/layernorm.py`` sends a D that is
+    not a multiple of 128 to XLA), in the dtypes the kernel is built for."""
+    return dtype in _DTYPES and d > 0 and d % 128 == 0
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
@@ -66,7 +67,7 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
     out = torch.empty_like(x)
     status = _build.call(
         _build.load().tstar_layernorm, dev, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), x.numel() // d, d, _DTYPES[dtype][0], ctypes.c_float(eps),
+        out.data_ptr(), x.numel() // d, d, _DTYPES[dtype], ctypes.c_float(eps),
     )
     _build.check(status, "tstar_layernorm")
     fused_layernorm.launches += 1

@@ -8,8 +8,9 @@ Math, as the reference kernel: f32 row statistics with var = E[x^2] - mean^2
 f32 -> compute dtype -> f32; the normalized row rounded to the compute dtype;
 the product accumulated in f32 and rounded to the compute dtype; then ``+ b``
 in the compute dtype, which rounds a second time.  The CUDA kernel is
-``csrc/ln_matmul.cu`` (bf16 only, as the reference's gate; design and H100
-bounds in its header).  ``ln_matmul_plain`` is the same math in plain
+``csrc/ln_matmul.cu`` (bf16 only, as the reference's gate; wgmma fed by TMA,
+each row normalized once into the shared memory of the CTAs of a cluster;
+design and H100 bounds in its header).  ``ln_matmul_plain`` is the same math in plain
 PyTorch.  The wrapper runs the plain version for a CPU tensor, and for a
 CUDA tensor launches the kernel or raises.
 
@@ -82,15 +83,25 @@ def use_ln_matmul(x: torch.Tensor, n_out: int) -> bool:
     """Whether the pre-norm LayerNorm feeding an (D, n_out) projection folds
     into it (``TSTAR_LN_MATMUL``, read at each call).  The reference's
     requirements that carry over: a 3-d bf16 input and widths that are
-    multiples of 128; its TPU, mesh and VMEM checks do not."""
+    multiples of 128; its TPU and mesh checks do not, and its VMEM check
+    becomes the kernel's shared-memory one (``kernel_takes``)."""
     env = os.environ.get("TSTAR_LN_MATMUL", "0")
     if env == "0":
         return False
     if x.ndim != 3 or x.dtype != torch.bfloat16:
         return False
-    if x.shape[-1] % 128 or n_out % 128:
+    if not kernel_takes(x.shape[-1], n_out):
         return False
     return env == "force" or x.shape[0] * x.shape[1] >= _MIN_ROWS
+
+
+MAX_WIDTH = 1536   # csrc/ln_matmul.cu: a 64-row slab of D and two W stages fit 227 KB
+
+
+def kernel_takes(d: int, n: int) -> bool:
+    """Whether the kernel takes a (D, N) projection: D and N multiples of 128
+    (the half-warps' 128-value runs, the 128-column N tiles), D <= 1536."""
+    return d % 128 == 0 and n % 128 == 0 and 0 < d <= MAX_WIDTH and n > 0
 
 
 def _launch(x, scale, bias, w, b, eps):
@@ -100,30 +111,35 @@ def _launch(x, scale, bias, w, b, eps):
     if w.ndim != 2 or w.shape[0] != d:
         raise ValueError(f"w must be ({d}, N), got {tuple(w.shape)}")
     n = w.shape[1]
-    if d % 32 or n % 16:
-        raise ValueError(f"ln_matmul kernel needs D % 32 == 0 and N % 16 == 0, got D={d}, N={n}")
+    if not kernel_takes(d, n):
+        raise ValueError(
+            f"ln_matmul kernel needs D and N multiples of 128, D <= {MAX_WIDTH}: got D={d}, N={n}"
+        )
     if scale.shape != (d,) or bias.shape != (d,) or b.shape != (n,):
         raise ValueError("ln_matmul params: scale/bias (D,), b (N,)")
+    dev = x.get_device()
     for t in (scale, bias, w, b):
-        if t.device != x.device:
+        if t.get_device() != dev:
             raise ValueError(f"ln_matmul operands on {t.device} and {x.device}")
     if not x.is_contiguous():
         raise ValueError("ln_matmul kernel needs a contiguous input")
     rows = x.numel() // d
     if rows == 0:
         raise ValueError("ln_matmul kernel got an empty input")
-    scale32, bias32 = (t.contiguous() for t in _ln_params(scale, bias, x.dtype))
-    wb = w.to(x.dtype).contiguous()
-    bb = b.to(x.dtype).contiguous()
-    if x.data_ptr() % 16 or wb.data_ptr() % 16:
-        raise ValueError("ln_matmul kernel needs 16-byte aligned x and w")
+    # The kernel takes every parameter in bf16 (the LayerNorm's as the
+    # reference casts them) and widens scale and bias to f32 itself; the
+    # towers hold all four contiguous in bf16, so nothing is copied per call.
+    sb, bsb, wb, bb = (
+        t if t.dtype == x.dtype and t.is_contiguous() else t.to(x.dtype).contiguous()
+        for t in (scale, bias, w, b)
+    )
+    if any(t.data_ptr() % 16 for t in (x, sb, bsb, wb, bb)):
+        raise ValueError("ln_matmul kernel needs 16-byte aligned operands")
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.load().tstar_ln_matmul_bf16(
-            x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), wb.data_ptr(),
-            bb.data_ptr(), out.data_ptr(), rows, d, n, ctypes.c_float(eps), stream,
-        )
+    status = _build.call(
+        _build.load().tstar_ln_matmul_bf16, dev, x.data_ptr(), sb.data_ptr(), bsb.data_ptr(),
+        wb.data_ptr(), bb.data_ptr(), out.data_ptr(), rows, d, n, ctypes.c_float(eps),
+    )
     _build.check(status, "tstar_ln_matmul")
     ln_matmul.launches += 1
     return out

@@ -1,9 +1,12 @@
 """K2: patchify fused into the patch-embedding matmul (port of
 ``tstar_tpu/kernels/patch_matmul.py`` ``patch_embed_matmul``).
 
-The CUDA kernel is ``csrc/patch_embed.cu`` (an implicit GEMM over NHWC
-pixels; design and H100 bounds in its header).  ``patch_embed_matmul_plain``
-is ``patchify(pixels) @ kernel.reshape(-1, D)`` in plain PyTorch.  The wrapper
+The CUDA kernel is ``csrc/patch_embed.cu``: in bf16 an implicit GEMM on
+wgmma whose A tiles are TMA boxes of the NHWC pixels and whose B operand is
+the HWIO kernel read as stored (no transposed copy); f32, and bf16 shapes
+whose (pw, c) run is not a multiple of 32 values, take its CUDA-core kernel
+(design and H100 bounds in its header).  ``patch_embed_matmul_plain`` is
+``patchify(pixels) @ kernel.reshape(-1, D)`` in plain PyTorch.  The wrapper
 runs the plain version for a CPU tensor, and for a CUDA tensor launches the
 kernel or raises; the TPU's batch gate does not carry over.
 """
@@ -51,11 +54,10 @@ def _launch(pixels: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     else:
         raise TypeError(f"patch kernel takes bf16 or f32, got {pixels.dtype}")
     out = torch.empty(b, (h // p) * (w // p), d, dtype=pixels.dtype, device=pixels.device)
-    with torch.cuda.device(pixels.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(
-            pixels.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, p, d, stream
-        )
+    status = _build.call(
+        fn, pixels.get_device(), pixels.data_ptr(), kernel.data_ptr(), out.data_ptr(),
+        b, h, w, c, p, d,
+    )
     _build.check(status, "tstar_patch_embed")
     patch_embed_matmul.launches += 1
     return out

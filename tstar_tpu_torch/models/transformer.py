@@ -4,9 +4,12 @@ Layouts follow the reference: Dense kernels are (in, out), and the q/k/v
 projections run as ONE (D, 3D) matmul whose (B, S, 3D) output the fused
 attention kernel (K1) reads directly.  A module computes in the dtype of its
 parameters (``model.to(torch.bfloat16)`` for the card, float32 for parity
-tests).  LayerNorms go through K3.  Self-attention takes the reference's
-order: K1 when there is no bias and ``use_fused_mha`` (off under
-``TSTAR_FUSED_MHA=0``); otherwise the heads are split and the call goes to
+tests).  LayerNorms go through K3 at the widths it takes (``supported_width``:
+the reference kernel's, a multiple of 128) and through the same f32 math in
+plain tensor ops at the others, as the reference sends those to XLA.  Self-attention takes the reference's
+order: K1 when there is no bias, the head width is K1's (64) and
+``use_fused_mha`` (off under ``TSTAR_FUSED_MHA=0``); otherwise the heads are
+split and the call goes to
 K8 ``flash_mha`` if ``use_flash_attention``, else to
 ``bf16_probs_attention`` if ``use_bf16_probs``, else to plain masked softmax
 attention, which the text tower's causal + padding bias always takes.  Each
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from tstar_tpu_torch.kernels.attention import (
+    HEAD_DIM,
     bf16_probs_attention,
     flash_mha,
     fused_mha_from_qkv,
@@ -32,7 +36,11 @@ from tstar_tpu_torch.kernels.attention import (
     use_flash_attention,
     use_fused_mha,
 )
-from tstar_tpu_torch.kernels.layernorm import fused_layernorm
+from tstar_tpu_torch.kernels.layernorm import (
+    fused_layernorm,
+    fused_layernorm_plain,
+    supported_width,
+)
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul, use_ln_matmul
 
 
@@ -60,8 +68,13 @@ def apply_layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
 ) -> torch.Tensor:
     """LayerNorm in ``scale``'s dtype: f32 stats, ``use_fast_variance`` math
-    (K3 on a CUDA tensor, its plain version on a CPU tensor)."""
-    return fused_layernorm(x.to(scale.dtype).contiguous(), scale, bias, eps)
+    (K3 on a CUDA tensor, its plain version on a CPU tensor).  A width K3
+    does not take (not a multiple of 128) runs the same math in plain tensor
+    ops on either device, as the reference's gate sends it to XLA."""
+    x = x.to(scale.dtype).contiguous()
+    if not supported_width(x.shape[-1], x.dtype):
+        return fused_layernorm_plain(x, scale, bias, eps)
+    return fused_layernorm(x, scale, bias, eps)
 
 
 class LayerNorm(nn.Module):
@@ -112,7 +125,9 @@ class MultiHeadAttention(nn.Module):
             qkv = ln_matmul(x, ln.scale, ln.bias, self.qkv_kernel, self.qkv_bias, ln.eps)
         else:
             qkv = torch.matmul(ln(x), self.qkv_kernel) + self.qkv_bias   # (B, S, 3D)
-        if attn_bias is None and use_fused_mha():
+        # K1 has one head width; others (SigLIP's 72) take the split-head
+        # routes below, as the reference's gate sends them to XLA
+        if attn_bias is None and d // self.num_heads == HEAD_DIM and use_fused_mha():
             return self.out_proj(fused_mha_from_qkv(qkv, self.num_heads))
         q, k, v = (
             t.reshape(*t.shape[:-1], self.num_heads, d // self.num_heads)

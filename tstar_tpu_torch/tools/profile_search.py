@@ -1,7 +1,7 @@
 """Where the device time of the port's full-width search goes, on one GPU.
 
     python -m tstar_tpu_torch.tools.profile_search [--out FILE.json] [--top N]
-        [--runs LABEL ...]
+        [--runs LABEL ...] [--ln-fold-trace]
 
 The search of ``chip_smoke.py`` phases 5 to 7 (``owl-vit-random`` B/32 in
 bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
@@ -14,8 +14,18 @@ on the host clock (ending in ``torch.cuda.synchronize()``), then one under
 ``torch.profiler`` (CPU + CUDA activities).  From the profiler's device
 events it reports the summed device time, the device-busy share of the
 profiled wall (the union of the device intervals), each port kernel's
-device time and launches, and the largest kernel lines.  Needs a CUDA
-device; prints the card's name and power limit first.
+device time and launches, and the largest kernel lines.
+
+``--ln-fold-trace`` also runs the ``TSTAR_LN_MATMUL=force`` search three
+more times, unprofiled, to show how far a summation order moves it: through
+K5, with every launch also held against ``ln_matmul_plain`` on the same
+inputs within ``bf16_error_bound``; with each K5 launch replaced by
+``ln_matmul_plain`` on the card (the same math, cuBLAS's sums); and
+unfused (K3, then the matmul).  For each: the grid forwards' sampled
+seconds, the verification batches and the keyframes; for each pair, the
+grid forwards that sampled the same seconds and the largest difference of
+their scores.  Needs a CUDA device; prints the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch
 PORT_KERNELS = {
     "K1 mha": ("mha_kernel", "attn_sm90_kernel<0", "attn_sm90_kernel<1"),
     "K2 patch_embed": "patch_embed",
-    "K3 layernorm": "layernorm_kernel",
+    "K3 layernorm": ("layernorm_kernel", "layernorm_wide_kernel"),
     "K4 w8a8": "w8a8_kernel",
     "K5 ln_matmul": "ln_matmul_kernel",
     "K6 grid_embed": "grid_embed_kernel",
@@ -125,11 +135,105 @@ def profile_config(heur, config, top):
     }
 
 
+def _traced_search(heur):
+    """The LN-fold search's grid forwards (sampled seconds, scores),
+    verification batches and keyframes."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    s = KeyframeSearcher(
+        "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"], search_budget=0.5,
+        config=SearchConfig(cache_hw=(192, 384)), seed=0, decoder=default_scene(600.0),
+    )
+    grid, verify = [], []
+    score_grid, score_verify = s.scorer.score_grid, s.scorer.score_verify
+
+    def traced_grid(secs):
+        out = score_grid(secs)
+        grid.append((torch.as_tensor(secs).cpu().clone(), out[0].float().cpu()))
+        return out
+
+    def traced_verify(secs):
+        verify.append(int(torch.as_tensor(secs).numel()))
+        return score_verify(secs)
+
+    s.scorer.score_grid, s.scorer.score_verify = traced_grid, traced_verify
+    _, stamps = s.search()
+    torch.cuda.synchronize()
+    return {"grid": grid, "verify_batches": verify, "keyframes": [float(t) for t in stamps]}
+
+
+def _same_seconds(a, b):
+    """Grid forwards of two traced searches that sampled the same seconds
+    (from the first on), and the largest score difference over them."""
+    n, diff = 0, 0.0
+    for (sa, ca), (sb, cb) in zip(a["grid"], b["grid"]):
+        if not torch.equal(sa, sb):
+            break
+        n += 1
+        diff = max(diff, (ca - cb).abs().max().item())
+    return {"forwards": n, "of": min(len(a["grid"]), len(b["grid"])), "max_score_diff": diff}
+
+
+def ln_fold_trace(heur, card):
+    """``--ln-fold-trace``: the LN-fold search through K5 (each launch held
+    against its plain version), through the plain version, and unfused."""
+    from tstar_tpu_torch.kernels import ln_matmul
+
+    launch = ln_matmul._launch
+    held = {"launches": 0, "outputs_over_bound": 0, "max_diff_over_bound": 0.0}
+
+    def checked(x, scale, bias, w, b, eps):
+        out = launch(x, scale, bias, w, b, eps)
+        want = ln_matmul.ln_matmul_plain(x, scale, bias, w, b, eps)
+        bound = ln_matmul.bf16_error_bound(x, scale, bias, w, b, eps, want)
+        diff = (out.float() - want.float()).abs()
+        held["launches"] += 1
+        held["outputs_over_bound"] += int((diff > bound).sum().item())
+        held["max_diff_over_bound"] = max(held["max_diff_over_bound"], (diff / bound).max().item())
+        return out
+
+    runs = {}
+    with environ({"TSTAR_LN_MATMUL": "force"}):
+        for label, body in (("K5 kernel", checked), ("K5 plain version", ln_matmul.ln_matmul_plain)):
+            ln_matmul._launch = body
+            try:
+                runs[label] = _traced_search(heur)
+            finally:
+                ln_matmul._launch = launch
+    with environ({"TSTAR_LN_MATMUL": "0"}):
+        runs["unfused"] = _traced_search(heur)
+    for label, r in runs.items():
+        print(f"[ln fold trace] {label}: {len(r['grid'])} grid forwards, verify batches "
+              f"{r['verify_batches']}, keyframes {r['keyframes']}", flush=True)
+    print(f"[ln fold trace] K5 kernel against its plain version in the search: "
+          f"{held['launches']} launches, {held['outputs_over_bound']} outputs over "
+          f"bf16_error_bound, largest |diff| / bound {held['max_diff_over_bound']:.3f}  ({card})",
+          flush=True)
+    pairs = {f"{a} / {b}": _same_seconds(runs[a], runs[b])
+             for a, b in (("K5 kernel", "K5 plain version"), ("K5 kernel", "unfused"),
+                          ("K5 plain version", "unfused"))}
+    for label, c in pairs.items():
+        print(f"[ln fold trace] {label}: the first {c['forwards']} of {c['of']} grid forwards "
+              f"sampled the same seconds; largest score difference on them "
+              f"{c['max_score_diff']:.3e}", flush=True)
+    return {
+        "runs": {k: {"grid_forwards": len(r["grid"]), "verify_batches": r["verify_batches"],
+                     "keyframes": r["keyframes"],
+                     "grid_seconds": [sec.tolist() for sec, _ in r["grid"]]}
+                 for k, r in runs.items()},
+        "k5_against_plain": held, "same_seconds": pairs,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the results as JSON here")
     ap.add_argument("--top", type=int, default=8, help="largest kernel lines to keep")
     ap.add_argument("--runs", nargs="*", default=None, help="configurations to profile (labels)")
+    ap.add_argument("--ln-fold-trace", action="store_true",
+                    help="also trace the LN-fold search under K5, its plain version and unfused")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
@@ -172,6 +276,8 @@ def main(argv=None) -> int:
               f"{kern}  ({card})", flush=True)
         for line in r["largest"]:
             print(f"[{label}]   {line['ms']:9.3f} ms {line['count']:6d}x  {line['name']}", flush=True)
+    if args.ln_fold_trace:
+        results["ln_fold_trace"] = ln_fold_trace(heur, card)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
