@@ -6,13 +6,15 @@ Phases (any failed check exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles the port's CUDA kernels from ``tstar_tpu_torch/csrc``;
      the bf16 attention kernels (K1, K8: ``attn_sm90_kernel``), the bf16
-     patch-embed GEMM (K2: ``patch_embed_sm90_kernel``) and LayerNorm->matmul
-     (K5: ``ln_matmul_kernel``) must hold ``HGMMA`` (wgmma) and ``UTMALDG``
+     patch-embed GEMM (K2: ``patch_embed_sm90_kernel``), LayerNorm->matmul
+     (K5: ``ln_matmul_kernel``) and cache->patch embeddings (K6:
+     ``grid_embed_sm90_kernel``) must hold ``HGMMA`` (wgmma) and ``UTMALDG``
      (TMA load) instructions in the library's SASS (``cuobjdump -sass``) and
      spill no register (ptxas), the int8 GEMM (K4: ``w8a8_kernel``)
      ``IGMMA`` (integer wgmma) and ``UTMALDG`` with no spills; K3's
-     (``layernorm_kernel``) registers and spills are printed, and the grids
-     K2, K4, K5 and the attention kernel take at the main shapes;
+     (``layernorm_kernel``) and K7's (``grid_pack_kernel``) registers and
+     spills are printed, and the grids K2, K4, K5, K6 and the attention
+     kernel take at the main shapes;
   3. kernels: each hand-written kernel (K1 attention, K2 patch embed, K3
      LayerNorm, K4 W8A8 matmul, K5 LayerNorm->matmul, K6 cache->patch
      embeddings, K7 grid pack, K8 flash attention) against its plain
@@ -49,7 +51,11 @@ Phases (any failed check exits non-zero and prints no result line):
      ``use_pallas_preprocess=True`` (K7 once per grid forward),
      ``TSTAR_GRID_EMBED=force`` (K6 once per grid forward, K2 only in
      verification) and ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8 12
-     times per forward, K1 never).
+     times per forward, K1 never); then K6's route traced through K6 and
+     through its plain version on the card, to show how far K6's summation
+     order moves the search (the grid forwards that sampled the same
+     seconds and their largest score difference, the verification batches
+     and keyframes of each); ``triton`` must not have been imported.
 In phases 5-7 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards.
 The second-to-last line is a JSON object of per-kernel results; the last is
@@ -353,9 +359,11 @@ def kernel_cases(torch):
         cache = torch.randint(0, 256, (b, 64, *hw, 3), generator=g, device=dev, dtype=torch.uint8)
         secs = torch.randint(0, 64, (b, 16), generator=g, device=dev)
         w = (torch.randn(32, 32, 3, 768, generator=g, device=dev) * 0.02).to(bf16)
+        # the width / height matrices in bf16, as the scorer holds them
         awk, gbias = (torch.from_numpy(t).to(dev) for t in grid_embed._width_affine(hw[1], 192))
+        awk = awk.to(bf16)
         ah = grid_embed._height_matrix(hw[0], 192)
-        ah = None if ah is None else torch.from_numpy(ah).to(dev)
+        ah = None if ah is None else torch.from_numpy(ah).to(dev, bf16)
         canvas = torch.randn(b, 3, 768, 768, generator=g, device=dev).to(bf16)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         kw = dict(grid_shape=(4, 4), cell_hw=(192, 192), patch_size=32)
@@ -459,11 +467,13 @@ def phase_build(torch):
     # values per TMA segment of a (pw, c) run (32, 16); K5: one per row path
     # (D = 768 in registers, other widths read twice) and columns per
     # warpgroup (64, 128); each on bf16 wgmma fed by TMA.
-    for kernel, label, want in (("patch_embed_sm90_kernel", "K2", 6), ("ln_matmul_kernel", "K5", 4)):
+    for kernel, label, want in (("patch_embed_sm90_kernel", "K2", 6), ("ln_matmul_kernel", "K5", 4),
+                                ("grid_embed_sm90_kernel", "K6", 4)):
         found = sorted(n for n in bodies if kernel in n)
         for name in found:
-            m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)E", name)
-            tag = f"{label} {kernel}<{m.group(1)}, {m.group(2)}>" if m else f"{label} {name}"
+            m = re.search(rf"{kernel}I(L[ib]\d+E)+", name)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(0))) if m else ""
+            tag = f"{label} {kernel}<{args}>" if m else f"{label} {name}"
             if not sass_check(name, tag, ("HGMMA", "UTMALDG")):
                 failed.append(tag)
         if len(found) != want or failed:
@@ -478,6 +488,10 @@ def phase_build(torch):
         f"{spills} bytes spilled in all")
     for name in ln:
         log(f"[build]   {name}: {props[name].get('registers')} registers, "
+            f"{props[name].get('spills')} bytes spilled")
+    # K7: one instance per output dtype (f32, bf16)
+    for name in sorted(n for n in props if "grid_pack_kernel" in n):
+        log(f"[build] K7 {name}: {props[name].get('registers')} registers, "
             f"{props[name].get('spills')} bytes spilled")
     cfg = (ctypes.c_int * 6)()
     for r in (577, 16 * 257, 16 * 577):
@@ -494,6 +508,15 @@ def phase_build(torch):
         log(f"[build] K2 grid at B={b} {hw}x{hw} patch {p}: {cfg[0]} CTAs of 16x8 patches x "
             f"{cfg[1]} columns ({-(-cfg[0] // sms)} wave(s) on {sms} SMs, one CTA an SM), "
             f"{cfg[2]} stages of {cfg[4]} K chunk(s) of {cfg[5]}, {cfg[3]} B dynamic shared memory")
+    # K6: the grid forward (B=1) at both caches, B=3 and 16, patch 16
+    for b, (ch, cw), p in ((1, (192, 384), 32), (1, (180, 320), 32), (3, (192, 384), 32),
+                           (16, (192, 384), 32), (1, (192, 384), 16)):
+        _build.check(lib.tstar_grid_embed_config(b, 640, ch, cw, 4, 4, 192, 192, p, 768,
+                                                 int(ch != 192), cfg), "tstar_grid_embed_config")
+        log(f"[build] K6 grid at B={b} cache {ch}x{cw} patch {p}: {cfg[0]} CTAs of 128 patches x "
+            f"{cfg[1]} columns in clusters of {cfg[2]} (splitting K along the patch rows), "
+            f"{cfg[3]} stages of {64 // max(cfg[5], 1)} K chunk(s) of {cfg[5]} values, "
+            f"{cfg[4]} B dynamic shared memory")
     for r in (1, 577, 8 * 577, 16 * 257, 16 * 577):
         for n in (2304, 3072):
             _build.check(lib.tstar_ln_matmul_config(r, 768, n, cfg), "tstar_ln_matmul_config")
@@ -947,6 +970,47 @@ def phase_routes(torch, card, heur):
     return out
 
 
+def phase_k6_trace(torch, card, heur):
+    """Phase 7, last: the ``TSTAR_GRID_EMBED=force`` search traced through
+    K6 and through K6's plain version on the card (the same canvas values,
+    cuBLAS's sums): where K6's summation order moves the search, the grid
+    forwards that sampled the same seconds, the largest score difference on
+    them and at the last of them (whose difference set the next sample),
+    and each search's verification batches and keyframes."""
+    from tstar_tpu_torch.kernels import grid_embed
+    from tstar_tpu_torch.tools.profile_search import _same_seconds, _traced_search, environ
+
+    launch = grid_embed._launch
+
+    def plain(cache, secs, awk, bias, ah, w, grid_shape, cell_hw, p):
+        return grid_embed.grid_cell_embed_plain(
+            cache, secs, awk, bias, ah, w, grid_shape=grid_shape, cell_hw=cell_hw, patch_size=p)
+
+    runs = {}
+    with environ({"TSTAR_GRID_EMBED": "force"}):
+        for label, body in (("K6 kernel", launch), ("K6 plain version", plain)):
+            grid_embed._launch = body
+            try:
+                runs[label] = _traced_search(heur)
+            finally:
+                grid_embed._launch = launch
+    for label, r in runs.items():
+        log(f"[k6 trace] {label}: {len(r['grid'])} grid forwards, verify batches "
+            f"{r['verify_batches']}, keyframes {r['keyframes']}")
+    a, b = runs["K6 kernel"], runs["K6 plain version"]
+    same = _same_seconds(a, b)
+    n = same["forwards"]
+    last = (a["grid"][n - 1][1] - b["grid"][n - 1][1]).abs().max().item() if n else float("nan")
+    log(f"[k6 trace] K6 kernel / its plain version: the first {n} of {same['of']} grid forwards "
+        f"sampled the same seconds; largest score difference on them "
+        f"{same['max_score_diff']:.3e}, on the last of them {last:.3e}"
+        + ("; the searches sample the same seconds throughout"
+           if n == same["of"] and len(a["grid"]) == len(b["grid"]) else
+           f"; grid forward {n + 1} sampled other seconds") + f"  ({card})")
+    if n == 0 or not all(torch.isfinite(c).all() for _, c in a["grid"]):
+        raise SystemExit("K6 route: the kernel's search parts from its plain version at once")
+
+
 def main() -> int:
     import torch
 
@@ -973,6 +1037,10 @@ def main() -> int:
     counts = phase_slice(torch, card, heur)
     knobs = phase_knobs(torch, card, heur)
     routes = phase_routes(torch, card, heur)
+    phase_k6_trace(torch, card, heur)
+    if "triton" in sys.modules:
+        raise SystemExit("triton was imported: the port has no Triton kernel")
+    log("[routes] triton was never imported")
 
     # name, route, source, TPU kernel, launches (from the run of its path),
     # the device kernel that implements it in bf16
@@ -994,10 +1062,11 @@ def main() -> int:
                "ln_matmul_kernel (wgmma + TMA, clusters)"),
         "K6": ("grid_cell_embed", "cuda", "tstar_tpu_torch/csrc/grid_embed.cu",
                "tstar_tpu/kernels/grid_embed.py:181", routes["k6 grid embed"]["grid_cell_embed"],
-               "grid_embed_kernel (WMMA)"),
-        "K7": ("build_detector_grid_pallas", "triton", "tstar_tpu_torch/kernels/pallas_grid.py",
+               "grid_embed_sm90_kernel (wgmma + TMA, A built in shared memory, clusters splitting K)"),
+        "K7": ("build_detector_grid_pallas", "cuda", "tstar_tpu_torch/csrc/grid_pack.cu",
                "tstar_tpu/kernels/pallas_grid.py:141",
-               routes["k7 pallas preprocess"]["build_detector_grid_pallas"], "_grid_kernel"),
+               routes["k7 pallas preprocess"]["build_detector_grid_pallas"],
+               "grid_pack_kernel (two canvas rows a CTA)"),
         "K8": ("flash_mha", "cuda", "tstar_tpu_torch/csrc/attn_sm90.cu",
                "tstar_tpu/kernels/attention.py:621", routes["k8 flash"]["flash_mha"],
                "attn_sm90_kernel (wgmma + TMA)"),

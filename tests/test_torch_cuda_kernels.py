@@ -13,7 +13,9 @@ rows of 768, and 256 rows of 512 (the text tower), and at 1 and 33 rows in
 bf16, f16 and f32; the int8 tower's four dense layers (K4, reading the
 weight's (N, K) copy) and the two LayerNorm->matmul folds (K5) at 577, 16*257
 and 16*577 rows; the grid inputs (K6, K7) over a 192x384 cache (identity
-height) and a 180x320 one (resized height) into 4x4 cells of 192^2; flash
+height) and a 180x320 one (resized height) into 4x4 cells of 192^2 (K6
+also at B=3, patch 16, D=512 and 320, and patch 8 on the WMMA kernel; K7
+also into a 772^2 canvas, 2316 values a row); flash
 attention (K8) on the fused projection's strided views.  The attention
 kernels (K1, K8) also run at the edges of their 64-key tiles (S=64, 65), at
 S=1000, where the bf16 kernel's K/V ring streams, and at B=32.
@@ -33,6 +35,7 @@ from tstar_tpu_torch.kernels.grid_embed import (
     _width_affine,
     grid_cell_embed,
     grid_cell_embed_plain,
+    grid_embed_config,
 )
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, fused_layernorm_plain
 from tstar_tpu_torch.kernels.ln_matmul import bf16_error_bound, ln_matmul, ln_matmul_plain
@@ -507,6 +510,23 @@ def _frames(cuda, seed, n, hw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hw", [(192, 384), (180, 320)])
+def test_grid_pack_kernel_ragged_rows_on_card(cuda, dtype, hw):
+    """K7 into a 772^2 canvas: 4x4 cells of 193, 2316 values a row, not a
+    multiple of the kernel's 8-value vectors (rows not 16-byte aligned in
+    bf16: stored value by value).  The tolerances of the main shapes."""
+    cache, secs = _frames(cuda, 2, 640, hw)
+    before = build_detector_grid_pallas.launches
+    got = build_detector_grid_pallas(cache, secs, (4, 4), 772, dtype)
+    torch.cuda.synchronize()
+    assert build_detector_grid_pallas.launches == before + 1
+    assert got.shape == (1, 772, 772, 3) and got.dtype == dtype
+    want = build_detector_grid_pallas_plain(cache, secs, (4, 4), 772, dtype)
+    _assert_close(got, want, (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, _BF16_ULP))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(192, 384), (180, 320)])
 def test_grid_pack_kernel_matches_plain_on_card(cuda, dtype, hw):
     """K7: f32 within 1e-5 (the same 2-4 tap products summed in another
     order); bf16 within one ulp of the same value, plus 1e-6 where ``* scale
@@ -521,26 +541,96 @@ def test_grid_pack_kernel_matches_plain_on_card(cuda, dtype, hw):
     _assert_close(got, want, (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, _BF16_ULP))
 
 
+def _grid_embed_inputs(cuda, seed, b, hw, p=32, d=768, n=640, cell=192):
+    """A seeded (B, n, *hw, 3) cache, (B, 16) seconds and a (p, p, 3, d)
+    bf16 patch kernel, with the width / height matrices of 4x4 cells of
+    ``cell``^2; -> (args, keywords) of ``grid_cell_embed``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cache = torch.randint(0, 256, (b, n, *hw, 3), generator=g, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+    secs = torch.randint(0, n, (b, 16), generator=g, device=cuda)
+    w = (torch.randn(p, p, 3, d, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    awk, bias = (torch.from_numpy(t).to(cuda) for t in _width_affine(hw[1], cell))
+    ah = _height_matrix(hw[0], cell)
+    ah = None if ah is None else torch.from_numpy(ah).to(cuda)
+    kw = dict(grid_shape=(4, 4), cell_hw=(cell, cell), patch_size=p)
+    return (cache, secs, awk, bias, ah, w), kw
+
+
+def _grid_embed_checked(args, kw):
+    """One K6 launch, counted, held to the plain version: the canvas values
+    round as the plain version's; the bf16 patch GEMM sums its products in
+    another order (and across a cluster's K parts): one bf16 ulp plus 1e-4."""
+    before = grid_cell_embed.launches
+    got = grid_cell_embed(*args, **kw)
+    torch.cuda.synchronize()
+    assert grid_cell_embed.launches == before + 1
+    b, d, p = args[0].shape[0], args[5].shape[-1], kw["patch_size"]
+    cell_h, cell_w = kw["cell_hw"]
+    assert got.shape == (b, 16 * (cell_h // p) * (cell_w // p), d)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, grid_cell_embed_plain(*args, **kw), (1e-4, _BF16_ULP))
+    return got
+
+
+def _grid_embed_cfg(args, kw):
+    cache, _, _, _, ah, w = args
+    return grid_embed_config(cache.shape[0], tuple(cache.shape[2:4]), kw["grid_shape"],
+                             kw["cell_hw"], kw["patch_size"], w.shape[-1], ah is not None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hw", [(1, (192, 384)), (16, (192, 384)), (1, (180, 320))])
 def test_grid_embed_kernel_matches_plain_on_card(cuda, b, hw):
-    """K6: the canvas values round as the plain version's; the bf16 patch
-    GEMM sums 3072 products in another order: one bf16 ulp plus 1e-4."""
-    g = torch.Generator(device=cuda).manual_seed(b)
-    cache = torch.randint(0, 256, (b, 640, *hw, 3), generator=g, device=cuda,
-                          dtype=torch.int32).to(torch.uint8)
-    secs = torch.randint(0, 640, (b, 16), generator=g, device=cuda)
-    w = (torch.randn(32, 32, 3, 768, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
-    awk, bias = (torch.from_numpy(t).to(cuda) for t in _width_affine(hw[1], 192))
-    ah = _height_matrix(hw[0], 192)
-    ah = None if ah is None else torch.from_numpy(ah).to(cuda)
-    kw = dict(grid_shape=(4, 4), cell_hw=(192, 192), patch_size=32)
-    before = grid_cell_embed.launches
-    got = grid_cell_embed(cache, secs, awk, bias, ah, w, **kw)
+    """K6 at the main path's shapes, on the wgmma kernel (32-value chunks):
+    the canvas values round as the plain version's; the bf16 patch GEMM
+    sums 3072 products in another order: one bf16 ulp plus 1e-4."""
+    args, kw = _grid_embed_inputs(cuda, b, b, hw)
+    cfg = _grid_embed_cfg(args, kw)
+    assert cfg["ctas"] > 0 and cfg["pk"] == 32 and cfg["columns"] == 256
+    _grid_embed_checked(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,p,d", [(3, (192, 384), 32, 768), (1, (192, 384), 16, 768),
+                                      (2, (180, 320), 16, 768), (1, (192, 384), 32, 512),
+                                      (1, (180, 320), 32, 320)])
+def test_grid_embed_kernel_other_shapes_on_card(cuda, b, hw, p, d):
+    """K6's wgmma kernel beyond the main path: B=3 (M = 1728 patches, a
+    ragged last 128-row tile), patch 16 (48-value runs in 16-value chunks,
+    32-byte swizzle; with and without the height taps), D=512 (two 256-column
+    tiles) and D=320 (a ragged last column tile).  A second launch gives the
+    same bits: a cluster sums its K parts in a fixed order."""
+    args, kw = _grid_embed_inputs(cuda, 100 + b * p + d, b, hw, p=p, d=d)
+    cfg = _grid_embed_cfg(args, kw)
+    assert cfg["ctas"] > 0 and cfg["pk"] == (32 if p == 32 else 16)
+    assert cfg["split"] in (1, 2, 4, 8) and p % cfg["split"] == 0
+    got = _grid_embed_checked(args, kw)
+    assert torch.equal(got, grid_cell_embed(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_grid_embed_small_patch_takes_the_wmma_kernel_on_card(cuda):
+    """Patch 8 on 192^2 cells: a (pw, c) run of 24 values, not a multiple of
+    16, so the shape rule sends it to the WMMA kernel (its configuration
+    reads all 0), which agrees with the plain version as well."""
+    args, kw = _grid_embed_inputs(cuda, 8, 1, (192, 384), p=8)
+    assert set(_grid_embed_cfg(args, kw).values()) == {0}
+    _grid_embed_checked(args, kw)
+
+
+@pytest.mark.cuda
+def test_grid_kernels_read_int32_and_int64_seconds_on_card(cuda):
+    """K6 and K7 read the seconds as given, int64 (the search's) or int32,
+    with the same results."""
+    args, kw = _grid_embed_inputs(cuda, 5, 1, (192, 384))
+    secs = args[1]
+    k6 = [grid_cell_embed(args[0], s, *args[2:], **kw) for s in (secs, secs.to(torch.int32))]
+    cache, fsecs = _frames(cuda, 5, 64, (192, 384))
+    k7 = [build_detector_grid_pallas(cache, s, (4, 4), 768) for s in (fsecs, fsecs.to(torch.int32))]
     torch.cuda.synchronize()
-    assert grid_cell_embed.launches == before + 1
-    assert got.shape == (b, 576, 768) and got.dtype == torch.bfloat16
-    _assert_close(got, grid_cell_embed_plain(cache, secs, awk, bias, ah, w, **kw), (1e-4, _BF16_ULP))
+    assert secs.dtype == fsecs.dtype == torch.int64
+    assert torch.equal(*k6) and torch.equal(*k7)
 
 
 @pytest.mark.cuda

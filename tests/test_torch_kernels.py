@@ -154,6 +154,49 @@ def test_layernorm_module_has_no_triton():
     assert "triton" not in inspect.getsource(layernorm_module).lower()
 
 
+def test_grid_pack_module_has_no_triton():
+    """K7 is CUDA C++ in the kernel library; its module names no Triton."""
+    import inspect
+
+    assert "triton" not in inspect.getsource(pallas_grid).lower()
+
+
+def _imported_modules(tree):
+    """Top-level names of every module an AST imports: ``import`` and
+    ``from`` statements, and ``importlib.import_module`` / ``__import__``
+    calls on a string."""
+    import ast
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__") and isinstance(node.args[0].value, str):
+                yield node.args[0].value.split(".")[0]
+
+
+def test_no_port_module_imports_triton():
+    """Every kernel of the port is CUDA C++ in the kernel library: no file
+    under ``tstar_tpu_torch/`` imports ``triton`` (AST scan)."""
+    import ast
+    from pathlib import Path
+
+    import tstar_tpu_torch
+
+    root = Path(tstar_tpu_torch.__file__).parent
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        mods = set(_imported_modules(ast.parse(path.read_text(), str(path))))
+        assert "triton" not in mods, f"{path.relative_to(root)} imports triton"
+    # the scan sees a function-level import as well
+    assert "triton" in set(_imported_modules(ast.parse("def f():\n    import triton.language\n")))
+
+
 def test_cpu_wrappers_run_the_plain_versions():
     """A CPU tensor never reaches a kernel: no launch is counted."""
     reset_launch_counts()

@@ -90,6 +90,29 @@ def test_grid_pack_plain_bf16_within_one_ulp():
     _within_ulp(got.float().numpy(), want, atol=0.0)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_grid_pack_plain_matches_reference_kernel_ragged_row(dtype):
+    """Detector size 772: 4x4 cells of 193 pixels, 2316 values a canvas row,
+    not a multiple of the card kernel's 8-value vectors.  f32 within the
+    reference test's 2e-5 (summation order); bf16 within one ulp of the
+    same value (each side rounds once), plus 1e-6 where ``* scale + bias``
+    cancels to near 0 and bf16 keeps the f32 sides' difference of one f32
+    ulp of the operands (~2.4e-7; the card test's bound)."""
+    rng = np.random.default_rng(7)
+    cache = rng.integers(0, 256, (24, 20, 40, 3), dtype=np.uint8)
+    secs = rng.choice(24, 16, replace=False).astype(np.int32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = _jax_grid(cache, secs, 772, jdt)
+    got = tpg.build_detector_grid_pallas(
+        torch.from_numpy(cache), torch.from_numpy(secs), (4, 4), 772, dtype=tdt
+    )
+    assert got.shape == want.shape == (1, 772, 772, 3) and got.dtype == tdt
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    else:
+        _within_ulp(got.float().numpy(), want, atol=1e-6)
+
+
 def test_grid_pack_gathers_each_cell_from_its_second():
     """Constant frames, each cell at its own second: every cell holds its
     frame's intensity, as the reference kernel computes it."""
@@ -127,30 +150,31 @@ def test_grid_tap_tables_hold_the_matrix_entries():
 CH, CW, ROWS, COLS, SIZE, P, D = 32, 64, 2, 2, 64, 8, 128
 
 
-def _ge_inputs(seed, ch=CH, b=1, n=10):
+def _ge_inputs(seed, ch=CH, b=1, n=10, p=P):
     rng = np.random.default_rng(seed)
     cache = rng.integers(0, 256, (b, n, ch, CW, 3), dtype=np.uint8)
     secs = rng.integers(0, n, (b, ROWS * COLS)).astype(np.int32)
-    hwio = (rng.normal(size=(P, P, 3, D)) * 0.05).astype(np.float32)
+    hwio = (rng.normal(size=(p, p, 3, D)) * 0.05).astype(np.float32)
     return cache, secs, hwio
 
 
 def _ge_both(cache, secs, hwio, cell_h=SIZE // ROWS):
     ch = cache.shape[2]
     cell_w = SIZE // COLS
-    jawk, jbias = jge._width_affine(CW, cell_w, 128 // P)
+    p = hwio.shape[0]
+    jawk, jbias = jge._width_affine(CW, cell_w, 128 // p)
     jah = jge._height_matrix(ch, cell_h)
     want = jge.grid_cell_embed(
         jnp.asarray(cache), jnp.asarray(secs), jnp.asarray(jawk), jnp.asarray(jbias),
         None if jah is None else jnp.asarray(jah), jnp.asarray(hwio),
-        grid_shape=(ROWS, COLS), cell_hw=(cell_h, cell_w), patch_size=P, interpret=True,
+        grid_shape=(ROWS, COLS), cell_hw=(cell_h, cell_w), patch_size=p, interpret=True,
     )
     awk, bias = tge._width_affine(CW, cell_w)
     ah = tge._height_matrix(ch, cell_h)
     got = tge.grid_cell_embed(
         torch.from_numpy(cache), torch.from_numpy(secs), torch.from_numpy(awk),
         torch.from_numpy(bias), None if ah is None else torch.from_numpy(ah),
-        torch.from_numpy(hwio), grid_shape=(ROWS, COLS), cell_hw=(cell_h, cell_w), patch_size=P,
+        torch.from_numpy(hwio), grid_shape=(ROWS, COLS), cell_hw=(cell_h, cell_w), patch_size=p,
     )
     return got, want
 
@@ -164,6 +188,21 @@ def test_grid_embed_plain_matches_reference_kernel(seed, ch, b):
     cache, secs, hwio = _ge_inputs(seed, ch=ch, b=b)
     got, want = _ge_both(cache, secs, hwio)
     assert got.dtype == torch.bfloat16 and got.shape == (b, 64, D) == want.shape
+    _within_ulp(got.float().numpy(), np.asarray(want, np.float32), atol=1e-5)
+
+
+@pytest.mark.parametrize("seed,ch,b", [(4, 32, 1), (5, 40, 3)])
+def test_grid_embed_plain_matches_reference_kernel_patch16(seed, ch, b):
+    """Patch 16, the geometry class the card's wgmma kernel takes in
+    16-value chunks (a 48-value (pw, c) run): one video with the identity
+    height, and B=3 with a resized height (40 -> 32 rows), whose M = 48
+    patches is not a multiple of that kernel's 128-row tiles.  Tolerance as
+    at patch 8: equal canvas values, f32 patch sums (768 products) that
+    differ by order only, so one bf16 ulp plus 1e-5 near 0."""
+    cache, secs, hwio = _ge_inputs(seed, ch=ch, b=b, p=16)
+    got, want = _ge_both(cache, secs, hwio)
+    n_patches = ROWS * COLS * ((SIZE // ROWS) // 16) ** 2
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n_patches, D) == want.shape
     _within_ulp(got.float().numpy(), np.asarray(want, np.float32), atol=1e-5)
 
 

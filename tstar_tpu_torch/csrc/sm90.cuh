@@ -1,9 +1,9 @@
 // Hopper building blocks of the port's wgmma + TMA kernels (attn_sm90.cu,
-// patch_embed.cu, w8a8.cu, ln_matmul.cu): shared-memory addresses, cluster
-// barriers and distributed shared memory, mbarriers whose waits trap
-// instead of hanging the card, TMA tile loads, wgmma descriptors and bf16
-// wgmma with f32 accumulators, and the device attributes a launch needs.
-// sm_90a only.
+// patch_embed.cu, w8a8.cu, ln_matmul.cu, grid_embed.cu): shared-memory
+// addresses, cluster barriers and distributed shared memory, mbarriers whose
+// waits trap instead of hanging the card, TMA tile loads, wgmma descriptors
+// and bf16 wgmma with f32 accumulators, and the device attributes a launch
+// needs (also read by grid_pack.cu).  sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -51,6 +51,17 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, uint4 v) {
   asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x),
                "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+
+// Four f32 at shared-memory location `addr` of a cluster CTA (an address
+// from map_rank).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

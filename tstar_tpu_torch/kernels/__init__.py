@@ -3,7 +3,7 @@ version: K1 ``attention.fused_mha_from_qkv`` (CUDA), K2
 ``patch_matmul.patch_embed_matmul`` (CUDA), K3 ``layernorm.fused_layernorm``
 (CUDA), K4 ``quant_matmul.w8a8_matmul`` (CUDA), K5 ``ln_matmul.ln_matmul``
 (CUDA), K6 ``grid_embed.grid_cell_embed`` (CUDA), K7
-``pallas_grid.build_detector_grid_pallas`` (Triton) and K8
+``pallas_grid.build_detector_grid_pallas`` (CUDA) and K8
 ``attention.flash_mha`` (CUDA): every TPU kernel of the reference has its
 counterpart.  ``image.py`` (the pixel chain and the composed projection) and
 ``attention.bf16_probs_attention`` are plain PyTorch (the reference's are

@@ -143,10 +143,18 @@ def open_library(path: Path) -> ctypes.CDLL:
     # columns per warpgroup
     lib.tstar_ln_matmul_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.tstar_ln_matmul_config.restype = ci
-    # cache, secs, awk, bias, ah, wtap, htap, w, out,
+    # cache, secs, secs int64?, awk, bias, ah, wtap, htap, w, out,
     # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, stream
-    lib.tstar_grid_embed.argtypes = [vp] * 9 + [ci] * 10 + [vp]
+    lib.tstar_grid_embed.argtypes = [vp, vp, ci] + [vp] * 7 + [ci] * 10 + [vp]
     lib.tstar_grid_embed.restype = ci
+    # B, N, ch, cw, rows, cols, cell_h, cell_w, p, D, height taps?, int[6] out:
+    # CTAs, columns per CTA, CTAs per cluster, stages, smem bytes, values per chunk
+    lib.tstar_grid_embed_config.argtypes = [ci] * 11 + [ctypes.POINTER(ci)]
+    lib.tstar_grid_embed_config.restype = ci
+    # cache, secs, secs int64?, htap, hwt, wtap, wwt, scale, bias, out,
+    # N, ch, cw, rows, cols, cell_h, cell_w, height identity?, out dtype, stream
+    lib.tstar_grid_pack.argtypes = [vp, vp, ci] + [vp] * 7 + [ci] * 9 + [vp]
+    lib.tstar_grid_pack.restype = ci
     for name in ("tstar_flash_bf16", "tstar_flash_f32"):
         fn = getattr(lib, name)
         # q, k, v, out, B, S, H, D, (batch, seq, head) strides of q, k, v,

@@ -8,10 +8,15 @@ run the patchify -> patch-embed GEMM on the resulting bf16 canvas, which
 never exists in device memory.  The output is bf16 whatever the model dtype,
 in canvas patch order.
 
-The CUDA kernel is ``csrc/grid_embed.cu`` (design, rounding points and H100
-bounds in its header).  ``grid_cell_embed_plain`` is the reference's math in
-plain PyTorch, rounding where it does.  The wrapper runs the plain version
-for a CPU tensor, and for a CUDA tensor launches the kernel or raises.
+The CUDA kernels are in ``csrc/grid_embed.cu`` (design, rounding points and
+H100 bounds in its header): a wgmma kernel that builds each canvas tile in
+shared memory, where the patch's (pw, c) run is a multiple of 16 values
+(patch 32 and 16), and the WMMA kernel for other patches (e.g. 8), chosen
+by shape in the C entry point;
+``grid_embed_config`` reads the choice.  ``grid_cell_embed_plain`` is the
+reference's math in plain PyTorch, rounding where it does.  The wrapper
+runs the plain version for a CPU tensor, and for a CUDA tensor launches the
+kernel or raises.
 
 What differs from the reference: its 4-lane channel pad (``c_pad = 128 //
 p``) existed only for the TPU's 128-lane layout, so this module's
@@ -109,6 +114,8 @@ def _launch(cache, secs, awk, bias, ah, patch_kernel, grid_shape, cell_hw, p):
                          f"cache width {cw} -> cell width {cell_w}")
     if ah is not None and ah.shape != (cell_h, ch):
         raise ValueError(f"ah {tuple(ah.shape)} does not match {ch} -> {cell_h} rows")
+    if ah is None and ch != cell_h:
+        raise ValueError(f"no height matrix, but the cache's {ch} rows are not the cell's {cell_h}")
     if patch_kernel.shape != (p, p, 3, d):
         raise ValueError(f"patch kernel {tuple(patch_kernel.shape)} is not ({p}, {p}, 3, D)")
     if cell_h % p or cell_w % p or (p * p) % 16 or d % 8:
@@ -120,7 +127,10 @@ def _launch(cache, secs, awk, bias, ah, patch_kernel, grid_shape, cell_hw, p):
     tensors = (secs, awk, bias, patch_kernel) + (() if ah is None else (ah,))
     if any(t.device != dev for t in tensors):
         raise ValueError("grid-embed operands must be on the cache's device")
-    secs32 = secs.to(torch.int32).contiguous()
+    # the kernel reads int32 or int64 seconds as they are (the search's are int64)
+    if secs.dtype not in (torch.int32, torch.int64):
+        secs = secs.to(torch.int64)
+    secs = secs.contiguous()
     awk16 = awk.to(torch.bfloat16).contiguous()
     bias32 = bias.to(torch.float32).contiguous()
     w16 = patch_kernel.to(torch.bfloat16).contiguous()
@@ -134,14 +144,13 @@ def _launch(cache, secs, awk, bias, ah, patch_kernel, grid_shape, cell_hw, p):
     out = torch.empty(b, p_out, d, dtype=torch.bfloat16, device=dev)
     if w16.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("grid-embed kernel needs 16-byte aligned weights and output")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.load().tstar_grid_embed(
-            cache.data_ptr(), secs32.data_ptr(), awk16.data_ptr(), bias32.data_ptr(),
-            None if ah16 is None else ah16.data_ptr(), wtap.data_ptr(),
-            None if htap is None else htap.data_ptr(), w16.data_ptr(), out.data_ptr(),
-            b, n, ch, cw, rows, cols, cell_h, cell_w, p, d, stream,
-        )
+    status = _build.call(
+        _build.load().tstar_grid_embed, cache.get_device(), cache.data_ptr(), secs.data_ptr(),
+        int(secs.dtype == torch.int64), awk16.data_ptr(), bias32.data_ptr(),
+        None if ah16 is None else ah16.data_ptr(), wtap.data_ptr(),
+        None if htap is None else htap.data_ptr(), w16.data_ptr(), out.data_ptr(),
+        b, n, ch, cw, rows, cols, cell_h, cell_w, p, d,
+    )
     _build.check(status, "tstar_grid_embed")
     grid_cell_embed.launches += 1
     return out
@@ -175,6 +184,22 @@ def grid_cell_embed(
 
 
 grid_cell_embed.launches = 0  # kernel launches (not plain-version calls)
+
+
+def grid_embed_config(batch, cache_hw, grid_shape, cell_hw, patch_size, d, height):
+    """The wgmma kernel's launch configuration for a call's shape on the
+    current device: {CTAs, output columns per CTA, CTAs per cluster
+    splitting K, stages, dynamic shared memory bytes, values per K chunk},
+    all 0 when the shape takes the WMMA kernel.  ``height``: the height
+    taps apply.  Needs a CUDA device."""
+    import ctypes
+
+    cfg = (ctypes.c_int * 6)()
+    _build.check(_build.load().tstar_grid_embed_config(
+        batch, 1, *cache_hw, *grid_shape, *cell_hw, patch_size, d, int(height), cfg),
+        "tstar_grid_embed_config")
+    keys = ("ctas", "columns", "split", "stages", "smem", "pk")
+    return dict(zip(keys, list(cfg)))
 
 
 def use_grid_embed_kernel(

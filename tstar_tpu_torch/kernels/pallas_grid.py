@@ -1,6 +1,6 @@
 """K7: fused frame gather -> bilinear resize -> CLIP normalize -> grid pack
 (port of ``tstar_tpu/kernels/pallas_grid.py`` ``build_detector_grid_pallas``),
-a Triton kernel.
+a CUDA kernel.
 
 For every value of the (1, S, S, 3) detector canvas: find its cell k
 (row-major), gather ``cache[secs[k]]``, take the height taps (skipped when
@@ -13,18 +13,16 @@ at the edges cv2's clamp folds both taps onto one source pixel, and the
 matrix holds their sum, so the taps are read from the matrix, never
 recomputed from a fraction.
 
-What bounds it on the H100: it is a gather followed by an elementwise pass
-with at most 2x2 taps per value and no reduction, so it is bound by memory:
-the gathered frames in, the canvas out (1.8 MB of uint8 and 3.5 MB of bf16
-at the main geometry).  One program covers a block of one canvas row;
-neighbouring lanes read neighbouring bytes of one frame row, which L1/L2
-serve for the second tap.  No matrix product is worth a tensor core here.
+The kernel is ``csrc/grid_pack.cu`` (design and H100 bounds in its
+header): it is bound by memory, the gathered frames in and the canvas out
+(3.54 MB of uint8 and 3.54 MB of bf16 at the main geometry), and is one C
+call in the kernel library, so its host path is short.  No matrix product
+is worth a tensor core here.
 
 What differs from the reference: its ``ch % 32`` / ``cw*3 % 128`` check is
 a TPU DMA-tiling rule and is left out; any cache geometry runs.  The
 wrapper runs ``build_detector_grid_pallas_plain`` for a CPU tensor and for
-a CUDA tensor launches the kernel or raises.  ``triton`` is imported inside
-the launching function.
+a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,10 +33,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from tstar_tpu_torch.kernels import _build
 from tstar_tpu_torch.kernels.image import CLIP_MEAN, CLIP_STD, _interp_matrix, pack_grid
 
-_KERNEL = None
-_BLOCK = 1024
+# output dtype -> the C entry point's dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=16)
@@ -123,57 +122,6 @@ def build_detector_grid_pallas_plain(
     return pack_grid(cells, rows, cols)[None].to(dtype)
 
 
-def _kernel():
-    # ``tl`` becomes a module global: Triton resolves the names a kernel
-    # uses through the module's globals, not through closures.
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def _grid_kernel(cache_ptr, secs_ptr, htap_ptr, hwt_ptr, wtap_ptr, wwt_ptr,
-                         scale_ptr, bias_ptr, out_ptr, ch, cw, cols, cell_h, cell_w,
-                         BLOCK: tl.constexpr, HEIGHT_IDENTITY: tl.constexpr):
-            row = tl.program_id(0)                      # canvas row Y
-            n = cols * cell_w * 3                       # values per canvas row
-            e = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-            mask = e < n
-            px = e // 3
-            c = e % 3
-            cell = (row // cell_h) * cols + px // cell_w
-            y = row % cell_h
-            x = px % cell_w
-            sec = tl.load(secs_ptr + cell, mask=mask, other=0)
-            frame = cache_ptr + sec.to(tl.int64) * (ch * cw * 3)
-            lo = tl.load(wtap_ptr + 2 * x, mask=mask, other=0)
-            hi = tl.load(wtap_ptr + 2 * x + 1, mask=mask, other=0)
-            w0 = tl.load(wwt_ptr + 2 * x, mask=mask, other=0.0)
-            w1 = tl.load(wwt_ptr + 2 * x + 1, mask=mask, other=0.0)
-            if HEIGHT_IDENTITY:
-                src = frame + y * (cw * 3)
-                v0 = tl.load(src + lo * 3 + c, mask=mask, other=0).to(tl.float32)
-                v1 = tl.load(src + hi * 3 + c, mask=mask, other=0).to(tl.float32)
-            else:
-                r0 = tl.load(htap_ptr + 2 * y)
-                r1 = tl.load(htap_ptr + 2 * y + 1)
-                a0 = tl.load(hwt_ptr + 2 * y)
-                a1 = tl.load(hwt_ptr + 2 * y + 1)
-                s0 = frame + r0 * (cw * 3)
-                s1 = frame + r1 * (cw * 3)
-                v0 = (a0 * tl.load(s0 + lo * 3 + c, mask=mask, other=0).to(tl.float32)
-                      + a1 * tl.load(s1 + lo * 3 + c, mask=mask, other=0).to(tl.float32))
-                v1 = (a0 * tl.load(s0 + hi * 3 + c, mask=mask, other=0).to(tl.float32)
-                      + a1 * tl.load(s1 + hi * 3 + c, mask=mask, other=0).to(tl.float32))
-            val = w0 * v0 + w1 * v1
-            val = val * tl.load(scale_ptr + c, mask=mask, other=0.0) + tl.load(
-                bias_ptr + c, mask=mask, other=0.0)
-            tl.store(out_ptr + row * n + e, val.to(out_ptr.dtype.element_ty), mask=mask)
-
-        _KERNEL = (triton, _grid_kernel)
-    return _KERNEL
-
-
 def _launch(cache, secs, grid_shape, detector_size, dtype):
     rows, cols = grid_shape
     if cache.ndim != 4 or cache.shape[-1] != 3 or cache.dtype != torch.uint8:
@@ -181,7 +129,7 @@ def _launch(cache, secs, grid_shape, detector_size, dtype):
                          f"{tuple(cache.shape)} {cache.dtype}")
     if secs.shape != (rows * cols,):
         raise ValueError(f"expected {rows * cols} seconds, got shape {tuple(secs.shape)}")
-    if dtype not in (torch.bfloat16, torch.float32):
+    if dtype not in _DTYPES:
         raise TypeError(f"grid kernel writes bf16 or f32, got {dtype}")
     if not cache.is_contiguous():
         raise ValueError("grid kernel needs a contiguous cache")
@@ -193,14 +141,18 @@ def _launch(cache, secs, grid_shape, detector_size, dtype):
     wtap, wwt = _device_taps(cw, cell_w, dev)
     htap, hwt = _device_taps(ch, cell_h, dev)
     scale, bias = _device_norm(dev)
-    secs32 = secs.to(device=dev, dtype=torch.int32).contiguous()
+    # the kernel reads int32 or int64 seconds: no cast for the search's int64
+    if secs.device != dev or secs.dtype not in (torch.int32, torch.int64):
+        secs = secs.to(device=dev, dtype=torch.int64)
+    secs = secs.contiguous()
     out = torch.empty(1, rows * cell_h, cols * cell_w, 3, dtype=dtype, device=dev)
-    triton, kern = _kernel()
-    grid = (rows * cell_h, triton.cdiv(cols * cell_w * 3, _BLOCK))
-    with torch.cuda.device(dev):
-        kern[grid](cache, secs32, htap, hwt, wtap, wwt, scale, bias, out,
-                   ch, cw, cols, cell_h, cell_w, BLOCK=_BLOCK,
-                   HEIGHT_IDENTITY=_height_identity(ch, cell_h), num_warps=4)
+    status = _build.call(
+        _build.load().tstar_grid_pack, cache.get_device(), cache.data_ptr(), secs.data_ptr(),
+        int(secs.dtype == torch.int64), htap.data_ptr(), hwt.data_ptr(), wtap.data_ptr(),
+        wwt.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n, ch, cw, rows,
+        cols, cell_h, cell_w, int(_height_identity(ch, cell_h)), _DTYPES[dtype],
+    )
+    _build.check(status, "tstar_grid_pack")
     build_detector_grid_pallas.launches += 1
     return out
 
@@ -215,7 +167,7 @@ def build_detector_grid_pallas(
     """Fused equivalent of ``image.build_detector_grid`` -> (1, S, S, 3).
 
     CPU tensor: the plain version.  CUDA tensor: the K7 kernel, or raise.
-    Seconds must index the cache (the kernel does not check them).
+    Seconds must index the cache (the kernel clamps them, it does not check).
     """
     if cache.device.type == "cpu":
         return build_detector_grid_pallas_plain(cache, secs, grid_shape, detector_size, dtype)

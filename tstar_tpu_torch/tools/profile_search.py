@@ -49,8 +49,8 @@ PORT_KERNELS = {
     "K3 layernorm": ("layernorm_kernel", "layernorm_wide_kernel"),
     "K4 w8a8": "w8a8_kernel",
     "K5 ln_matmul": "ln_matmul_kernel",
-    "K6 grid_embed": "grid_embed_kernel",
-    "K7 grid pack": "_grid_kernel",
+    "K6 grid_embed": ("grid_embed_kernel", "grid_embed_sm90_kernel"),
+    "K7 grid pack": "grid_pack_kernel",
     "K8 flash": ("flash_kernel", "attn_sm90_kernel<2"),
 }
 
@@ -136,8 +136,9 @@ def profile_config(heur, config, top):
 
 
 def _traced_search(heur):
-    """The LN-fold search's grid forwards (sampled seconds, scores),
-    verification batches and keyframes."""
+    """One search's grid forwards (sampled seconds, scores), verification
+    batches and keyframes, under the switches set by the caller (the LN fold
+    here; ``chip_smoke.py`` traces K6's route)."""
     from tstar_tpu_torch import SearchConfig
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
     from tstar_tpu_torch.video.synthetic import default_scene
