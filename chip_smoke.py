@@ -56,8 +56,21 @@ Phases (any failed check exits non-zero and prints no result line):
      order moves the search (the grid forwards that sampled the same
      seconds and their largest score difference, the verification batches
      and keyframes of each); ``triton`` must not have been imported.
-In phases 5-7 every kernel's launches must equal its launches per grid and
-per verification forward times those forwards.
+  8. the batched multi-video search: ``search_videos`` over eight distinct
+     synthetic 600 s videos (8 x 141.6 MB of caches) at B = 8 in bf16,
+     stepped through CUDA graphs: each video's seconds per iteration,
+     keyframes, iterations and remaining targets equal to the same search
+     with ``graphs=False``; one video's ``run_search`` with graphs equal to
+     ``run_search(graphs=False)``; each video's first grid confidences in
+     the batch within phase 4's 2e-2 of its single-video grid forward; no
+     synchronization in an eager grid step and verification rounds under
+     ``torch.cuda.set_sync_debug_mode("error")`` (the driver's two reads a
+     step aside); and under ``TSTAR_GRID_EMBED=1`` K6's gate opens at the
+     batch of 8 (K6 once per grid forward, K2 only in verification).
+In phases 5-8 every kernel's launches must equal its launches per grid and
+per verification forward times those forwards (a CUDA graph's replay counts
+the launches its capture recorded), and the searches step through graphs
+with two host reads a step.
 The second-to-last line is a JSON object of per-kernel results; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -801,30 +814,14 @@ def run_search(torch, card, heur, label, config, per_forward, env=None):
     from tstar_tpu_torch.video.synthetic import default_scene
 
     def make(seed):
-        s = KeyframeSearcher(
+        return KeyframeSearcher(
             "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"],
             search_budget=0.5, config=config, seed=seed, decoder=default_scene(600.0),
         )
-        counted = {"frames": 0, "grid": 0, "verify_batches": []}
-        grid, verify = s.scorer.score_grid, s.scorer.score_verify
-
-        def score_grid(secs):
-            counted["frames"] += secs.numel()
-            counted["grid"] += 1
-            return grid(secs)
-
-        def score_verify(secs):
-            counted["frames"] += secs.numel()
-            counted["verify_batches"].append(secs.numel())
-            return verify(secs)
-
-        s.scorer.score_grid, s.scorer.score_verify = score_grid, score_verify
-        return s, counted
 
     with environ(env or {}):
-        warm, _ = make(seed=1)
-        warm.search()                              # warm-up: cuBLAS, Triton caches
-        searcher, counted = make(seed=0)
+        make(seed=1).search()                      # warm-up: cuBLAS, the kernel library
+        searcher = make(seed=0)
         log(f"[{label}] frame cache {tuple(searcher.cache.frames.shape)} uint8 "
             f"({searcher.cache.frames.numel() / 1e6:.1f} MB) on {searcher.cache.frames.device}")
         torch.cuda.synchronize()
@@ -836,6 +833,9 @@ def run_search(torch, card, heur, label, config, per_forward, env=None):
         wall = time.perf_counter() - t0
         counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    st = searcher.step_stats
+    counted = {"frames": 16 * st.steps + sum(st.verify_widths), "grid": st.steps,
+               "verify_batches": list(st.verify_widths)}
 
     state = searcher._final_state
     scores = searcher.score_distribution
@@ -851,11 +851,14 @@ def run_search(torch, card, heur, label, config, per_forward, env=None):
         "timestamps sorted": stamps == sorted(stamps),
         "finite scores": bool(torch.isfinite(state.scores).all()) and len(scores) == 600,
         "frames at native size": all(f.shape == (360, 640, 3) for f in frames),
+        "stepped through CUDA graphs": st.replays > 0 and st.host_reads == 2 * st.steps,
         **{f"{k} launched {n} per (grid, verify) forward": counts[k] == expected(n)
            for k, n in per_forward.items()},
     }
     log(f"[{label}] iterations={state.iteration} frames_scored={counted['frames']} "
-        f"wall={wall:.3f} s peak_mem={peak / 2**20:.1f} MiB  ({card})")
+        f"wall={wall:.3f} s peak_mem={peak / 2**20:.1f} MiB; {st.host_reads / st.steps:.2f} "
+        f"host reads, {st.replays / st.steps:.2f} graph replays a step ({st.captures} "
+        f"captures)  ({card})")
     log(f"[{label}] detector forwards: {counted['grid']} grid (B=1), verify batches "
         f"{counted['verify_batches']}")
     log(f"[{label}] timestamps={stamps} remaining={searcher.remaining_targets}")
@@ -935,11 +938,14 @@ def check_weights_made_once(views, read, launched):
             for name in ("qkv", "o", "fc1", "fc2"):
                 held[lyr[name]["wt"].data_ptr()] = lyr[name]["wt"]
     mb = sum(t.numel() * t.element_size() for t in held.values()) / 1e6
+    # ``read`` holds the eager launches and the captured ones; a graph
+    # replay launches the captured calls again, on the same weights
     ok = (len(held) == 48 and set(read) <= set(held) and len(set(read)) == 48
-          and len(read) >= launched > 0)
+          and launched > 0 and read)
     log(f"[int8+verify512] K4 read {len(set(read))} distinct (N, K) weights in {len(read)} "
-        f"launches (warm-up and measured search), all among the {len(held)} copies made once "
-        f"per scorer ({mb:.1f} MB of device memory beside the (K, N) kernels): "
+        f"launches made or captured by Python (warm-up and measured search; {launched} "
+        f"launches in the measured one, graph replays included), all among the {len(held)} "
+        f"copies made once per scorer ({mb:.1f} MB of device memory beside the (K, N) kernels): "
         f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("int8+verify512: a K4 launch read a weight not made once per scorer")
@@ -1011,6 +1017,184 @@ def phase_k6_trace(torch, card, heur):
         raise SystemExit("K6 route: the kernel's search parts from its plain version at once")
 
 
+def _batched_tasks(n=8):
+    from tstar_tpu_torch.parallel.multi_video import VideoTask
+    from tstar_tpu_torch.video.synthetic import scene_variant
+
+    return [VideoTask(f"mem://synthetic-600s-{i}", ["couch", "lamp"], ["tv"], seed=i,
+                      decoder=scene_variant(i)) for i in range(n)]
+
+
+def _per_video(stats, i):
+    """Video ``i``'s sampled seconds, one (16,) list per step it was active."""
+    return [e["secs"][i].tolist() for e in stats.trace if e["active"][i]]
+
+
+def phase_batched(torch, card, heur):
+    """Phase 8: the batched multi-video search at B = 8 (module docstring).
+    Returns the graph-stepped run's launch counts."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.kernels import grid_embed, launch_counts, reset_launch_counts
+    from tstar_tpu_torch.ops.sampling import uniform_stride_indices
+    from tstar_tpu_torch.parallel.batched import stack_scorers
+    from tstar_tpu_torch.parallel.multi_video import search_videos
+    from tstar_tpu_torch.search.engine import run_search
+    from tstar_tpu_torch.search.state import init_state, stack_states
+    from tstar_tpu_torch.search.step_graphs import StepStats, Stepper
+    from tstar_tpu_torch.tools.profile_search import environ
+    from tstar_tpu_torch.video.cache import build_frame_cache
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    tower = dict(fused_mha_from_qkv=12, fused_layernorm=27)
+    # search_videos builds each video's scorer inside the counted run: its
+    # prompts go through the text tower once (K3 for each LayerNorm, no K1)
+    per_scorer = {"fused_layernorm": 2 * heur.model.cfg.text.num_layers + 1}
+
+    def batched(graphs, label, per_forward, env=None):
+        """One warm-up and one measured ``search_videos`` of the eight tasks."""
+        with environ(env or {}):
+            search_videos(_batched_tasks(), heur, cfg, graphs=graphs)       # warm-up
+            tasks, stats = _batched_tasks(), StepStats(record=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            results = search_videos(tasks, heur, cfg, graphs=graphs, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        active = sum(sum(e["active"]) for e in stats.trace)
+        frames = 16 * active + sum(stats.verify_widths)
+        grid, verify = stats.steps, len(stats.verify_widths)
+
+        def expected(k, n):
+            g, v = n if isinstance(n, tuple) else (n, n)
+            return g * grid + v * verify + 8 * per_scorer.get(k, 0)
+
+        checks = {
+            "8 keyframes each": all(len(r["keyframe_secs"]) == 8 for r in results),
+            "keyframes in range": all(0 <= s < 600 for r in results for s in r["keyframe_secs"]),
+            "finite distributions": all(
+                all(map(lambda x: x == x and abs(x) < 1e30, r["keyframe_distribution"]))
+                for r in results),
+            "two host reads a step": stats.host_reads == 2 * stats.steps,
+            **({"stepped through CUDA graphs": stats.replays > 0} if graphs else
+               {"no graph": stats.replays == 0 and stats.captures == 0}),
+            **{f"{k} launched {n} per (grid, verify) forward": counts[k] == expected(k, n)
+               for k, n in per_forward.items()},
+        }
+        log(f"[{label}] B=8 x 600 s: {stats.steps} steps, {grid} grid forwards of 8 images, "
+            f"{verify} verify forwards of {sorted(set(stats.verify_widths))} images; iterations "
+            f"{[r['iterations'] for r in results]}; frames_scored={frames} wall={wall:.3f} s "
+            f"({frames / wall:.1f} frames/s, decode and upload of the 8 caches included) "
+            f"peak_mem={peak / 2**20:.1f} MiB; {stats.host_reads / stats.steps:.2f} host reads, "
+            f"{stats.replays / stats.steps:.2f} graph replays a step ({stats.captures} "
+            f"captures)  ({card})")
+        log(f"[{label}] kernel launches during the search: {counts}")
+        failed = [k for k, v in checks.items() if not v]
+        if failed:
+            raise SystemExit(f"{label} checks failed: {failed}")
+        return results, stats, counts
+
+    per_forward = launches(patch_embed_matmul=1, **tower)
+    res_g, st_g, counts = batched(True, "batched", per_forward)
+    res_e, st_e, _ = batched(False, "batched eager", per_forward)
+    # (a) graph-stepped == eager, video by video
+    same = all(
+        _per_video(st_g, i) == _per_video(st_e, i)
+        and all(res_g[i][k] == res_e[i][k] for k in ("keyframe_secs", "iterations",
+                                                      "remaining_targets"))
+        for i in range(8)
+    )
+    log(f"[batched] graphs vs graphs=False: every video's seconds per iteration, keyframes, "
+        f"iterations and remaining targets equal: {same}; remaining "
+        f"{[r['remaining_targets'] for r in res_g]} {'OK' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("batched search: the graph-stepped driver differs from the eager one")
+
+    # (c) each video's first grid forward in the batch against its single-video one
+    tasks = _batched_tasks()
+    caches = [build_frame_cache(t.video_path, cfg, device="cuda", decoder=t.decoder) for t in tasks]
+    scorers = [heur.build_scorer(c.frames, t.target_objects, t.cue_objects, cfg)
+               for c, t in zip(caches, tasks)]
+    with torch.no_grad():
+        first = uniform_stride_indices(caches[0].n_valid, 16, device="cuda")
+        singles = torch.stack([sc.score_grid(first)[0].float() for sc in scorers])
+    in_batch = st_g.trace[0]["conf"].float()
+    diff = (in_batch - singles).abs().max().item()
+    ok = diff <= 2e-2 and bool(torch.isfinite(in_batch).all())
+    log(f"[batched] first iteration's grid confidences, batch of 8 vs each video alone: max "
+        f"|diff| {diff:.3e} (tol 2e-2, phase 4's: the batch of 8 takes other kernel "
+        f"configurations) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("batched search: the batch's grid scores differ from the single video's")
+
+    # (b) the single-video main path through graphs == eager
+    runs = {}
+    for graphs in (True, False):
+        state = init_state(caches[0].n_valid, 2, cfg,
+                           torch.Generator(device="cuda").manual_seed(0),
+                           n_pad=caches[0].n_pad, device="cuda")
+        stats = StepStats(record=True)
+        final, secs = run_search(state, scorers[0], cfg, graphs=graphs, stats=stats)
+        runs[graphs] = (_per_video(stats, 0), secs.tolist(), final.iteration,
+                        final.remaining.tolist(), stats)
+    a, b = runs[True], runs[False]
+    ok = a[:4] == b[:4] and a[4].replays > 0 and b[4].replays == 0
+    log(f"[single] run_search with graphs vs graphs=False: {a[2]} iterations, keyframes "
+        f"{a[1]}, seconds per iteration, keyframes, iterations and remaining equal: "
+        f"{a[:4] == b[:4]}; {a[4].replays / a[4].steps:.2f} graph replays and "
+        f"{a[4].host_reads / a[4].steps:.2f} host reads a step {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("run_search: the graph-stepped search differs from the eager one")
+
+    # (e) no synchronization inside the phases: one eager grid step and its
+    # verification rounds, batched (flat) and single (adaptive wide), twice
+    # (iteration 0, then a sampling one), the two designated reads outside
+    g8 = [torch.Generator(device="cuda").manual_seed(i) for i in range(8)]
+    states = stack_states([
+        init_state(c.n_valid, 2, cfg, g, n_pad=c.n_pad, device="cuda") for c, g in zip(caches, g8)
+    ])
+    st8 = Stepper.batched(states, stack_scorers(scorers, cfg), cfg, graphs=False)
+    st1 = Stepper.single(init_state(caches[0].n_valid, 2, cfg,
+                                    torch.Generator(device="cuda").manual_seed(0),
+                                    n_pad=caches[0].n_pad, device="cuda"),
+                         scorers[0], cfg, graphs=False)
+    torch.cuda.synchronize()
+    phases = 0
+    with torch.no_grad():
+        for stp, verify in ((st8, ("round",)), (st1, ("wide", "round"))):
+            for it in range(2):
+                first_rows = stp.iteration == 0 if it == 0 else None
+                draw = [it > 0] * stp.b
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    stp._phase_a(first_rows, draw)
+                    for v in verify:
+                        (stp._phase_round if v == "round" else stp._phase_wide)()
+                    stp._phase_c()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                phases += 2 + len(verify)
+    torch.cuda.synchronize()
+    log(f"[sync] {phases} eager phases (grid steps of B=8 and B=1 at iterations 0 and 1, "
+        f"their verification rounds and wide rescore, commits) raised nothing under "
+        f"torch.cuda.set_sync_debug_mode('error') OK")
+
+    # (f) K6's gate opens at the batch of 8
+    with environ({"TSTAR_GRID_EMBED": "1"}):
+        opens = grid_embed.use_grid_embed_kernel((8, 640, 192, 384, 3), 768, 32, 768, cfg)
+        closed = not grid_embed.use_grid_embed_kernel((1, 640, 192, 384, 3), 768, 32, 768, cfg)
+    log(f"[k6 gate] TSTAR_GRID_EMBED=1: use_grid_embed_kernel opens at an image batch of 8 "
+        f"(rule: batch >= {grid_embed._MIN_BATCH}): {opens}; closed at 1: {closed}")
+    _, _, k6 = batched(True, "batched k6", launches(
+        grid_cell_embed=(1, 0), patch_embed_matmul=(0, 1), **tower), env={"TSTAR_GRID_EMBED": "1"})
+    if not (opens and closed and k6["grid_cell_embed"] > 0):
+        raise SystemExit("K6's gate did not open at the batch of 8")
+    return counts, k6
+
+
 def main() -> int:
     import torch
 
@@ -1038,6 +1222,7 @@ def main() -> int:
     knobs = phase_knobs(torch, card, heur)
     routes = phase_routes(torch, card, heur)
     phase_k6_trace(torch, card, heur)
+    batched_counts, batched_k6 = phase_batched(torch, card, heur)
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -1084,6 +1269,8 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "yardsticks_ms": main_row["yardsticks"],
             "shape": f"{main_row['shape']} {main_row['dtype']}",
+            # phase 8's B=8 search (K6: under TSTAR_GRID_EMBED=1)
+            "launches_batched": (batched_k6 if k == "K6" else batched_counts)[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

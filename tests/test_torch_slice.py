@@ -275,7 +275,9 @@ PORT_MODULES = [
     "tstar_tpu_torch.kernels.grid_embed", "tstar_tpu_torch.kernels.pallas_grid",
     "tstar_tpu_torch.models", "tstar_tpu_torch.models.transformer",
     "tstar_tpu_torch.models.owlvit_quant", "tstar_tpu_torch.video",
-    "tstar_tpu_torch.framework", "tstar_tpu_torch.tools.profile_search", "chip_smoke",
+    "tstar_tpu_torch.framework", "tstar_tpu_torch.tools.profile_search",
+    "tstar_tpu_torch.search.step_graphs", "tstar_tpu_torch.parallel",
+    "tstar_tpu_torch.parallel.batched", "tstar_tpu_torch.parallel.multi_video", "chip_smoke",
 ]
 
 

@@ -2,11 +2,14 @@
 
 The JAX package ``tstar_tpu`` stays the reference; this package mirrors its
 module layout (``ops/``, ``search/``, ``kernels/``, ``models/``, ``video/``,
-``framework/``) so each module has a counterpart of the same name.  Slice 1
-covers the single-video T* search with the OWL-ViT detector:
+``framework/``, ``parallel/``) so each module has a counterpart of the same
+name.  Ported: the single-video T* search with the OWL-ViT detector and the
+batched multi-video search, both stepping through CUDA graphs on the card
+(``search/step_graphs.py``):
 
     KeyframeSearcher.search() -> engine.run_search -> OwlVitScorer
       -> resident FrameCache
+    parallel.search_videos -> run_search_batched_auto -> stacked OwlVitScorer
 
 Every Pallas kernel on that path has a hand-written Hopper kernel beside a
 plain PyTorch version of the same math (``kernels/``).  On a CPU tensor a

@@ -10,7 +10,9 @@ counterpart.  ``image.py`` (the pixel chain and the composed projection) and
 XLA code).
 
 Each wrapper counts its kernel launches in a plain integer attribute
-``launches``; ``launch_counts`` / ``reset_launch_counts`` read and clear them.
+``launches``; ``launch_counts`` / ``reset_launch_counts`` read and clear them,
+and ``add_launch_counts`` adds a graph replay's launches
+(``search/step_graphs.py``).
 """
 
 from typing import Dict
@@ -44,3 +46,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the named wrappers' counts: a CUDA graph replay runs
+    again the launches its capture recorded."""
+    wrappers = _wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n

@@ -17,13 +17,27 @@ PyTorch (numpy for the host-side weight folding).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+# Small per-geometry constants, copied to each device once: a copy from host
+# memory in every call makes the host wait for the card (PyTorch synchronizes
+# after a blocking copy to the device) and cannot be captured in a CUDA graph.
+_ON_DEVICE: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(key: tuple, make: Callable[[], np.ndarray], device) -> torch.Tensor:
+    """``make()`` as a tensor on ``device``, copied there once per (key, device)."""
+    full = key + (str(device),)
+    t = _ON_DEVICE.get(full)
+    if t is None:
+        t = _ON_DEVICE[full] = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+    return t
 
 
 @functools.lru_cache(maxsize=64)
@@ -46,8 +60,8 @@ def bilinear_resize(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tens
     """Resize (..., H, W, C) images (uint8 or float) -> float32 (..., h, w, C)."""
     h_in, w_in = images.shape[-3], images.shape[-2]
     h_out, w_out = out_hw
-    ah = torch.from_numpy(_interp_matrix(h_in, h_out)).to(images.device)
-    aw = torch.from_numpy(_interp_matrix(w_in, w_out)).to(images.device)
+    ah = device_constant(("interp", h_in, h_out), lambda: _interp_matrix(h_in, h_out), images.device)
+    aw = device_constant(("interp", w_in, w_out), lambda: _interp_matrix(w_in, w_out), images.device)
     x = images.to(torch.float32)
     x = torch.einsum("oh,...hwc->...owc", ah, x)
     return torch.einsum("pw,...owc->...opc", aw, x)
@@ -55,8 +69,8 @@ def bilinear_resize(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tens
 
 def normalize_clip(pixels: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """[0, 255] -> CLIP-normalized floats in ``dtype``."""
-    mean = torch.from_numpy(CLIP_MEAN).to(pixels.device)
-    std = torch.from_numpy(CLIP_STD).to(pixels.device)
+    mean = device_constant(("clip_mean",), lambda: CLIP_MEAN, pixels.device)
+    std = device_constant(("clip_std",), lambda: CLIP_STD, pixels.device)
     x = pixels.to(torch.float32) / 255.0
     return ((x - mean) / std).to(dtype)
 

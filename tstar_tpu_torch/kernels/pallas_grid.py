@@ -34,7 +34,9 @@ import numpy as np
 import torch
 
 from tstar_tpu_torch.kernels import _build
-from tstar_tpu_torch.kernels.image import CLIP_MEAN, CLIP_STD, _interp_matrix, pack_grid
+from tstar_tpu_torch.kernels.image import (
+    CLIP_MEAN, CLIP_STD, _interp_matrix, device_constant, pack_grid,
+)
 
 # output dtype -> the C entry point's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,9 +116,16 @@ def build_detector_grid_pallas_plain(
     dev = cache.device
     x = cache[secs].to(torch.float32).reshape(-1, ch, cw * 3)
     if not _height_identity(ch, cell_h):
-        x = torch.matmul(torch.from_numpy(_interp_matrix(ch, cell_h)).to(dev), x)
-    y = torch.matmul(x, torch.from_numpy(_width_kron_matrix(cw, cell_w)).to(dev))
-    scale, bias = (torch.from_numpy(v).to(dev) for v in _norm_vectors(cell_w))
+        x = torch.matmul(
+            device_constant(("interp", ch, cell_h), lambda: _interp_matrix(ch, cell_h), dev), x
+        )
+    y = torch.matmul(
+        x, device_constant(("kron", cw, cell_w), lambda: _width_kron_matrix(cw, cell_w), dev)
+    )
+    scale, bias = (
+        device_constant(("norm", cell_w, i), lambda i=i: _norm_vectors(cell_w)[i], dev)
+        for i in (0, 1)
+    )
     y = y * scale + bias                                  # (K, cell_h, cell_w*3)
     cells = y.reshape(-1, cell_h, cell_w, 3)
     return pack_grid(cells, rows, cols)[None].to(dtype)

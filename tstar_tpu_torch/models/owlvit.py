@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from tstar_tpu_torch.kernels.image import device_constant
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
 from tstar_tpu_torch.models.transformer import (
     Dense,
@@ -170,17 +171,23 @@ class ClassHead(nn.Module):
         self, image_feats: torch.Tensor, query_embeds: torch.Tensor,
         query_mask: Optional[torch.Tensor],
     ) -> torch.Tensor:
-        """(B, P, D) feats, (Q, proj) queries -> (B, P, Q) f32 logits."""
+        """(B, P, D) feats -> (B, P, Q) f32 logits, against (Q, proj) queries
+        shared by the image batch with a (Q,) mask, or per-image (B, Q, proj)
+        queries with a (B, Q) mask (the flat multi-video detector batch)."""
         img = self.dense0(image_feats)
         img = img / (torch.linalg.vector_norm(img, dim=-1, keepdim=True) + 1e-6)
         q = query_embeds / (torch.linalg.vector_norm(query_embeds, dim=-1, keepdim=True) + 1e-6)
-        logits = torch.einsum("bpd,qd->bpq", img, q.to(img.dtype))
+        if q.ndim == 3:
+            logits = torch.einsum("bpd,bqd->bpq", img, q.to(img.dtype))
+        else:
+            logits = torch.einsum("bpd,qd->bpq", img, q.to(img.dtype))
         shift = self.logit_shift(image_feats)
         scale = F.elu(self.logit_scale(image_feats)) + 1.0
         logits = ((logits + shift) * scale).float()
         if query_mask is not None:
             neg = torch.finfo(torch.float32).min
-            logits = torch.where(query_mask[None, None, :], logits, neg)
+            mask = query_mask[:, None, :] if query_mask.ndim == 2 else query_mask[None, None, :]
+            logits = torch.where(mask, logits, neg)
         return logits
 
 
@@ -314,8 +321,10 @@ def postprocess_detections(
     cx, cy, w, h = boxes.unbind(dim=-1)
     xyxy = torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
     ih, iw = image_hw
-    scale = torch.tensor([iw, ih, iw, ih], dtype=xyxy.dtype, device=xyxy.device)
-    return scores, class_ids, xyxy * scale
+    scale = device_constant(
+        ("box_scale", iw, ih), lambda: np.array([iw, ih, iw, ih], np.float32), xyxy.device
+    )
+    return scores, class_ids, xyxy * scale.to(xyxy.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,12 @@ import torch
 NoiseSource = Union[torch.Generator, Iterator]
 
 
-def uniform_stride_indices(total_frames: int, k: int, device=None) -> torch.Tensor:
-    """First-iteration uniform sampling: ``arange(K) * (N // K)``."""
+def uniform_stride_indices(total_frames, k: int, device=None) -> torch.Tensor:
+    """First-iteration uniform sampling: ``arange(K) * (N // K)``; (K,) for
+    an int ``total_frames``, (B, K) for a (B,) tensor of lengths."""
+    if isinstance(total_frames, torch.Tensor):
+        stride = torch.div(total_frames, k, rounding_mode="floor")
+        return torch.arange(k, dtype=torch.int64, device=total_frames.device) * stride[:, None]
     return torch.arange(k, dtype=torch.int64, device=device) * (int(total_frames) // k)
 
 
@@ -45,8 +49,21 @@ def draw_gumbel(noise: NoiseSource, n: int, device) -> torch.Tensor:
 
 
 def _topk_lowest_index(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest keys, ties broken by the lowest index."""
-    return torch.sort(keys, descending=True, stable=True).indices[:k]
+    """Indices of the k largest keys along the last axis, ties broken by the
+    lowest index."""
+    return torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def gumbel_topk_from_noise(
+    gumbel: torch.Tensor, weights: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gumbel_topk_without_replacement`` with the noise already drawn
+    (same shape as ``weights``; rows of a (B, N) batch sample apart)."""
+    logw = torch.where(
+        weights > 0, torch.log(weights), torch.full_like(weights, -float("inf"))
+    )
+    keys = logw + gumbel
+    return _topk_lowest_index(keys, k), keys
 
 
 def gumbel_topk_without_replacement(
@@ -58,11 +75,9 @@ def gumbel_topk_without_replacement(
     Zero-weight entries get key -inf and are never chosen while at least
     ``k`` entries have positive weight.
     """
-    logw = torch.where(
-        weights > 0, torch.log(weights), torch.full_like(weights, -float("inf"))
+    return gumbel_topk_from_noise(
+        draw_gumbel(noise, weights.shape[0], weights.device), weights, k
     )
-    keys = logw + draw_gumbel(noise, weights.shape[0], weights.device)
-    return _topk_lowest_index(keys, k), keys
 
 
 def topk_indices(weights: torch.Tensor, k: int) -> torch.Tensor:

@@ -56,8 +56,9 @@ def _lam_sweep(device) -> Tuple[torch.Tensor, torch.Tensor]:
     return _LAM_CACHE[device]
 
 
-def _penta_diagonals(n_pad: int, n_valid: int, dtype, device) -> Tuple[torch.Tensor, ...]:
-    """Diagonals of D^T D for the second-difference matrix on the valid prefix."""
+def _penta_diagonals(n_pad: int, n_valid, dtype, device) -> Tuple[torch.Tensor, ...]:
+    """Diagonals of D^T D for the second-difference matrix on the valid prefix:
+    (N_pad,) each for an int ``n_valid``, (B, N_pad) for a (B, 1) tensor."""
     i = torch.arange(n_pad, device=device)
     nv = n_valid
     d0 = (
@@ -192,56 +193,79 @@ def _sweep(
     pent: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     lams: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Solve the smoother for each lam: (solutions (L, N), residuals (L,))."""
+    """Solve the smoother of each (B, N) row for each lam: (solutions
+    (B, L, N), residuals (B, L)).  The B x L systems are one batched solve;
+    each row's residual is summed on its own, as a single row's would be."""
     p0, p1, p2 = pent
     lams = lams.to(y.dtype)
     # Rows with zero weight AND zero curvature get identity equations.
     inactive = (weights == 0) & (p0 == 0)
-    d0 = _fma(lams[None, :], p0[:, None], weights[:, None])
-    d0 = torch.where(inactive[:, None], torch.ones_like(d0), d0)
-    d1 = lams[None, :] * p1[:, None]
-    d2 = lams[None, :] * p2[:, None]
-    b = (weights * y)[:, None] * torch.ones_like(lams)[None, :]
-    x = _penta_solve_cr(d0, d1, d2, b)                  # (N, L)
-    resid = torch.sum(weights[:, None] * (x - y[:, None]) ** 2, dim=0)
-    return x.T, resid
+    d0 = _fma(lams, p0[..., None], weights[..., None])            # (B, N, L)
+    d0 = torch.where(inactive[..., None], torch.ones_like(d0), d0)
+    d1 = lams * p1[..., None]
+    d2 = lams * p2[..., None]
+    b = (weights * y)[..., None] * torch.ones_like(lams)
+    rows, n, n_lam = d0.shape
+
+    def columns(t):                                                # (N, B*L)
+        return t.permute(1, 0, 2).reshape(n, rows * n_lam)
+
+    x = _penta_solve_cr(columns(d0), columns(d1), columns(d2), columns(b))
+    x = x.reshape(n, rows, n_lam)
+    resid = torch.stack([
+        torch.sum(weights[r][:, None] * (x[:, r] - y[r][:, None]) ** 2, dim=0)
+        for r in range(rows)
+    ])
+    return x.permute(1, 2, 0), resid
 
 
 def fit_smoother(
-    y: torch.Tensor,        # (N_pad,) observed scores
-    weights: torch.Tensor,  # (N_pad,) 1.0 on visited-and-valid seconds
-    n_valid: int,
+    y: torch.Tensor,        # (N_pad,) or (B, N_pad) observed scores
+    weights: torch.Tensor,  # same shape: 1.0 on visited-and-valid seconds
+    n_valid,                # int, or (B,) tensor of lengths
     smoothing: float = 0.5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fit the residual-targeted smoother: (fitted (N_pad,), log10 lam)."""
-    pent = _penta_diagonals(y.shape[0], n_valid, y.dtype, y.device)
+    """Fit the residual-targeted smoother: (fitted, log10 lam), one fit per
+    row of a (B, N_pad) batch."""
+    if y.ndim == 1:
+        fit, lam = fit_smoother(y[None], weights[None], n_valid, smoothing)
+        return fit[0], lam[0]
+    nv = n_valid[:, None] if isinstance(n_valid, torch.Tensor) else n_valid
+    pent = tuple(
+        p.expand_as(y) for p in _penta_diagonals(y.shape[-1], nv, y.dtype, y.device)
+    )
     grid, lams = _lam_sweep(y.device)
     xs, resids = _sweep(y, weights, pent, lams)
     # Largest lam whose residual stays within the target; index 0 if none.
     ok = resids <= smoothing
-    idx = torch.where(ok, torch.arange(grid.shape[0], device=y.device), -1).max()
+    idx = torch.where(ok, torch.arange(grid.shape[0], device=y.device), -1).amax(dim=-1)
     idx = idx.clamp_min(0)
-    return xs[idx], grid[idx]
+    fit = xs.gather(1, idx[:, None, None].expand(-1, 1, xs.shape[-1]))[:, 0]
+    return fit, grid[idx]
 
 
 def smoothing_spline_distribution(
-    score_distribution: torch.Tensor,  # (N_pad,)
-    visited: torch.Tensor,             # (N_pad,) bool
-    valid: torch.Tensor,               # (N_pad,) bool
-    n_valid: int,
+    score_distribution: torch.Tensor,  # (N_pad,) or (B, N_pad)
+    visited: torch.Tensor,             # same shape, bool
+    valid: torch.Tensor,               # same shape, bool
+    n_valid,                           # int, or (B,) tensor of lengths
     smoothing: float = 0.5,
 ) -> torch.Tensor:
     """smooth(visited scores) -> max(1/N, .) -> sigmoid -> normalize; uniform
-    when fewer than 2 seconds are visited."""
+    when fewer than 2 seconds are visited.  Rows of a batch are apart."""
     dtype = score_distribution.dtype
     w = (visited & valid).to(dtype)
     fitted, _ = fit_smoother(score_distribution, w, n_valid, smoothing=smoothing)
 
-    nv = np.float32(n_valid)
-    floor = float(np.float32(1.0) / nv)
+    if isinstance(n_valid, torch.Tensor):
+        nv = n_valid.to(dtype)[:, None]
+        floor = torch.div(torch.ones_like(nv), nv)       # float32 1/N, as below
+    else:
+        nv = float(np.float32(n_valid))
+        floor = float(np.float32(1.0) / np.float32(n_valid))
     adjusted = torch.clamp_min(fitted, floor)
     p = torch.sigmoid(adjusted) * valid.to(dtype)
-    p = p / torch.sum(p)
+    p = p / torch.sum(p, dim=-1, keepdim=True)
 
-    uniform = valid.to(dtype) / float(nv)
-    return torch.where(torch.sum(w) < 2, uniform, p)
+    uniform = valid.to(dtype) / nv
+    return torch.where(torch.sum(w, dim=-1, keepdim=True) < 2, uniform, p)

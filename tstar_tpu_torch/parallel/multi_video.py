@@ -1,0 +1,260 @@
+"""User-facing batched multi-video search (port of
+``tstar_tpu/parallel/multi_video.py``, one device).
+
+Searches a dataset of videos in batches: frame caches pad to a shared bucket
+length, per-video states and scorers stack on a leading axis, and every step
+runs ONE detector forward over the bucket's B grid canvases
+(``parallel/batched.py``), where the reference's dataset loop searched one
+video after another.
+
+  * Length buckets: videos group by padded cache length, so one long video
+    does not pad a batch of short ones to its length.
+  * Decode / search overlap: the next bucket's caches are decoded on worker
+    threads and uploaded from pinned memory on a side stream while the
+    current bucket searches; its search waits on that stream's event.
+
+Until the port has a file decoder, each ``VideoTask`` carries a ``decoder``
+(as ``KeyframeSearcher(decoder=)`` does).  Videos whose full-resolution
+cache exceeds their bucket's per-video budget would take the reference's
+streaming search, which is not ported (ROADMAP queue 1 item 6): they raise,
+unless ``cache_mode='downscale'`` shrinks their cache to fit.  Not ported:
+the mesh half of ``_search_bucket`` (queue 1 item 10) and histories.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from tstar_tpu_torch.parallel.batched import run_search_batched_auto, stack_scorers
+from tstar_tpu_torch.search.detector_scorer import resolve_pallas_preprocess
+from tstar_tpu_torch.search.state import init_state, stack_states
+from tstar_tpu_torch.search.step_graphs import StepStats
+from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.video.cache import (
+    FrameCache,
+    _decoder_for,
+    build_frame_cache_host,
+    per_video_hbm_budget,
+    probe_video_length,
+)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class VideoTask:
+    video_path: str
+    target_objects: List[str]
+    cue_objects: List[str]
+    seed: int = 0
+    decoder: Any = None      # what the cache is decoded from (no file decoder yet)
+
+
+def _bucket_indices(n_pads: Sequence[int], bucket_by_length: bool) -> List[List[int]]:
+    """Group task indices by padded cache length (ascending)."""
+    if not bucket_by_length:
+        return [list(range(len(n_pads)))]
+    groups: Dict[int, List[int]] = {}
+    for i, p in enumerate(n_pads):
+        groups.setdefault(p, []).append(i)
+    return [groups[p] for p in sorted(groups)]
+
+
+def _search_bucket(
+    tasks: Sequence[VideoTask],
+    caches: List[FrameCache],
+    heuristic,
+    config: SearchConfig,
+    graphs: Optional[bool] = None,
+    stats: Optional[StepStats] = None,
+) -> List[Dict]:
+    """Stack one bucket and search it to completion.
+
+    Takes ownership of ``caches`` (a mutable list): each video's frames are
+    dropped once the stacked cache holds them, so a bucket peaks at ~2x its
+    cache bytes, as ``per_video_hbm_budget`` assumes.
+    """
+    n_pad = max(c.n_pad for c in caches)
+    n_valids = [c.n_valid for c in caches]
+    hws = {tuple(c.frames.shape[1:3]) for c in caches}
+    if len(hws) > 1:
+        raise ValueError(
+            f"bucket caches disagree on resolution {sorted(hws)}: all videos in a "
+            "bucket must share a cache_hw"
+        )
+    scorers, states = [], []
+    for i, task in enumerate(tasks):
+        frames = caches[i].frames
+        if caches[i].n_pad < n_pad:
+            pad = frames.new_zeros((n_pad - caches[i].n_pad, *frames.shape[1:]))
+            frames = torch.cat([frames, pad])
+        scorers.append(heuristic.build_scorer(
+            frames, task.target_objects, task.cue_objects, config
+        ))
+        rng = torch.Generator(device=frames.device).manual_seed(task.seed)
+        states.append(init_state(
+            caches[i].n_valid, len(task.target_objects), config, rng, n_pad=n_pad,
+            device=frames.device,
+        ))
+        caches[i] = None
+    batched_config = resolve_pallas_preprocess(config, batched=True)
+    batched_scorer = stack_scorers(scorers, batched_config)
+    stacked = stack_states(states)
+    del scorers, states        # the stacked copies hold the frames now
+
+    max_iters = max(config.iteration_cap(nv) for nv in n_valids)
+    finals, secs = run_search_batched_auto(
+        stacked, batched_scorer, batched_config, max_iters, graphs, stats
+    )
+    secs = secs.cpu().tolist()
+    remaining = finals.remaining.cpu().tolist()
+    iterations = finals.iteration.cpu().tolist()
+    final_p = finals.P.float().cpu()
+
+    results = []
+    for i, task in enumerate(tasks):
+        results.append({
+            "video_path": task.video_path,
+            "keyframe_timestamps": sorted(float(s) / config.sampling_fps for s in secs[i]),
+            "keyframe_secs": secs[i],
+            "keyframe_distribution": final_p[i, :n_valids[i]].tolist(),
+            "remaining_targets": [t for j, t in enumerate(task.target_objects) if remaining[i][j]],
+            "iterations": int(iterations[i]),
+        })
+    return results
+
+
+class _Uploader:
+    """Decodes a video into a host cache and uploads it: on a CUDA device
+    from pinned memory on a side stream, with an event the search waits on."""
+
+    def __init__(self, device: torch.device, config: SearchConfig):
+        self.device, self.config = device, config
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def build(self, task: VideoTask, budget: int):
+        host = build_frame_cache_host(
+            task.video_path, self.config, decoder=task.decoder, budget_bytes=budget
+        )
+        if self.stream is None:
+            return host.to_device(self.device), None
+        pinned = torch.from_numpy(host.frames).pin_memory()
+        with torch.cuda.stream(self.stream):
+            frames = pinned.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        cache = FrameCache(frames=frames, n_valid=host.n_valid, raw_fps=host.raw_fps,
+                           duration=host.duration)
+        return cache, done
+
+    def wait(self, built):
+        """The cache, usable on the current stream."""
+        cache, done = built
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+            cache.frames.record_stream(torch.cuda.current_stream(self.device))
+        return cache
+
+
+def search_videos(
+    tasks: Sequence[VideoTask],
+    heuristic,
+    config: Optional[SearchConfig] = None,
+    bucket_by_length: bool = True,
+    decode_workers: int = 2,
+    prefetch: bool = True,
+    hbm_budget_bytes: Optional[int] = None,
+    graphs: Optional[bool] = None,
+    stats: Optional[StepStats] = None,
+) -> List[Dict]:
+    """Search every video to completion in batched searches on the
+    heuristic's device, one length bucket at a time.
+
+    Each video's cache budget is its bucket's share of the device's free
+    memory (``per_video_hbm_budget``; ``hbm_budget_bytes`` replaces the free
+    memory).  ``prefetch=False`` decodes each bucket only when it is
+    searched.  A bucket that runs out of device memory
+    (``torch.cuda.OutOfMemoryError``) is retried twice, each time with half
+    the per-video budget, so at a lower cache resolution, as the reference
+    retries.
+    ``graphs`` and ``stats`` go to the batched driver.
+
+    Returns one dict per video, in task order: {"video_path",
+    "keyframe_timestamps", "keyframe_secs", "keyframe_distribution",
+    "remaining_targets", "iterations"}.
+    """
+    config = config or SearchConfig()
+    device = torch.device(heuristic.device)
+    n_pads = [
+        probe_video_length(_decoder_for(t.video_path, t.decoder), config)[1] for t in tasks
+    ]
+    buckets = _bucket_indices(n_pads, bucket_by_length)
+    budget_by_index = {
+        i: per_video_hbm_budget(len(bucket), device, total_bytes=hbm_budget_bytes)
+        for bucket in buckets for i in bucket
+    }
+    h, w = config.cache_hw
+    if config.cache_mode not in ("auto", "resident", "downscale"):
+        raise NotImplementedError(
+            f"cache_mode={config.cache_mode!r}: the streaming search is not ported "
+            "(ROADMAP queue 1 item 6)"
+        )
+    if config.cache_mode != "downscale":
+        over = [tasks[i].video_path for i, budget in budget_by_index.items()
+                if n_pads[i] * h * w * 3 > budget]
+        if over:
+            raise NotImplementedError(
+                f"{len(over)} videos ({over[:3]}) exceed their bucket's per-video cache "
+                "budget and would take the streaming search, which is not ported "
+                "(ROADMAP queue 1 item 6); cache_mode='downscale' shrinks them instead"
+            )
+    if len(buckets) > 1:
+        logger.info("search_videos: %d videos -> %d length buckets %s",
+                    len(tasks), len(buckets), [n_pads[b[0]] for b in buckets])
+
+    uploader = _Uploader(device, config)
+    results: List[Optional[Dict]] = [None] * len(tasks)
+    with ThreadPoolExecutor(max_workers=max(1, decode_workers)) as pool:
+        futures = {}
+
+        def submit(bucket: List[int]):
+            for i in bucket:
+                if i not in futures:
+                    futures[i] = pool.submit(uploader.build, tasks[i], budget_by_index[i])
+
+        for b, bucket in enumerate(buckets):
+            submit(bucket)
+            if prefetch and b + 1 < len(buckets):
+                submit(buckets[b + 1])   # decode + upload while this bucket searches
+            caches = [uploader.wait(futures.pop(i).result()) for i in bucket]
+            budget = budget_by_index[bucket[0]]
+            out = None
+            for attempt in range(3):
+                oom = False
+                try:
+                    out = _search_bucket([tasks[i] for i in bucket], caches, heuristic, config,
+                                         graphs, stats)
+                except torch.cuda.OutOfMemoryError:
+                    if attempt == 2:
+                        raise
+                    oom = True
+                # rebuild outside the handler: its traceback pins the failed
+                # attempt's tensors until the handler exits
+                if not oom:
+                    break
+                del caches
+                gc.collect()
+                torch.cuda.empty_cache()
+                budget = max(budget // 2, 32 * 1024 ** 2)
+                logger.warning("bucket of %d videos ran out of device memory; retrying with "
+                               "a %.0f MB per-video cache budget", len(bucket), budget / 2 ** 20)
+                caches = [uploader.wait(uploader.build(tasks[i], budget)) for i in bucket]
+            for i, r in zip(bucket, out):
+                results[i] = r
+    return results

@@ -14,8 +14,15 @@ embedding, ``models/owlvit.resize_detector``), over a resident cache; and
 the grid forward's four input routes, in the reference's branch order: the
 fused cache -> patch-embedding kernel K6 (``TSTAR_GRID_EMBED``), the
 composed projection (``TSTAR_COMPOSED_PATCH=1``), the fused grid-pack kernel K7
-(``use_pallas_preprocess=True``), and the default pixel chain.  Streaming
-caches and the batched / detailed methods are later slices.
+(``use_pallas_preprocess=True``), and the default pixel chain.
+
+A scorer stacked over B videos (``parallel/batched.stack_scorers``: caches,
+query embeddings, masks and class weights on a leading video axis, weights
+shared) scores with the flat batch methods: ``score_grid_batch`` (one grid
+canvas per video, one detector forward over the B canvases with per-video
+queries), ``score_verify_batch`` and ``score_verify_flat`` (any (video,
+second) pairs in one forward).  Streaming caches and the detailed methods
+are later slices.
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ from tstar_tpu_torch.kernels.grid_embed import (
     use_grid_embed_kernel,
 )
 from tstar_tpu_torch.kernels.image import (
+    bilinear_resize,
     build_detector_grid,
     build_verify_batch,
     composed_patch_projection,
     grid_patch_embeddings,
+    normalize_clip,
 )
 from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
 from tstar_tpu_torch.models.owlvit import (
@@ -99,7 +108,7 @@ class OwlVitScorer:
         return self.model.cfg.vision.image_size
 
     @torch.no_grad()
-    def _detect(self, pixels: torch.Tensor, model=None, qvision=None):
+    def _detect(self, pixels: torch.Tensor, model=None, qvision=None, queries=None):
         model = model or self.model
         qvision = qvision if qvision is not None else self.qvision
         if qvision is not None:
@@ -109,10 +118,13 @@ class OwlVitScorer:
             )
         else:
             feats = model.encode_image(pixels)
-        return self._heads(feats, model)
+        return self._heads(feats, model, queries)
 
-    def _heads(self, feats: torch.Tensor, model: OwlViTDetector):
-        logits, boxes = model.predict(feats, self.query_embeds, self.query_mask)
+    def _heads(self, feats: torch.Tensor, model: OwlViTDetector, queries=None):
+        """Class and box heads; ``queries``: (embeds, mask) per image, else
+        the scorer's own (shared, or stacked one set per video)."""
+        query_embeds, query_mask = queries or (self.query_embeds, self.query_mask)
+        logits, boxes = model.predict(feats, query_embeds, query_mask)
         size = model.cfg.vision.image_size
         return postprocess_detections(logits, boxes, (size, size))
 
@@ -161,12 +173,13 @@ class OwlVitScorer:
     def _verify_model(self) -> OwlViTDetector:
         return self.verify_model or self.model
 
-    def _detect_verify(self, pixels: torch.Tensor):
+    def _detect_verify(self, pixels: torch.Tensor, queries=None):
         """``_detect`` through the verification view (reduced-resolution model
         and matching quantized tower when configured; the main ones else)."""
         return self._detect(
             pixels, model=self._verify_model,
             qvision=self.qvision_verify if self.qvision_verify is not None else self.qvision,
+            queries=queries,
         )
 
     def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,21 +218,83 @@ class OwlVitScorer:
         pixels = build_verify_batch(self.cache, secs, size, dtype=self.model.dtype)
         return self._score_verify_pixels(pixels)
 
-    def _score_verify_pixels(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _score_verify_pixels(
+        self, pixels: torch.Tensor, queries=None, class_weights=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Each image scored as a 1x1 grid: (conf (K,), presence (K, C)).
 
         ``splat_detections_to_cells`` with one cell, batched over the K
         images: every box lands in cell 0, so the cell max is the max over
-        all kept weighted scores (floored at the map's initial 0)."""
-        scores, class_ids, _ = self._detect_verify(pixels)
+        all kept weighted scores (floored at the map's initial 0).
+        ``queries`` / ``class_weights``: per image, (K, Q, D) + (K, Q) and
+        (K, Q), else the scorer's shared ones."""
+        scores, class_ids, _ = self._detect_verify(pixels, queries)
         keep = scores > self.config.detector_threshold
-        adjusted = scores * self.class_weights[class_ids]
+        if class_weights is None:
+            adjusted = scores * self.class_weights[class_ids]
+        else:
+            adjusted = scores * class_weights.gather(-1, class_ids)
         vals = torch.where(keep, adjusted, torch.zeros_like(adjusted))
         conf = vals.amax(dim=-1).clamp_min(0.0)
         presence = torch.zeros(
             scores.shape[0], self.num_classes, dtype=torch.int32, device=scores.device
         ).scatter_reduce(1, class_ids, keep.to(torch.int32), reduce="amax")
         return conf, presence > 0
+
+    # ---- flat multi-video batch (stacked scorer) ------------------------------
+
+    def score_grid_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, K) seconds -> one grid canvas per video -> ONE detector forward
+        over the B canvases with each video's queries -> (conf (B, K),
+        presence (B, K, C)).  Routes as the reference's: K6 under its gate
+        (which an image batch of 8 opens), the composed projection, else the
+        pixel chain; K7 is off in a batched search."""
+        cfg = self.config
+        grid_shape = (cfg.grid_rows, cfg.grid_cols)
+        size = self.detection_image_size
+        if self._use_grid_embed_kernel(tuple(self.cache.shape)):
+            dets = self._detect_embeds(self._grid_embeds_kernel(self.cache, secs))
+        elif self.grid_proj_w is not None and self.grid_proj_opt_in and (
+            not cfg.use_pallas_preprocess
+        ):
+            dets = self._detect_embeds(
+                torch.cat([self._grid_embeds(c, s) for c, s in zip(self.cache, secs)])
+            )
+        else:
+            dets = self._detect(torch.cat([
+                build_detector_grid(c, s, grid_shape, size, dtype=self.model.dtype)
+                for c, s in zip(self.cache, secs)
+            ]))
+        scores, class_ids, boxes = dets
+        keep = scores > cfg.detector_threshold
+        conf_map, presence = splat_detections_to_cells(
+            boxes, scores, class_ids, keep, self.class_weights,
+            grid_shape=grid_shape, image_hw=(size, size), num_classes=self.num_classes,
+        )
+        return conf_map.reshape(secs.shape[0], -1), presence
+
+    def score_verify_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T) seconds -> ONE flat (B*T)-image verification forward ->
+        (conf (B, T), presence (B, T, C))."""
+        b, t = secs.shape
+        video_idx = torch.arange(b, device=secs.device).repeat_interleave(t)
+        conf, presence = self.score_verify_flat(video_idx, secs.reshape(-1))
+        return conf.reshape(b, t), presence.reshape(b, t, -1)
+
+    def score_verify_flat(
+        self, video_idx: torch.Tensor, secs: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(W,) video indices + (W,) seconds -> one W-image verification
+        forward -> (conf (W,), presence (W, C)): any candidate (video, frame)
+        pairs, W per forward."""
+        size = self._verify_model.cfg.vision.image_size
+        pixels = normalize_clip(
+            bilinear_resize(self.cache[video_idx, secs], (size, size)), self.model.dtype
+        )
+        return self._score_verify_pixels(
+            pixels, (self.query_embeds[video_idx], self.query_mask[video_idx]),
+            self.class_weights[video_idx],
+        )
 
 
 def build_prompt_batch(

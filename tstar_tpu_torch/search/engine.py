@@ -1,10 +1,15 @@
 """The T* search loop (port of ``tstar_tpu/search/engine.py``).
 
 The reference runs the whole search as one ``lax.while_loop`` on the device.
-Here ``run_search`` is a host loop of ``search_step`` calls.  Each step reads
-the device twice: the verification candidate count (whether and how wide to
-rescore) and the loop condition ``_continue`` (any target left).  Everything
-else, sampling included, stays on the device.
+Here a search is a host loop of steps (``search/step_graphs.py``), each of
+three phases over static device buffers, replayed as CUDA graphs on the card.
+The host reads the device twice a step: the verification candidate count
+(how many rescore rounds) and the loop condition (any target left).
+Everything else, sampling included, stays on the device.
+
+The step math below works on a leading video axis, (B, N_pad) rows that never
+mix, so one code path serves the single-video search (B = 1) and the
+batched multi-video search (``parallel/batched.py``).
 
 Semantics are the reference's, step for step:
   * iteration-0 uniform stride sampling, then quartile-masked resampling of
@@ -26,14 +31,15 @@ once unless ``deterministic_pop``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.ops.percentile import masked_percentile
 from tstar_tpu_torch.ops.sampling import (
+    draw_gumbel,
+    gumbel_topk_from_noise,
     gumbel_topk_without_replacement,
     topk_indices,
     uniform_stride_indices,
@@ -44,156 +50,131 @@ from tstar_tpu_torch.search.scorers import Scorer
 from tstar_tpu_torch.search.state import SearchState
 
 
-def sample_frame_secs(state: SearchState, config: SearchConfig) -> torch.Tensor:
-    """Choose the K seconds to score this iteration."""
+def sample_secs(
+    P: torch.Tensor,              # (B, N_pad)
+    visited: torch.Tensor,        # (B, N_pad) bool
+    valid: torch.Tensor,          # (B, N_pad) bool
+    n_valid: torch.Tensor,        # (B,) int64
+    gumbel: Optional[torch.Tensor],   # (B, N_pad) noise, None when every row is first
+    first: Optional[torch.Tensor],    # (B,) bool rows at iteration 0; None: no row is
+    config: SearchConfig,
+) -> torch.Tensor:
+    """Choose the K seconds of each row to score this iteration, (B, K)."""
     k = config.frames_per_iteration
-    if state.iteration == 0:
-        return uniform_stride_indices(state.n_valid, k, device=state.scores.device)
-    valid = state.valid
-    bonus = float(np.float32(k) / np.float32(state.n_valid))
-    non_visiting = (~state.visited).to(state.P.dtype)
-    p_bonus = (state.P + bonus) * valid
+    stride = uniform_stride_indices(n_valid, k) if first is not None else None
+    if gumbel is None:
+        return stride
+    nf = n_valid.to(P.dtype)
+    bonus = torch.div(torch.full_like(nf, float(k)), nf)[:, None]   # float32 K/N
+    non_visiting = (~visited).to(P.dtype)
+    p_bonus = (P + bonus) * valid
     weights = p_bonus * non_visiting
-    thr = masked_percentile(weights, config.top_percentile, valid)
+    thr = masked_percentile(weights, config.top_percentile, valid)[:, None]
     masked = weights * (weights >= thr)
     # When the quartile mask starves the sampler, drop BOTH the mask and the
     # non-visiting filter (the reference's fallback).
-    starved = (masked.sum() == 0) | ((masked > 0).sum() < k)
+    starved = (masked.sum(dim=-1, keepdim=True) == 0) | (
+        (masked > 0).sum(dim=-1, keepdim=True) < k
+    )
     weights = torch.where(starved, p_bonus, masked)
-    idx, _ = gumbel_topk_without_replacement(state.rng, weights, k)
-    return idx
+    idx, _ = gumbel_topk_from_noise(gumbel, weights, k)
+    return idx if stride is None else torch.where(first[:, None], stride, idx)
 
 
 def _percentile_static(x: torch.Tensor, q: float) -> torch.Tensor:
-    """np.percentile('linear') over a fully valid vector."""
-    s = torch.sort(x).values
-    pos = (x.shape[0] - 1) * (q / 100.0)
+    """np.percentile('linear') of each fully valid row (last axis)."""
+    s = torch.sort(x, dim=-1).values
+    pos = (x.shape[-1] - 1) * (q / 100.0)
     lo = math.floor(pos)
     hi = math.ceil(pos)
     frac = pos - lo
-    return s[lo] * (1.0 - frac) + s[hi] * frac
+    return s[..., lo] * (1.0 - frac) + s[..., hi] * frac
 
 
-def verification_replay(
-    scores: torch.Tensor,
-    remaining: torch.Tensor,
-    secs: torch.Tensor,             # (K,)
-    target_presence: torch.Tensor,  # (K, T)
-    vconf: torch.Tensor,            # (K,)
-    vpres_t: torch.Tensor,          # (K, T)
+def apply_grid_scores(
+    scores: torch.Tensor, visited: torch.Tensor, valid: torch.Tensor,
+    n_valid: torch.Tensor, secs: torch.Tensor, conf: torch.Tensor, config: SearchConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Visited marks + raw writes, windowed top-quartile splat, smoother
+    refit, on (B, N_pad) rows.  Returns (scores, visited, P)."""
+    scores = scores.scatter(-1, secs, conf.to(scores.dtype))
+    visited = visited.scatter(-1, secs, torch.ones_like(secs, dtype=torch.bool))
+    thr = _percentile_static(conf, config.top_percentile)
+    is_top = conf >= thr[:, None]
+    scores = window_splat(scores, secs, is_top, n_valid, config.window_size)
+    p = smoothing_spline_distribution(
+        scores, visited, valid, n_valid, smoothing=config.spline_smoothing
+    )
+    return scores, visited, p
+
+
+def replay_verification(
+    scores: torch.Tensor,           # (B, N_pad)
+    remaining: torch.Tensor,        # (B, T)
+    secs: torch.Tensor,             # (B, K)
+    target_presence: torch.Tensor,  # (B, K, T)
+    vconf: torch.Tensor,            # (B, K)
+    vpres_t: torch.Tensor,          # (B, K, T)
     config: SearchConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's per-frame removal loop with the rescores precomputed:
     a triggered frame overwrites its score, and at most the FIRST remaining
     passing target per frame is removed.  No host reads."""
     scores = scores.clone()
-    slots = torch.arange(remaining.shape[0], device=remaining.device)
-    for k in range(secs.shape[0]):
-        in_cell = target_presence[k] & remaining
-        triggered = in_cell.any()
-        sec = secs[k:k + 1]
-        scores.index_put_((sec,), torch.where(triggered, vconf[k:k + 1], scores[sec]))
-        passing = in_cell & vpres_t[k] & (vconf[k] > config.confidence_threshold)
-        first = torch.argmax(passing.to(torch.int32))
-        remaining = remaining & ~((slots == first) & passing.any())
+    slots = torch.arange(remaining.shape[-1], device=remaining.device)
+    for k in range(secs.shape[-1]):
+        in_cell = target_presence[:, k] & remaining
+        triggered = in_cell.any(dim=-1, keepdim=True)
+        sec = secs[:, k:k + 1]
+        scores.scatter_(-1, sec, torch.where(triggered, vconf[:, k:k + 1], scores.gather(-1, sec)))
+        passing = in_cell & vpres_t[:, k] & (vconf[:, k:k + 1] > config.confidence_threshold)
+        first = torch.argmax(passing.to(torch.int32), dim=-1, keepdim=True)
+        remaining = remaining & ~((slots == first) & passing.any(dim=-1, keepdim=True))
     return scores, remaining
 
 
-def _apply_verification(
-    scores: torch.Tensor,
-    remaining: torch.Tensor,
-    secs: torch.Tensor,
-    grid_presence: torch.Tensor,  # (K, C)
-    scorer: Scorer,
+def verification_replay(
+    scores: torch.Tensor,           # (N_pad,)
+    remaining: torch.Tensor,        # (T,)
+    secs: torch.Tensor,             # (K,)
+    target_presence: torch.Tensor,  # (K, T)
+    vconf: torch.Tensor,            # (K,)
+    vpres_t: torch.Tensor,          # (K, T)
     config: SearchConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sequential target verification.
-
-    Frames whose grid cell shows a remaining target are candidates; only
-    they can trigger (removals only shrink the trigger set), so only they
-    are rescored: ``verify_batch`` at a time (bucketed), or all K frames in
-    one forward when the width is K or, with ``verify_adaptive``, when more
-    than half the frames are candidates.  Both forms fill the candidate rows
-    identically, so the trajectory does not depend on the choice.
-    """
-    t_max = config.max_targets
-    k_frames = secs.shape[0]
-    target_presence = grid_presence[:, :t_max]
-    candidate = (target_presence & remaining[None, :]).any(dim=-1)
-    n_cand = int(candidate.sum())                       # host read
-    if n_cand == 0:
-        return scores, remaining
-
-    t_bucket = min(config.verify_batch or k_frames, k_frames)
-    wide = t_bucket >= k_frames or (config.verify_adaptive and n_cand * 2 > k_frames)
-    if wide:
-        vconf, vpres = scorer.score_verify(secs)
-        vpres_t = vpres[:, :t_max]
-    else:
-        # stable partition: candidate frames first, in their original order
-        order = torch.argsort((~candidate).to(torch.int32), stable=True)
-        vconf = torch.zeros(k_frames, dtype=torch.float32, device=secs.device)
-        vpres_t = torch.zeros(k_frames, t_max, dtype=torch.bool, device=secs.device)
-        r = 0
-        while r * t_bucket < n_cand:
-            # the last round's start clamps like lax.dynamic_slice; its extra
-            # rows land on frames the replay never reads
-            start = min(r * t_bucket, k_frames - t_bucket)
-            idx = order[start:start + t_bucket]
-            c, p = scorer.score_verify(secs[idx])
-            vconf[idx] = c.to(vconf.dtype)
-            vpres_t[idx] = p[:, :t_max]
-            r += 1
-    return verification_replay(
-        scores, remaining, secs, target_presence, vconf, vpres_t, config
+    """``replay_verification`` of one video."""
+    s, r = replay_verification(
+        scores[None], remaining[None], secs[None].to(torch.int64), target_presence[None],
+        vconf[None], vpres_t[None], config,
     )
+    return s[0], r[0]
 
 
-def apply_grid_scores(
-    state: SearchState, secs: torch.Tensor, conf: torch.Tensor, config: SearchConfig
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Visited marks + raw writes, windowed top-quartile splat, smoother
-    refit.  Returns (scores, visited, P, is_top)."""
-    scores = state.scores.index_put((secs,), conf.to(state.scores.dtype))
-    visited = state.visited.index_put(
-        (secs,), torch.ones_like(secs, dtype=torch.bool)
-    )
-    thr = _percentile_static(conf, config.top_percentile)
-    is_top = conf >= thr
-    scores = window_splat(scores, secs, is_top, state.n_valid, config.window_size)
-    p = smoothing_spline_distribution(
-        scores, visited, state.valid, state.n_valid, smoothing=config.spline_smoothing
-    )
-    return scores, visited, p, is_top
+def sample_frame_secs(state: SearchState, config: SearchConfig) -> torch.Tensor:
+    """Choose the K seconds to score this iteration (draws from ``state.rng``
+    after iteration 0)."""
+    device = state.scores.device
+    n_valid = torch.full((1,), state.n_valid, dtype=torch.int64, device=device)
+    if state.iteration == 0:
+        return sample_secs(state.P[None], state.visited[None], state.valid[None], n_valid,
+                           None, torch.ones(1, dtype=torch.bool, device=device), config)[0]
+    gumbel = draw_gumbel(state.rng, state.P.shape[0], device)[None]
+    return sample_secs(state.P[None], state.visited[None], state.valid[None], n_valid,
+                       gumbel, None, config)[0]
 
 
 def search_step(
     state: SearchState, scorer: Scorer, config: SearchConfig
 ) -> Tuple[SearchState, Dict[str, torch.Tensor]]:
-    """One search iteration: (new state, aux with secs/conf/presence/is_top)."""
-    secs = sample_frame_secs(state, config)
-    return presampled_search_step(state, secs, scorer, config)
+    """One search iteration, eagerly: (new state, aux with secs / conf)."""
+    from tstar_tpu_torch.search.step_graphs import Stepper
 
-
-def presampled_search_step(
-    state: SearchState, secs: torch.Tensor, scorer: Scorer, config: SearchConfig
-) -> Tuple[SearchState, Dict[str, torch.Tensor]]:
-    """``search_step`` after the sampling."""
-    conf, presence = scorer.score_grid(secs)
-    scores, visited, p, is_top = apply_grid_scores(state, secs, conf, config)
-    scores, remaining = _apply_verification(
-        scores, state.remaining, secs, presence, scorer, config
-    )
-    new_state = state.replace(
-        scores=scores,
-        visited=visited,
-        P=p,
-        remaining=remaining,
-        budget=state.budget - config.frames_per_iteration,
-        iteration=state.iteration + 1,
-    )
-    aux = {"secs": secs, "conf": conf, "presence": presence, "is_top": is_top}
-    return new_state, aux
+    stepper = Stepper.single(state, scorer, config, graphs=False)
+    stepper.setup()
+    stepper.step([True])
+    return stepper.single_state(state, steps=1), {
+        "secs": stepper.secs[0].clone(), "conf": stepper.conf[0].clone(),
+    }
 
 
 def pop_frame_secs(state: SearchState, config: SearchConfig) -> torch.Tensor:
@@ -214,13 +195,45 @@ def _continue(state: SearchState) -> bool:
     return state.budget > 0 and bool(state.remaining.any())
 
 
-def run_search(
+def masked_search_step(
     state: SearchState, scorer: Scorer, config: SearchConfig
-) -> Tuple[SearchState, torch.Tensor]:
-    """Full search: host loop of steps + final pop.
+) -> SearchState:
+    """One step that is the identity once the loop condition has exited."""
+    return search_step(state, scorer, config)[0] if _continue(state) else state
 
-    Returns (final state, sorted keyframe seconds (search_nframes,)).
+
+def run_search(
+    state: SearchState, scorer: Scorer, config: SearchConfig,
+    graphs: Optional[bool] = None, stats=None,
+) -> Tuple[SearchState, torch.Tensor]:
+    """Full search: steps until no target is left or the budget is spent,
+    then the final pop.  Returns (final state, sorted keyframe seconds
+    (search_nframes,)).
+
+    ``graphs``: step through CUDA graphs (None: on a CUDA device); False runs
+    every phase eagerly.  ``stats``: a ``step_graphs.StepStats`` to fill.
     """
-    while _continue(state):
-        state, _ = search_step(state, scorer, config)
-    return state, pop_frame_secs(state, config)
+    from tstar_tpu_torch.search.step_graphs import run_single
+
+    final = run_single(state, scorer, config, None, graphs, stats)
+    return final, pop_frame_secs(final, config)
+
+
+def run_search_chained(
+    state: SearchState,
+    scorer: Scorer,
+    config: SearchConfig,
+    max_iterations: Optional[int] = None,
+    graphs: Optional[bool] = None,
+    stats=None,
+) -> Tuple[SearchState, torch.Tensor]:
+    """``run_search`` with at most ``max_iterations`` steps (default
+    ``config.iteration_cap``): the reference's chain of masked steps, whose
+    steps after the loop condition exits are identities.  The same results
+    as ``run_search`` whenever the cap is not reached."""
+    from tstar_tpu_torch.search.step_graphs import run_single
+
+    if max_iterations is None:
+        max_iterations = config.iteration_cap(state.n_valid)
+    final = run_single(state, scorer, config, max_iterations, graphs, stats)
+    return final, pop_frame_secs(final, config)

@@ -5,7 +5,9 @@ The constructor keeps the reference's signature and adds ``decoder=``: the
 object ``video/cache.py`` decodes the frame cache from and that
 ``_materialize`` decodes the final keyframes from (this slice has no file
 decoder).  The search runs on the heuristic's device; its noise comes from a
-``torch.Generator`` on that device seeded with ``seed``.
+``torch.Generator`` on that device seeded with ``seed``.  On a CUDA device
+its steps replay CUDA graphs (``search/step_graphs.py``); ``step_stats``
+says what the last search's steps did.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.search.engine import run_search
 from tstar_tpu_torch.search.state import init_state
+from tstar_tpu_torch.search.step_graphs import StepStats
 from tstar_tpu_torch.video.cache import FrameCache, build_frame_cache
 
 
@@ -72,6 +75,7 @@ class KeyframeSearcher:
             n_pad=self.cache.n_pad, device=self.device,
         )
         self._final_state = None
+        self.step_stats: Optional[StepStats] = None
 
     # -- introspection (reference attribute parity) -----------------------
     @property
@@ -99,10 +103,15 @@ class KeyframeSearcher:
         return [t for i, t in enumerate(self.target_objects) if mask[i]]
 
     # -- search -----------------------------------------------------------
-    def search(self) -> Tuple[List[np.ndarray], List[float]]:
-        """Full search -> (keyframes at native resolution, timestamps in s)."""
+    def search(self, graphs: Optional[bool] = None) -> Tuple[List[np.ndarray], List[float]]:
+        """Full search -> (keyframes at native resolution, timestamps in s).
+        ``graphs``: as ``engine.run_search`` (None: CUDA graphs on a CUDA
+        device)."""
+        self.step_stats = StepStats()
         with torch.no_grad():
-            final, secs = run_search(self._state0, self.scorer, self.config)
+            final, secs = run_search(
+                self._state0, self.scorer, self.config, graphs, self.step_stats
+            )
         self._final_state = final
         return self._materialize(secs.cpu().numpy())
 

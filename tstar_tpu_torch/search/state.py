@@ -5,12 +5,19 @@ the host already knows exactly (video length, budget left, iteration count)
 are plain ints: the budget drops by K every step whatever the scores say, so
 keeping it on the device would only cost a read per step.  ``rng`` is the
 noise source of ``ops/sampling.py``.
+
+``BatchedState`` stacks B videos' states on a leading axis (the reference's
+``tree_map(jnp.stack)`` of states).  There a video's budget drops only while
+it is active, and whether it is active depends on ``remaining``, which lives
+on the device: budget, iteration and length are (B,) tensors beside it.
+Noise stays one source per video, so video i draws what its own
+single-video search would draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,4 +76,46 @@ def init_state(
         n_valid=n_valid,
         iteration=0,
         rng=rng,
+    )
+
+
+@dataclasses.dataclass
+class BatchedState:
+    scores: torch.Tensor     # (B, N_pad) f32
+    visited: torch.Tensor    # (B, N_pad) bool
+    P: torch.Tensor          # (B, N_pad) f32
+    remaining: torch.Tensor  # (B, T_max) bool
+    budget: torch.Tensor     # (B,) int64 scored-frame budget left
+    n_valid: torch.Tensor    # (B,) int64 true lengths
+    iteration: torch.Tensor  # (B,) int64 completed iterations
+    rngs: List[Any]          # B noise sources, one per video
+
+    @property
+    def valid(self) -> torch.Tensor:
+        n_pad = self.scores.shape[-1]
+        return torch.arange(n_pad, device=self.scores.device) < self.n_valid[:, None]
+
+    def replace(self, **changes) -> "BatchedState":
+        return dataclasses.replace(self, **changes)
+
+
+def stack_states(states: Sequence[SearchState]) -> BatchedState:
+    """Stack single-video states of one padded length on a leading video
+    axis; the noise sources stay per video."""
+    if len({s.scores.shape for s in states}) != 1:
+        raise ValueError("stacked states must share one padded length")
+    device = states[0].scores.device
+
+    def ints(name):
+        return torch.tensor([getattr(s, name) for s in states], dtype=torch.int64, device=device)
+
+    return BatchedState(
+        scores=torch.stack([s.scores for s in states]),
+        visited=torch.stack([s.visited for s in states]),
+        P=torch.stack([s.P for s in states]),
+        remaining=torch.stack([s.remaining for s in states]),
+        budget=ints("budget"),
+        n_valid=ints("n_valid"),
+        iteration=ints("iteration"),
+        rngs=[s.rng for s in states],
     )

@@ -1,0 +1,440 @@
+"""Search steps over static buffers, replayed as CUDA graphs on the card: the
+port's counterpart of the reference's ``jax.jit`` of a step.
+
+A step of B videos (B = 1 for the single-video search) is three phases, each
+a function of static device buffers:
+
+  (a) noise -> sample -> grid forward -> splat -> smoother -> candidate
+      partition and count;
+  (b) one verification round of the bucket width: the round index lives in
+      device memory and the round's start is clamped as ``lax.dynamic_slice``
+      clamps it; replayed once per round.  The wide rescore (every sampled
+      frame in one forward) is its own graph;
+  (c) replay of the removals -> commit (rows of finished videos keep their
+      state) -> loop flags.
+
+The host reads the device twice a step: the candidate count after (a), which
+sets the rounds of (b), and the flags after (c), which end the loop.  Each
+read is one small non-blocking copy into pinned memory, awaited on an event.
+
+With graphs (the default on a CUDA device) each phase's first use runs
+eagerly on the capture stream, which builds the lazy per-device constants,
+cuBLAS's state and the kernel library, and is then captured into a CUDA
+graph that every later use of the run replays.  A capture that fails
+raises ``GraphCaptureError``; the run never falls back to eager phases.  Iteration 0 samples by stride and
+draws no noise, so it always runs eagerly.  Each video's noise generator is
+registered with the graphs, so a replay draws what the eager phase would:
+a replay of (a) draws for every video, so the generator of a video that has
+finished is saved when it finishes and put back before the final pop.
+Graph replays add to each kernel wrapper's launch count the launches that
+their capture recorded (the capture itself launches nothing).
+
+On the CPU, or with ``graphs=False``, the same phase functions run eagerly
+every time, and noise is drawn only for videos still searching.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from tstar_tpu_torch.ops.sampling import draw_gumbel
+from tstar_tpu_torch.search.engine import apply_grid_scores, replay_verification, sample_secs
+from tstar_tpu_torch.search.state import BatchedState, SearchState
+from tstar_tpu_torch.utils.config import SearchConfig
+
+
+class GraphCaptureError(RuntimeError):
+    """A phase of the search step could not be captured into a CUDA graph."""
+
+
+@dataclasses.dataclass
+class StepStats:
+    """What a driver did, filled in when passed as ``stats=``.  With
+    ``record`` each step's active videos, sampled seconds and grid
+    confidences are kept (device tensors, read by the caller afterwards)."""
+
+    record: bool = False
+    steps: int = 0
+    grid_images: int = 0
+    verify_widths: List[int] = dataclasses.field(default_factory=list)
+    replays: int = 0
+    captures: int = 0
+    host_reads: int = 0          # reads inside steps (two a step)
+    setup_reads: int = 0         # the read before the first step
+    trace: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: Any
+    launches: Dict[str, int]     # kernel launches recorded by the capture
+
+
+def _use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
+    if graphs is None:
+        return device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, the search is on {device}")
+    return bool(graphs)
+
+
+class Stepper:
+    """Static buffers of one search run over B videos and its three phases.
+
+    ``mode``: 'single' (one video, the scorer's single-video methods and the
+    adaptive wide rescore), 'flat' (one candidate list over all videos,
+    ``score_verify_flat``), or 'per_video' (per-video buckets,
+    ``score_verify_batch``).
+    """
+
+    def __init__(self, *, scores, visited, P, remaining, budget, n_valid, iteration,
+                 rngs, scorer, config: SearchConfig, mode: str, graphs: Optional[bool],
+                 stats: Optional[StepStats] = None):
+        self.dev = scores.device
+        self.config, self.scorer, self.mode = config, scorer, mode
+        self.graphs = _use_graphs(graphs, self.dev)
+        self.rngs = list(rngs)
+        self.stats = stats if stats is not None else StepStats()
+        b, n = scores.shape
+        t_max, k = remaining.shape[-1], config.frames_per_iteration
+        self.b, self.n, self.k, self.t_max = b, n, k, t_max
+        self.width = min(config.verify_batch or k, k)
+        dev = self.dev
+        self.scores, self.visited, self.P = scores.clone(), visited.clone(), P.clone()
+        self.remaining = remaining.clone()
+        self.budget, self.iteration = budget.clone(), iteration.clone()
+        self.n_valid = n_valid.clone()
+        self.valid = torch.arange(n, device=dev) < self.n_valid[:, None]
+        # step buffers, written by (a) and (b), read by (b) and (c)
+        self.gumbel = torch.zeros(b, n, dtype=torch.float32, device=dev)
+        self.secs = torch.zeros(b, k, dtype=torch.int64, device=dev)
+        self.conf = torch.zeros(b, k, dtype=torch.float32, device=dev)
+        self.tp = torch.zeros(b, k, t_max, dtype=torch.bool, device=dev)
+        self.new_scores, self.new_visited, self.new_P = (
+            torch.zeros_like(self.scores), torch.zeros_like(self.visited), torch.zeros_like(self.P)
+        )
+        self.active = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.order = torch.zeros(*((b, k) if mode == "per_video" else (b * k,)),
+                                 dtype=torch.int64, device=dev)
+        self.n_cand = torch.zeros((), dtype=torch.int64, device=dev)
+        self.vconf = torch.zeros(b * k, dtype=torch.float32, device=dev)
+        self.vpres = torch.zeros(b * k, t_max, dtype=torch.bool, device=dev)
+        self.round = torch.zeros((), dtype=torch.int64, device=dev)
+        self.round_rows = torch.arange(self.width, device=dev)
+        self.flags = torch.zeros(b, dtype=torch.bool, device=dev)
+        self._graphs: Dict[str, _Graph] = {}
+        if self.graphs:
+            gens = [g for g in self.rngs if isinstance(g, torch.Generator)]
+            if len(gens) != b or len({id(g) for g in gens}) != b:
+                raise ValueError("graph stepping needs one distinct torch.Generator per video")
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device=dev)
+        if self.dev.type == "cuda":
+            self._pinned = {
+                "count": torch.empty((), dtype=torch.int64, pin_memory=True),
+                "flags": torch.empty(b, dtype=torch.bool, pin_memory=True),
+                "setup": torch.empty(2 * b, dtype=torch.int64, pin_memory=True),
+            }
+            self._event = torch.cuda.Event()
+
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def single(cls, state: SearchState, scorer, config, graphs=None, stats=None) -> "Stepper":
+        dev = state.scores.device
+
+        def one(v):
+            return torch.full((1,), int(v), dtype=torch.int64, device=dev)
+
+        return cls(scores=state.scores[None], visited=state.visited[None], P=state.P[None],
+                   remaining=state.remaining[None], budget=one(state.budget),
+                   n_valid=one(state.n_valid), iteration=one(state.iteration), rngs=[state.rng],
+                   scorer=scorer, config=config, mode="single", graphs=graphs, stats=stats)
+
+    @classmethod
+    def batched(cls, states: BatchedState, scorer, config, graphs=None, stats=None) -> "Stepper":
+        mode = "per_video" if config.verify_flat is False else "flat"
+        return cls(scores=states.scores, visited=states.visited, P=states.P,
+                   remaining=states.remaining, budget=states.budget, n_valid=states.n_valid,
+                   iteration=states.iteration, rngs=states.rngs, scorer=scorer, config=config,
+                   mode=mode, graphs=graphs, stats=stats)
+
+    def single_state(self, state: SearchState, steps: int) -> SearchState:
+        """The run's final single-video state (the host keeps budget and
+        iteration: a single search steps only while it is active)."""
+        return state.replace(
+            scores=self.scores[0].clone(), visited=self.visited[0].clone(), P=self.P[0].clone(),
+            remaining=self.remaining[0].clone(),
+            budget=state.budget - steps * self.k, iteration=state.iteration + steps,
+        )
+
+    def batched_state(self) -> BatchedState:
+        return BatchedState(
+            scores=self.scores.clone(), visited=self.visited.clone(), P=self.P.clone(),
+            remaining=self.remaining.clone(), budget=self.budget.clone(),
+            n_valid=self.n_valid.clone(), iteration=self.iteration.clone(), rngs=self.rngs,
+        )
+
+    # -- the scorer, as the mode calls it -------------------------------------
+    def _grid(self, secs):
+        if self.mode == "single":
+            conf, presence = self.scorer.score_grid(secs[0])
+            return conf[None], presence[None]
+        return self.scorer.score_grid_batch(secs)
+
+    def _verify_flat(self, video_idx, secs):
+        if self.mode == "single":
+            return self.scorer.score_verify(secs)
+        return self.scorer.score_verify_flat(video_idx, secs)
+
+    def _verify_wide(self, secs):
+        if self.mode == "single":
+            conf, presence = self.scorer.score_verify(secs[0])
+            return conf[None], presence[None]
+        return self.scorer.score_verify_batch(secs)
+
+    # -- phases ---------------------------------------------------------------
+    def _phase_a(self, first: Optional[torch.Tensor], draw: List[bool]) -> None:
+        """Noise (videos in ``draw``), sample, grid forward, splat, smoother,
+        candidates.  ``first``: (B,) bool of rows at iteration 0, or None."""
+        cfg = self.config
+        for i, d in enumerate(draw):
+            if d:
+                self.gumbel[i].copy_(draw_gumbel(self.rngs[i], self.n, self.dev))
+        active = self.remaining.any(dim=-1) & (self.budget > 0)
+        all_first = first is not None and not any(draw)
+        secs = sample_secs(self.P, self.visited, self.valid, self.n_valid,
+                           None if all_first else self.gumbel, first, cfg)
+        conf, presence = self._grid(secs)
+        scores, visited, p = apply_grid_scores(
+            self.scores, self.visited, self.valid, self.n_valid, secs, conf, cfg
+        )
+        tp = presence[..., :self.t_max]
+        # finished videos' rows are rescored by no forward (their step is discarded)
+        cand = (tp & self.remaining[:, None, :]).any(dim=-1) & active[:, None]
+        if self.mode == "per_video":
+            # stable partition per video: candidate frames first, in order
+            order = torch.argsort((~cand).to(torch.int32), dim=1, stable=True)
+            count = cand.sum(dim=1).max()
+        else:
+            order = torch.argsort((~cand).reshape(-1).to(torch.int32), stable=True)
+            count = cand.sum()
+        for buf, val in ((self.secs, secs), (self.conf, conf.to(torch.float32)), (self.tp, tp),
+                         (self.new_scores, scores), (self.new_visited, visited),
+                         (self.new_P, p), (self.active, active), (self.order, order),
+                         (self.n_cand, count)):
+            buf.copy_(val)
+        self.vconf.zero_()
+        self.vpres.zero_()
+        self.round.zero_()
+
+    def _phase_round(self) -> None:
+        """One verification round of ``width`` candidates; the last round's
+        start clamps, and its extra rows land on frames the replay never
+        reads."""
+        t, k = self.width, self.k
+        if self.mode == "per_video":
+            start = torch.clamp(self.round * t, max=k - t)
+            idx = self.order.index_select(1, start + self.round_rows)        # (B, t)
+            conf, presence = self.scorer.score_verify_batch(self.secs.gather(1, idx))
+            self.vconf.view(self.b, k).scatter_(1, idx, conf.to(torch.float32))
+            self.vpres.view(self.b, k, self.t_max).scatter_(
+                1, idx[..., None].expand(-1, -1, self.t_max), presence[..., :self.t_max]
+            )
+        else:
+            start = torch.clamp(self.round * t, max=self.order.numel() - t)
+            idx = self.order[start + self.round_rows]                        # (t,)
+            conf, presence = self._verify_flat(
+                torch.div(idx, k, rounding_mode="floor"), self.secs.reshape(-1)[idx]
+            )
+            self.vconf[idx] = conf.to(torch.float32)
+            self.vpres[idx] = presence[:, :self.t_max]
+        self.round += 1
+
+    def _phase_wide(self) -> None:
+        """Every sampled frame rescored in one forward."""
+        conf, presence = self._verify_wide(self.secs)
+        self.vconf.copy_(conf.reshape(-1))
+        self.vpres.copy_(presence[..., :self.t_max].reshape(-1, self.t_max))
+
+    def _phase_c(self) -> None:
+        """Replay the removals, commit active rows, set the loop flags."""
+        b, k, t = self.b, self.k, self.t_max
+        scores, remaining = replay_verification(
+            self.new_scores, self.remaining, self.secs, self.tp,
+            self.vconf.view(b, k), self.vpres.view(b, k, t), self.config,
+        )
+        act = self.active[:, None]
+        self.scores.copy_(torch.where(act, scores, self.scores))
+        self.visited.copy_(torch.where(act, self.new_visited, self.visited))
+        self.P.copy_(torch.where(act, self.new_P, self.P))
+        self.remaining.copy_(torch.where(act, remaining, self.remaining))
+        self.budget.copy_(torch.where(self.active, self.budget - k, self.budget))
+        self.iteration.copy_(torch.where(self.active, self.iteration + 1, self.iteration))
+        self.flags.copy_(self.remaining.any(dim=-1) & (self.budget > 0))
+
+    # -- graphs ---------------------------------------------------------------
+    def _run(self, name: str, eager: Callable[[], None],
+             capture: Optional[Callable[[], None]] = None) -> None:
+        """Run a phase: replay its graph, or (first use, or no graphs) run it
+        eagerly and, with graphs, capture it for the next use."""
+        from tstar_tpu_torch.kernels import add_launch_counts
+
+        g = self._graphs.get(name)
+        if g is not None:
+            g.graph.replay()
+            add_launch_counts(g.launches)
+            self.stats.replays += 1
+            return
+        if not self.graphs:
+            eager()
+            return
+        # the first use runs on the capture stream, whose cuBLAS state it sets up
+        current = torch.cuda.current_stream(self.dev)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            eager()
+        current.wait_stream(self._stream)
+        self._graphs[name] = self._capture(name, capture or eager)
+
+    def _capture(self, name: str, fn: Callable[[], None]) -> _Graph:
+        from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
+
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        index = self.dev.index if self.dev.index is not None else torch.cuda.current_device()
+        gens = [torch.cuda.default_generators[index]]     # every capture registers it
+        if name == "a":
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise GraphCaptureError(
+                    "this PyTorch cannot register a noise generator with a CUDA graph"
+                )
+            for gen in self.rngs:
+                register(gen)
+            gens += self.rngs
+        # a capture that fails leaves its generators' states in capture mode
+        # (no eager draw works from them again): swap in clean copies then
+        clean = [(gen, gen.clone_state()) for gen in gens]
+
+        def failed(e):
+            for gen, state in clean:
+                gen.graphsafe_set_state(state)
+            return GraphCaptureError(f"capturing step phase {name!r} failed: {e}")
+
+        self._stream.wait_stream(torch.cuda.current_stream(self.dev))
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    fn()
+                except BaseException as e:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise failed(e) from e
+                try:
+                    graph.capture_end()
+                except RuntimeError as e:
+                    raise failed(e) from e
+        finally:
+            after = launch_counts()
+            # the capture recorded launches without running them
+            add_launch_counts({k: before[k] - v for k, v in after.items()})
+        torch.cuda.current_stream(self.dev).wait_stream(self._stream)
+        self.stats.captures += 1
+        return _Graph(graph, {k: v - before[k] for k, v in after.items()})
+
+    # -- reads ----------------------------------------------------------------
+    def _read(self, t: torch.Tensor, name: str) -> List:
+        """One designated read: a non-blocking copy into pinned memory,
+        awaited on an event."""
+        if self.dev.type != "cuda":
+            return t.reshape(-1).tolist()
+        host = self._pinned[name]
+        host.copy_(t, non_blocking=True)
+        self._event.record()
+        self._event.synchronize()
+        return host.reshape(-1).tolist()
+
+    # -- driving --------------------------------------------------------------
+    def setup(self) -> List[bool]:
+        """The read before the first step: which videos search, and each
+        one's iteration count."""
+        flags = self.remaining.any(dim=-1) & (self.budget > 0)
+        vals = self._read(torch.cat([flags.to(torch.int64), self.iteration]), "setup")
+        self.stats.setup_reads += 1
+        self._it0 = vals[self.b:]
+        self._steps = 0
+        self._saved: Dict[int, torch.Tensor] = {}
+        return [bool(v) for v in vals[:self.b]]
+
+    def step(self, active: List[bool]) -> List[bool]:
+        """One step of the videos flagged ``active`` (host copy of the
+        previous flags; ``setup`` first); returns the new flags."""
+        is_first = [it + self._steps == 0 for it in self._it0]
+        draw = [a and not f for a, f in zip(active, is_first)]
+        if self.graphs and not any(a and f for a, f in zip(active, is_first)):
+            # a replay of (a) draws for every video: keep the noise state of
+            # the finished ones for their final pop
+            for i, a in enumerate(active):
+                if not a and i not in self._saved:
+                    self._saved[i] = self.rngs[i].get_state()
+            self._run("a", lambda: self._phase_a(None, draw),
+                      lambda: self._phase_a(None, [True] * self.b))
+        else:
+            first = None
+            if any(is_first):
+                first = self.iteration == 0
+            self._phase_a(first, draw)
+        self.stats.grid_images += self.b
+        if self.stats.record:
+            self.stats.trace.append({"active": list(active), "secs": self.secs.clone(),
+                                     "conf": self.conf.clone()})
+        count = self._read(self.n_cand, "count")[0]
+        self.stats.host_reads += 1
+        self._verify(count)
+        self._run("c", self._phase_c)
+        flags = [bool(v) for v in self._read(self.flags, "flags")]
+        self.stats.host_reads += 1
+        self.stats.steps += 1
+        self._steps += 1
+        return flags
+
+    def _verify(self, count: int) -> None:
+        """Rescore ``count`` candidates: one wide forward, or rounds."""
+        if count == 0:
+            return
+        k, t = self.k, self.width
+        wide = t >= k or (self.mode == "single" and self.config.verify_adaptive
+                          and count * 2 > k)
+        if wide:
+            self._run("wide", self._phase_wide)
+            self.stats.verify_widths.append(self.b * k)
+            return
+        for _ in range(-(-count // t)):
+            self._run("round", self._phase_round)
+            self.stats.verify_widths.append(t * (self.b if self.mode == "per_video" else 1))
+
+    def run(self, max_iterations: Optional[int]) -> int:
+        """Step until no video searches or ``max_iterations`` steps; put the
+        finished videos' noise state back.  Returns the steps taken."""
+        active = self.setup()
+        while any(active) and (max_iterations is None or self._steps < max_iterations):
+            active = self.step(active)
+        for i, state in self._saved.items():
+            self.rngs[i].set_state(state)
+        return self._steps
+
+
+@torch.no_grad()
+def run_single(state: SearchState, scorer, config: SearchConfig,
+               max_iterations: Optional[int], graphs: Optional[bool],
+               stats: Optional[StepStats]) -> SearchState:
+    """Step one video's search to its end (or ``max_iterations`` steps)."""
+    stepper = Stepper.single(state, scorer, config, graphs, stats)
+    steps = stepper.run(max_iterations)
+    return stepper.single_state(state, steps)

@@ -5,8 +5,11 @@
 
 The search of ``chip_smoke.py`` phases 5 to 7 (``owl-vit-random`` B/32 in
 bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
-under each configuration (all by default, or those named by ``--runs``):
-bf16; ``detector_quant='int8'`` with ``verify_image_size=512``;
+under each configuration (all by default, or those named by ``--runs``),
+stepped through CUDA graphs unless the label says "eager": bf16; bf16
+eager; the batched search of phase 8 over one bucket of eight distinct
+videos (``batched b8``, its caches built outside the timed region; and
+eager); ``detector_quant='int8'`` with ``verify_image_size=512``;
 ``detector_quant='w8a16'``; bf16 with ``TSTAR_LN_MATMUL=force``;
 ``use_pallas_preprocess=True`` (K7); ``TSTAR_GRID_EMBED=force`` (K6);
 ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8).  For each: one warm-up search, one search timed
@@ -14,7 +17,8 @@ on the host clock (ending in ``torch.cuda.synchronize()``), then one under
 ``torch.profiler`` (CPU + CUDA activities).  From the profiler's device
 events it reports the summed device time, the device-busy share of the
 profiled wall (the union of the device intervals), each port kernel's
-device time and launches, and the largest kernel lines.
+device time and launches, the largest kernel lines, and the steps' host
+reads and graph replays.
 
 ``--ln-fold-trace`` also runs the ``TSTAR_LN_MATMUL=force`` search three
 more times, unprofiled, to show how far a summation order moves it: through
@@ -86,29 +90,65 @@ def _busy_ms(intervals):
     return total / 1e6
 
 
-def profile_config(heur, config, top):
+def _single(heur, config, graphs):
+    """-> make(seed): a callable running one ``KeyframeSearcher.search()``
+    (the searcher built outside it) and returning its ``StepStats``."""
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
     from tstar_tpu_torch.video.synthetic import default_scene
 
     def make(seed):
-        return KeyframeSearcher(
+        s = KeyframeSearcher(
             "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"],
             search_budget=0.5, config=config, seed=seed, decoder=default_scene(600.0),
         )
 
-    make(1).search()                                    # warm-up
-    searcher = make(0)
+        def go():
+            s.search(graphs=graphs)
+            return s.step_stats
+        return go
+    return make
+
+
+def _bucket(heur, config, graphs, n=8):
+    """-> make(seed): a callable searching one bucket of ``n`` distinct
+    600 s videos (``scene_variant``) through ``multi_video._search_bucket``,
+    their caches decoded and uploaded outside it; returns its ``StepStats``."""
+    from tstar_tpu_torch.parallel.multi_video import VideoTask, _search_bucket
+    from tstar_tpu_torch.search.step_graphs import StepStats
+    from tstar_tpu_torch.video.cache import build_frame_cache
+    from tstar_tpu_torch.video.synthetic import scene_variant
+
+    def make(seed):
+        tasks = [VideoTask(f"mem://synthetic-600s-{i}", ["couch", "lamp"], ["tv"], seed=seed + i,
+                           decoder=scene_variant(i)) for i in range(n)]
+        caches = [build_frame_cache(t.video_path, config, device="cuda", decoder=t.decoder)
+                  for t in tasks]
+
+        def go():
+            stats = StepStats()
+            _search_bucket(tasks, caches, heur, config, graphs, stats)
+            return stats
+        return go
+    return make
+
+
+def profile_config(make, top):
+    """One warm-up run of ``make(1)``, one timed run of ``make(0)``, one
+    under ``torch.profiler``; ``make(seed)`` returns the run (a callable
+    returning its ``StepStats``)."""
+    make(1)()                                           # warm-up
+    go = make(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    searcher.search()
+    stats = go()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    searcher = make(0)
+    go = make(0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        searcher.search()
+        go()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -126,10 +166,15 @@ def profile_config(heur, config, top):
         hits = [v for k, v in by_name.items() if any(f in k for f in frags)]
         port[label] = {"ms": sum(v[0] for v in hits), "launches": sum(v[1] for v in hits)}
     largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    steps = max(stats.steps, 1)
     return {
         "wall_s": wall, "profiled_wall_s": profiled_wall, "device_ms": device_ms,
         "busy_ms": _busy_ms(intervals), "busy_share": _busy_ms(intervals) / (profiled_wall * 1e3),
         "device_events": sum(v[1] for v in by_name.values()),
+        "steps": stats.steps, "grid_images": stats.grid_images,
+        "verify_images": sum(stats.verify_widths),
+        "host_reads_per_step": stats.host_reads / steps,
+        "graph_replays_per_step": stats.replays / steps, "graph_captures": stats.captures,
         "port_kernels": port,
         "largest": [{"name": k[:120], "ms": v[0], "count": v[1]} for k, v in largest],
     }
@@ -160,7 +205,7 @@ def _traced_search(heur):
         return score_verify(secs)
 
     s.scorer.score_grid, s.scorer.score_verify = traced_grid, traced_verify
-    _, stamps = s.search()
+    _, stamps = s.search(graphs=False)      # eager: every forward passes the tracers
     torch.cuda.synchronize()
     return {"grid": grid, "verify_batches": verify, "keyframes": [float(t) for t in stamps]}
 
@@ -251,30 +296,40 @@ def main(argv=None) -> int:
 
     heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
     base = dict(cache_hw=(192, 384))
+    bf16 = SearchConfig(**base)
     runs = {
-        "bf16": (SearchConfig(**base), {}),
-        "int8+verify512": (SearchConfig(detector_quant="int8", verify_image_size=512, **base), {}),
-        "w8a16": (SearchConfig(detector_quant="w8a16", **base), {}),
-        "ln_matmul": (SearchConfig(**base), {"TSTAR_LN_MATMUL": "force"}),
-        "k7 pallas preprocess": (SearchConfig(use_pallas_preprocess=True, **base), {}),
-        "k6 grid embed": (SearchConfig(**base), {"TSTAR_GRID_EMBED": "force"}),
-        "k8 flash": (SearchConfig(**base), {"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"}),
+        "bf16": (_single(heur, bf16, None), {}),
+        "bf16 eager": (_single(heur, bf16, False), {}),
+        "batched b8": (_bucket(heur, bf16, None), {}),
+        "batched b8 eager": (_bucket(heur, bf16, False), {}),
+        "int8+verify512": (_single(heur, SearchConfig(
+            detector_quant="int8", verify_image_size=512, **base), None), {}),
+        "w8a16": (_single(heur, SearchConfig(detector_quant="w8a16", **base), None), {}),
+        "ln_matmul": (_single(heur, bf16, None), {"TSTAR_LN_MATMUL": "force"}),
+        "k7 pallas preprocess": (_single(heur, SearchConfig(
+            use_pallas_preprocess=True, **base), None), {}),
+        "k6 grid embed": (_single(heur, bf16, None), {"TSTAR_GRID_EMBED": "force"}),
+        "k8 flash": (_single(heur, bf16, None),
+                     {"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"}),
     }
     unknown = set(args.runs or ()) - set(runs)
     if unknown:
         raise SystemExit(f"unknown runs {sorted(unknown)}; choose from {sorted(runs)}")
     results = {"card": card, "torch": torch.__version__, "runs": {}}
-    for label, (config, env) in runs.items():
+    for label, (make, env) in runs.items():
         if args.runs and label not in args.runs:
             continue
         with environ(env):
-            r = profile_config(heur, config, args.top)
+            r = profile_config(make, args.top)
         results["runs"][label] = r
         kern = ", ".join(f"{k} {v['ms']:.2f} ms/{v['launches']}" for k, v in r["port_kernels"].items())
         print(f"[{label}] wall {r['wall_s']:.4f} s, profiled wall {r['profiled_wall_s']:.4f} s, "
               f"device {r['device_ms']:.2f} ms in {r['device_events']} events, busy "
               f"{r['busy_ms']:.2f} ms ({100 * r['busy_share']:.1f}% of the profiled wall); "
-              f"{kern}  ({card})", flush=True)
+              f"{r['steps']} steps, {r['grid_images']} grid + {r['verify_images']} verify "
+              f"images, {r['host_reads_per_step']:.2f} host reads and "
+              f"{r['graph_replays_per_step']:.2f} graph replays a step "
+              f"({r['graph_captures']} captures); {kern}  ({card})", flush=True)
         for line in r["largest"]:
             print(f"[{label}]   {line['ms']:9.3f} ms {line['count']:6d}x  {line['name']}", flush=True)
     if args.ln_fold_trace:

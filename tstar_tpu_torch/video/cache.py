@@ -31,6 +31,13 @@ logger = logging.getLogger(__name__)
 DEFAULT_BUDGET_BYTES = 6 * 1024 ** 3
 # Left free for detector weights (~0.3 GB bf16 at B/32) and activations.
 DEVICE_RESERVE_BYTES = 4 * 1024 ** 3
+# Step workspace of one more video in a batched search (its grid canvas and
+# activations in the flat forward, and its share of the step graphs' pool).
+PER_VIDEO_WORKSPACE_BYTES = 128 * 1024 ** 2
+# Copies of a bucket's caches alive at once: the stacked cache beside the
+# per-video ones while it is assembled, or beside the next bucket's
+# prefetched caches while it searches.
+BUCKET_CACHE_COPIES = 2
 
 
 def device_budget_bytes(device) -> int:
@@ -40,6 +47,25 @@ def device_budget_bytes(device) -> int:
         free, _total = torch.cuda.mem_get_info(device)
         return max(0, int(free) - DEVICE_RESERVE_BYTES)
     return DEFAULT_BUDGET_BYTES
+
+
+def per_video_hbm_budget(
+    bucket_size: int, device=None, total_bytes: Optional[int] = None
+) -> int:
+    """Frame-cache bytes each video of a ``bucket_size``-video batched search
+    may take on ``device``: the device's free memory
+    (``torch.cuda.mem_get_info``, or ``total_bytes``) less a reserve for the
+    weights and each video's step workspace, divided by ``bucket_size *
+    BUCKET_CACHE_COPIES``, at most ``DEFAULT_BUDGET_BYTES`` (also the budget
+    on a CPU device without ``total_bytes``).
+    """
+    if total_bytes is None:
+        if device is None or torch.device(device).type != "cuda":
+            return DEFAULT_BUDGET_BYTES
+        total_bytes = int(torch.cuda.mem_get_info(device)[0])
+    reserve = DEVICE_RESERVE_BYTES + bucket_size * PER_VIDEO_WORKSPACE_BYTES
+    usable = max(total_bytes - reserve, total_bytes // 4)
+    return int(min(DEFAULT_BUDGET_BYTES, usable // (bucket_size * BUCKET_CACHE_COPIES)))
 
 
 @dataclasses.dataclass(frozen=True)

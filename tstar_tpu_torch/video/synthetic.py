@@ -102,3 +102,19 @@ def default_scene(duration_sec: float = 600.0, **kw) -> SyntheticDecoder:
         PlantedObject("tv", (380.0, 430.0), (40, 40, 200), (0.3, 0.75), 0.25),
     ]
     return SyntheticDecoder(duration_sec, objects=objects, **kw)
+
+
+def scene_variant(i: int, duration_sec: float = 600.0, **kw) -> SyntheticDecoder:
+    """The i-th of a set of distinct videos: ``default_scene``'s objects
+    moved ``53 * i`` seconds later (wrapping at the end) and, for odd i,
+    mirrored left to right.  ``scene_variant(0)`` is ``default_scene``."""
+    shift = 53.0 * i
+    objects = []
+    for o in default_scene(duration_sec).objects:
+        start = (o.interval[0] + shift) % duration_sec
+        end = min(start + o.interval[1] - o.interval[0], duration_sec)
+        y, x = o.position
+        objects.append(dataclasses.replace(
+            o, interval=(start, end), position=(y, 1.0 - x if i % 2 else x)
+        ))
+    return SyntheticDecoder(duration_sec, objects=objects, **kw)
