@@ -67,6 +67,22 @@ Phases (any failed check exits non-zero and prints no result line):
      ``torch.cuda.set_sync_debug_mode("error")`` (the driver's two reads a
      step aside); and under ``TSTAR_GRID_EMBED=1`` K6's gate opens at the
      batch of 8 (K6 once per grid forward, K2 only in verification).
+  9. the VLM stages (grounding and QA): (a) LLaVA-OneVision at 7B's widths
+     (SigLIP so400m 1152 x 27, Qwen2-7B 3584 x 28, vocabulary 152064; 8.0 B
+     parameters seeded on the card in bf16) answers one multiple-choice
+     question over 8 frames of a synthetic video through
+     ``prepare_llava_inputs`` -> ``generate`` (30 new tokens, greedy),
+     decoding through a CUDA graph and eagerly (equal tokens); a second
+     request of the same bucket captures nothing; K3 launches 54 times a
+     request (two LayerNorms in each of SigLIP's 27 layers) and no other
+     kernel; a decode replay raises nothing under the sync debug mode;
+     SigLIP, prefill and decode times beside their data-sheet bounds, the
+     request's seconds and peak memory; (b) at full widths and reduced depth
+     (2 + 2 layers, 2 frames) LLaVA-OneVision's and Qwen2-VL's next-token
+     logits in bf16 on the card against the same weights in f32 on the CPU;
+     (c) a tiny checkpoint of each family written by this script, loaded
+     through ``UniversalGrounder`` on the card and on the CPU in f32: equal
+     QA, grounding and batched QA strings at temperature 0.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
@@ -79,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -260,9 +277,11 @@ def kernel_cases(torch):
     ))
 
     # K3.  577 / 8x577 / 16x577 rows of the vision tower, 256 of the text
-    # tower, 2 x 37 of phase 4d's SigLIP-width layer (rows read twice in
-    # bf16); scale and bias in x's dtype, as the towers hold them.
-    for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512), (74, 1152)):
+    # tower, 2 x 37 of phase 4d's SigLIP-width layer and 8 x 729 of phase
+    # 9's SigLIP over eight frames (rows read twice in bf16); scale and bias
+    # in x's dtype, as the towers hold them.
+    for rows, d in ((577, 768), (8 * 577, 768), (16 * 577, 768), (256, 512), (74, 1152),
+                    (8 * 729, 1152)):
         base = torch.randn(rows, d, generator=g, device=dev) * 3 + 1
         s = torch.randn(d, generator=g, device=dev)
         bias = torch.randn(d, generator=g, device=dev)
@@ -1195,6 +1214,339 @@ def phase_batched(torch, card, heur):
     return counts, k6
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the VLM stages
+# ---------------------------------------------------------------------------
+
+QA_QUESTION = "What color is the couch in the video?"
+QA_OPTIONS = "A) red\nB) blue\nC) green\nD) yellow"
+
+
+def byte_tokenizer(directory: str, special: Optional[Dict[str, int]] = None):
+    """A byte-level Qwen tokenizer (``write_byte_vocab``): the repo ships
+    no vocabulary."""
+    from tstar_tpu_torch.models.qwen_tokenizer import QwenTokenizer, write_byte_vocab
+
+    write_byte_vocab(directory, special)
+    return QwenTokenizer.from_dir(directory)
+
+
+def to_device(torch, inp, dev):
+    """``prepare_*_inputs``' host arrays -> ``prefill``'s tensors on ``dev``."""
+    out = {k: torch.as_tensor(inp[k], dtype=torch.int64).to(dev)
+           for k in ("input_ids", "prompt_lens", "position_ids")}
+    out["image_patches"] = (None if inp["image_patches"] is None
+                            else torch.from_numpy(inp["image_patches"]).to(dev))
+    return out
+
+
+def vlm_work(model, frames: int, prompt: int, new: int):
+    """(SigLIP ops, prefill ops, decode bytes a token) that LLaVA-OneVision
+    needs for ``frames`` frames, a ``prompt``-token prompt and ``new``
+    tokens: every product's multiply-adds (x2), causal attention counted on
+    its lower triangle; a decode step reads the language model's weights
+    (one row of the embedding table) and the cache so far, once."""
+    cfg = model.cfg
+    v, t = cfg.vision, cfg.text
+    p = v.num_patches
+    rows = frames * p
+    d, i = v.hidden_size, v.intermediate_size
+    siglip = 2 * rows * (v.patch_size ** 2 * 3) * d + v.num_layers * (
+        2 * rows * (4 * d * d + 2 * d * i) + 4 * frames * p * p * d)
+    h, kv = t.hidden_size, t.num_kv_heads * t.head_dim
+    layer = 2 * prompt * (2 * h * h + 2 * h * kv + 3 * h * t.intermediate_size)
+    attn = 2 * prompt * (prompt + 1) * h
+    proj = 2 * rows * (d * h + h * h)
+    prefill = siglip + proj + t.num_layers * (layer + attn) + 2 * h * t.vocab_size
+    lm = sum(prm.numel() for name, prm in model.named_parameters()
+             if not name.startswith(("vision_tower", "projector", "image_newline", "embed_tokens")))
+    es = model.dtype.itemsize
+    cache = t.num_layers * 2 * (prompt + new) * kv * es
+    return siglip, prefill, (lm + h) * es + cache
+
+
+def vlm_full_width(torch, card):
+    """Phase 9a: one QA request at LLaVA-OneVision-7B's widths, bf16, with
+    graphs and eager; a second request of the same bucket, sent through
+    ``UniversalGrounder.inference_qa`` on the same model; K3 54 times a
+    request, no other kernel; a replay under the sync debug mode."""
+    import tempfile
+
+    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.generate import GenerateStats, generate
+    from tstar_tpu_torch.models.llava_onevision import (
+        LlavaOnevisionConfig, LlavaOnevisionModel, prepare_llava_inputs,
+    )
+    from tstar_tpu_torch.models.qwen2vl import random_model
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
+
+    cfg = LlavaOnevisionConfig()
+    t0 = time.perf_counter()
+    model = random_model(LlavaOnevisionModel, cfg, torch.bfloat16, "cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[vlm] LLaVA-OneVision at 7B widths (SigLIP 1152 x 27, Qwen2 3584 x 28, vocab "
+        f"{cfg.text.vocab_size}): {n_params / 1e9:.3f} B parameters, "
+        f"{n_params * 2 / 1e9:.2f} GB bf16, seeded on the card in {time.perf_counter() - t0:.2f} s "
+        f"({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = byte_tokenizer(tmp)
+    prompt = build_qa_prompt(QA_QUESTION, QA_OPTIONS, 8)
+    eos = [tok.eos_id, tok.pad_id]
+
+    def request(decoder, graphs, stats):
+        """One QA request as the grounder makes it -> (tokens, seconds, inputs)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = load_video_frames("mem://scene", 8, decoder=decoder)
+        inp = prepare_llava_inputs(tok, prompt, frames, cfg)
+        out = generate(model, inp["input_ids"], inp["prompt_lens"], inp["position_ids"],
+                       max_new_tokens=30, eos_token_ids=eos, temperature=0.0,
+                       image_patches=inp["image_patches"], graphs=graphs, stats=stats).tolist()
+        return out, time.perf_counter() - t, inp
+
+    stats = GenerateStats(timed=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    graph_tokens, first_s, inp = request(default_scene(600.0), None, stats)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eager = GenerateStats(timed=True)
+    eager_tokens, eager_s, _ = request(default_scene(600.0), False, eager)
+    captures = stats.captures
+    # the second request of the bucket goes in as a user's does: the
+    # grounder's inference_qa -> the backend (its own stats and decode)
+    backend = TorchVLMBackend.from_model(model, tok)
+    backend.stats = GenerateStats(timed=True)
+    grounder = UniversalGrounder("llava-onevision-7b", backend=backend)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reset_launch_counts()
+    frames2 = load_video_frames("mem://scene", 8, decoder=scene_variant(3))
+    answer = grounder.inference_qa(frames2, QA_QUESTION, QA_OPTIONS, temperature=0.0)
+    second_counts = launch_counts()
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t
+    inp2 = prepare_llava_inputs(tok, prompt, frames2, cfg)
+    s = int(inp["prompt_lens"][0])
+    others = {k: v for c in (counts, second_counts) for k, v in c.items()
+              if k != "fused_layernorm" and v}
+    ok = (graph_tokens == eager_tokens and captures == 1 and backend.stats.captures == 0
+          and backend.stats.replays >= 1 and isinstance(answer, str)
+          and counts["fused_layernorm"] == 54 == second_counts["fused_layernorm"] and not others
+          and len(graph_tokens[0]) == 30 and int(inp2["prompt_lens"][0]) == s)
+    stats = backend.stats
+    log(f"[vlm] QA request, 8 frames of a synthetic 600 s video, prompt {s} tokens "
+        f"({8 * cfg.tokens_per_frame + 1} video), 30 new tokens, greedy: graph tokens == eager "
+        f"tokens: {graph_tokens == eager_tokens} ({graph_tokens[0][:6]}...); captures: first "
+        f"request {captures}, second request of the bucket (UniversalGrounder.inference_qa, "
+        f"answer {answer[:24]!r}) {stats.captures}; K3 launches {counts['fused_layernorm']} / "
+        f"{second_counts['fused_layernorm']} a request (want 54), other kernels "
+        f"{others or 'none'} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 9a: the full-width VLM request failed its checks")
+
+    # a replay synchronizes nothing (the flag read is outside it)
+    (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bucket.run_step(GenerateStats())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[vlm] a decode replay raised nothing under torch.cuda.set_sync_debug_mode('error') OK")
+
+    # times: SigLIP alone, and the prefill / decode of the second request
+    dev = to_device(torch, inp2, "cuda")
+    pixels = dev["image_patches"]
+    siglip_ms = cuda_ms(lambda: model.vision_tower(pixels), iters=5, warmup=1)
+    siglip_ops, prefill_ops, step_bytes = vlm_work(model, 8, s, 30)
+    prefill_ms, decode_ms = stats.prefill_ms[-1], stats.decode_ms[-1]
+    steps = 29
+    tok_s = steps / (decode_ms / 1e3)
+    b_siglip = siglip_ops / PEAK_OPS_PER_S["bf16"] * 1e3
+    b_prefill = prefill_ops / PEAK_OPS_PER_S["bf16"] * 1e3
+    b_step = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[vlm] SigLIP (8 frames, 5832 x 1152) {siglip_ms:.3f} ms (bound {b_siglip:.3f} ms, "
+        f"{siglip_ops / 1e12:.3f} TFLOP); prefill {prefill_ms:.3f} ms = "
+        f"{s / prefill_ms * 1e3:.1f} prompt tokens/s (bound {b_prefill:.3f} ms, "
+        f"{prefill_ops / 1e12:.3f} TFLOP); decode {decode_ms:.3f} ms for {steps} steps = "
+        f"{tok_s:.1f} tokens/s per sequence, {decode_ms / steps:.3f} ms a token (bound "
+        f"{b_step:.3f} ms: {step_bytes / 1e9:.2f} GB a token; {1e3 / b_step:.1f} tokens/s); "
+        f"request {second_s:.4f} s (bound {(b_prefill + steps * b_step) / 1e3:.4f} s: prefill "
+        f"and decode; first, capturing: {first_s:.4f} s; eager: {eager_s:.4f} s, eager decode "
+        f"{eager.decode_ms[-1]:.3f} ms); graph captures {captures + stats.captures} (one "
+        f"bucket: 1), replays {stats.replays}, host reads {stats.flag_reads} in "
+        f"{stats.decode_steps} steps of the grounder's request; "
+        f"peak memory {peak / 1e9:.2f} GB (weights {n_params * 2 / 1e9:.2f} GB) ({card})")
+    row = {"siglip_ms": siglip_ms, "siglip_bound_ms": b_siglip, "prefill_ms": prefill_ms,
+           "prefill_bound_ms": b_prefill, "prefill_tokens_per_s": s / prefill_ms * 1e3,
+           "decode_ms_per_token": decode_ms / steps, "decode_bound_ms_per_token": b_step,
+           "decode_tokens_per_s": tok_s, "request_s": second_s, "first_request_s": first_s,
+           "eager_request_s": eager_s, "eager_decode_ms": eager.decode_ms[-1],
+           "request_bound_s": (b_prefill + steps * b_step) / 1e3,
+           "captures": captures + stats.captures, "peak_gb": peak / 1e9,
+           "prompt_tokens": s, "k3_launches_per_request": counts["fused_layernorm"]}
+    del model, bucket, dev, pixels, backend, grounder
+    gc.collect()              # the model and its decode buckets refer to each other
+    torch.cuda.empty_cache()
+    return row
+
+
+def vlm_numerics(torch, card):
+    """Phase 9b: full widths at reduced depth (2 vision and 2 decoder layers,
+    2 frames): the prefill's next-token logits in bf16 on the card against the
+    same weights in f32 on the CPU, for LLaVA-OneVision and Qwen2-VL."""
+    import tempfile
+
+    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
+    from tstar_tpu_torch.models.generate import bucket_len, prefill
+    from tstar_tpu_torch.models.llava_onevision import (
+        LlavaOnevisionConfig, LlavaOnevisionModel, prepare_llava_inputs,
+    )
+    from tstar_tpu_torch.models.qwen2vl import Qwen2VLConfig, Qwen2VLModel, random_model
+    from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = byte_tokenizer(tmp)
+    frames = load_video_frames("mem://scene", 2, decoder=default_scene(600.0))
+    prompt = build_qa_prompt(QA_QUESTION, QA_OPTIONS, 2)
+    llava = LlavaOnevisionConfig()
+    llava = dataclasses.replace(llava, vision=dataclasses.replace(llava.vision, num_layers=2),
+                                text=dataclasses.replace(llava.text, num_layers=2))
+    qwen = Qwen2VLConfig()
+    qwen = dataclasses.replace(qwen, vision=dataclasses.replace(qwen.vision, depth=2),
+                               text=dataclasses.replace(qwen.text, num_layers=2))
+    runs = {
+        "LLaVA-OneVision (SigLIP 1152, Qwen2 3584)": (
+            LlavaOnevisionModel, llava, prepare_llava_inputs(tok, prompt, frames, llava)),
+        "Qwen2-VL (vision 1280, Qwen2 3584)": (
+            Qwen2VLModel, qwen, prepare_vlm_inputs(tok, prompt, frames, qwen.vision)),
+    }
+    # bf16 keeps 8 significant bits (unit roundoff 2^-9 ~ 2e-3).  From the
+    # pixels to the logits a value is rounded at ~20 points in series (2 x 6
+    # in the vision layers, projector or merger, pooling, 2 x 7 in the
+    # decoder layers, the final norm, the LM head), each adding a relative
+    # error of up to 2^-9 of the value it rounds; summed in quadrature over a
+    # few thousand random-signed terms per product that stays ~sqrt(20) x
+    # 2^-9 ~ 1e-2 of the signal's scale, and the worst of 152k logits sits
+    # some 4 sigma out: 4e-2 of the largest logit, rounded up to 5e-2.
+    tol = 5e-2
+    for label, (cls, cfg, inp) in runs.items():
+        gpu = random_model(cls, cfg, torch.float32, "cuda", seed=1)
+        with torch.device("meta"):
+            cpu = cls(cfg)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+        gpu = gpu.to(torch.bfloat16)
+        max_len = bucket_len(int(inp["prompt_lens"][0]) + 1)
+        grid = inp["image_grid_hw"]
+        want, _ = prefill(cpu.eval(), *to_device(torch, inp, "cpu").values(), grid, max_len)
+        got, _ = prefill(gpu, *to_device(torch, inp, "cuda").values(), grid, max_len)
+        got = got.float().cpu()
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        rel = ((got - want).norm() / want.norm()).item()
+        top = bool(got.argmax() == want.argmax())
+        ok = diff <= tol * scale and bool(got.isfinite().all()) and got.shape == want.shape
+        log(f"[vlm numerics] {label}, 2 + 2 layers, 2 frames, prompt {int(inp['prompt_lens'][0])} "
+            f"tokens: next-token logits cuda-bf16 vs cpu-f32 max |diff| {diff:.4e} (tol "
+            f"{tol:.0e} x max |ref| = {tol * scale:.4e}), relative L2 {rel:.3e}, same argmax "
+            f"{top} {'OK' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise SystemExit(f"phase 9b: {label} on the card disagrees with the CPU")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+
+def vlm_facade(torch, card):
+    """Phase 9c: a tiny checkpoint of each family written here (config.json,
+    byte vocabulary, model.safetensors), loaded through ``UniversalGrounder``
+    onto the card and onto the CPU in f32: at temperature 0 the QA, grounding
+    and (Qwen2-VL) batched QA strings agree, and the batch equals the serial
+    calls."""
+    import tempfile
+
+    import numpy as np
+
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionConfig, LlavaOnevisionModel
+    from tstar_tpu_torch.models.loader import save_vlm_checkpoint
+    from tstar_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLModel, Qwen2VLTextConfig, Qwen2VLVisionConfig, init_random_,
+    )
+    from tstar_tpu_torch.models.qwen_tokenizer import SPECIAL_TOKENS
+    from tstar_tpu_torch.models.siglip import SiglipVisionConfig
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    special = {t: 256 + i for i, t in enumerate(SPECIAL_TOKENS)}
+    text = dict(vocab_size=300, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
+                intermediate_size=64, rope_theta=10000.0)
+    models = {
+        "qwen": Qwen2VLModel(Qwen2VLConfig(
+            vision=Qwen2VLVisionConfig(depth=2, embed_dim=16, num_heads=2, mlp_ratio=2.0,
+                                       hidden_size=32),
+            text=Qwen2VLTextConfig(**text, mrope_section=(1, 1, 2)),
+            image_token_id=special["<|image_pad|>"], video_token_id=special["<|video_pad|>"],
+            vision_start_token_id=special["<|vision_start|>"])),
+        "llava": LlavaOnevisionModel(LlavaOnevisionConfig(
+            vision=SiglipVisionConfig(hidden_size=16, num_layers=2, num_heads=2,
+                                      intermediate_size=32, patch_size=2, image_size=8),
+            text=Qwen2VLTextConfig(**text, mrope_section=(4, 0, 0)),
+            image_token_id=264, video_token_id=265)),
+    }
+    scene = default_scene(600.0)
+    rng = np.random.default_rng(0)
+    items = [{"frames": [rng.integers(0, 256, (360, 640, 3), np.uint8) for _ in range(2)],
+              "question": f"What {'is it ' * i}?", "options": QA_OPTIONS} for i in range(4)]
+    for family, model in models.items():
+        init_random_(model, torch.Generator().manual_seed(3))
+        with tempfile.TemporaryDirectory() as d:
+            save_vlm_checkpoint(model, d)
+            byte_tokenizer(d, special)
+            answers = {}
+            for device in ("cuda", "cpu"):
+                g = UniversalGrounder(f"{family}-tiny", model_path=d, device=device,
+                                      dtype=torch.float32)
+                g.backend.max_pixels = 56 * 56
+                try:
+                    grounding = g.inference_query_grounding(
+                        "mem://scene", QA_QUESTION, QA_OPTIONS, temperature=0.0, max_tokens=32,
+                        decoder=scene)
+                except ValueError as e:          # the 2-line parse, after its re-prompt
+                    grounding = f"{type(e).__name__}: {e}"
+                qa = g.inference_qa(items[0]["frames"], QA_QUESTION, QA_OPTIONS, temperature=0.0)
+                serial = [g.inference_qa(it["frames"], it["question"], it["options"],
+                                         temperature=0.0) for it in items]
+                batch = g.inference_qa_batch(items, temperature=0.0)
+                answers[device] = (qa, grounding, serial, batch)
+        a = answers["cuda"]
+        ok = a == answers["cpu"] and a[2] == a[3]
+        log(f"[vlm facade] {family}: checkpoint written and loaded through UniversalGrounder; "
+            f"cuda == cpu (f32, temperature 0) for QA {a[0]!r}, grounding {str(a[1])[:60]!r}..., "
+            f"QA batch of 4: {ok and a == answers['cpu']}; batch == serial: {a[2] == a[3]} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 9c: the {family} grounder on the card differs from the CPU")
+
+
+def phase_vlm(torch, card):
+    """Phase 9: the VLM stages (a) at full width, (b) numerics, (c) the facade."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        row = vlm_full_width(torch, card)
+        vlm_numerics(torch, card)
+        vlm_facade(torch, card)
+    log(f"[vlm] phase 9 wall {time.perf_counter() - t0:.1f} s ({card})")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1223,6 +1575,10 @@ def main() -> int:
     routes = phase_routes(torch, card, heur)
     phase_k6_trace(torch, card, heur)
     batched_counts, batched_k6 = phase_batched(torch, card, heur)
+    del heur
+    torch.cuda.empty_cache()
+    vlm = phase_vlm(torch, card)
+    log("[vlm] " + json.dumps(vlm))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -1271,7 +1627,13 @@ def main() -> int:
             "shape": f"{main_row['shape']} {main_row['dtype']}",
             # phase 8's B=8 search (K6: under TSTAR_GRID_EMBED=1)
             "launches_batched": (batched_k6 if k == "K6" else batched_counts)[name],
+            # phase 9's full-width QA request: K3 in SigLIP, no other kernel
+            "launches_vlm_request": vlm["k3_launches_per_request"] if k == "K3" else 0,
         })
+        if k == "K3":
+            sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
+            kernels[-1]["vlm_row"] = {key: sig[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

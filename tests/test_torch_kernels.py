@@ -179,22 +179,36 @@ def _imported_modules(tree):
                 yield node.args[0].value.split(".")[0]
 
 
+# Nothing the card's machine lacks: JAX and the JAX package (the port stands
+# alone), Triton (every kernel is CUDA C++), and the reference's host
+# libraries (``regex``, ``cv2``, ``safetensors``, ``transformers``).
+FORBIDDEN_IMPORTS = {"jax", "flax", "tstar_tpu", "regex", "cv2", "safetensors", "transformers",
+                     "triton"}
+
+
 def test_no_port_module_imports_triton():
-    """Every kernel of the port is CUDA C++ in the kernel library: no file
-    under ``tstar_tpu_torch/`` imports ``triton`` (AST scan)."""
+    """No file under ``tstar_tpu_torch/`` and not ``chip_smoke.py`` imports a
+    module of ``FORBIDDEN_IMPORTS`` (AST scan, imports inside functions
+    included)."""
     import ast
     from pathlib import Path
 
     import tstar_tpu_torch
 
     root = Path(tstar_tpu_torch.__file__).parent
-    files = sorted(root.rglob("*.py"))
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:
         mods = set(_imported_modules(ast.parse(path.read_text(), str(path))))
-        assert "triton" not in mods, f"{path.relative_to(root)} imports triton"
-    # the scan sees a function-level import as well
-    assert "triton" in set(_imported_modules(ast.parse("def f():\n    import triton.language\n")))
+        bad = mods & FORBIDDEN_IMPORTS
+        assert not bad, f"{path.relative_to(root.parent)} imports {sorted(bad)}"
+    # the scan sees function-level and dotted imports, and each name
+    for src in ("def f():\n    import triton.language\n", "import regex as re\n",
+                "from cv2 import resize\n", "import importlib\nimportlib.import_module('safetensors.torch')\n",
+                "def g():\n    from transformers import AutoModel\n", "import jax.numpy\n",
+                "from flax import linen\n", "from tstar_tpu.models import qwen2vl\n"):
+        assert set(_imported_modules(ast.parse(src))) & FORBIDDEN_IMPORTS, src
+    assert not set(_imported_modules(ast.parse("import re\nimport tstar_tpu_torch\n"))) & FORBIDDEN_IMPORTS
 
 
 def test_cpu_wrappers_run_the_plain_versions():

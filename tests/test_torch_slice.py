@@ -278,16 +278,25 @@ PORT_MODULES = [
     "tstar_tpu_torch.framework", "tstar_tpu_torch.tools.profile_search",
     "tstar_tpu_torch.search.step_graphs", "tstar_tpu_torch.parallel",
     "tstar_tpu_torch.parallel.batched", "tstar_tpu_torch.parallel.multi_video", "chip_smoke",
+    "tstar_tpu_torch.models.siglip", "tstar_tpu_torch.models.qwen2vl",
+    "tstar_tpu_torch.models.llava_onevision", "tstar_tpu_torch.models.generate",
+    "tstar_tpu_torch.models.qwen_tokenizer", "tstar_tpu_torch.models.qwen2vl_processor",
+    "tstar_tpu_torch.models.loader", "tstar_tpu_torch.models.convert",
+    "tstar_tpu_torch.grounding", "tstar_tpu_torch.grounding.vlm_backend",
+    "tstar_tpu_torch.utils.images", "tstar_tpu_torch.tools.profile_vlm",
 ]
 
 
 def test_port_imports_no_jax():
     """The port package, every slice module and ``chip_smoke`` (imported, not
-    run) load without JAX, flax, triton or any module of the JAX package."""
+    run) load without JAX, flax, triton, any module of the JAX package, or
+    the packages the card's machine lacks (regex, cv2, safetensors,
+    transformers)."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'triton', 'tstar_tpu')\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'triton', 'tstar_tpu', 'regex',\n"
+        "       'cv2', 'safetensors', 'transformers')\n"
         "       or m.startswith('tstar_tpu.')]\n"
         "assert not bad, bad\n"
     )

@@ -11,6 +11,12 @@ batched multi-video search, both stepping through CUDA graphs on the card
       -> resident FrameCache
     parallel.search_videos -> run_search_batched_auto -> stacked OwlVitScorer
 
+and the VLM stages, grounding and QA, from a local checkpoint, decoding
+through a CUDA graph on the card (``models/generate.py``):
+
+    grounding.UniversalGrounder("llava..." | "qwen...", model_path=dir)
+      -> TorchVLMBackend -> prepare_*_inputs -> generate
+
 Every Pallas kernel on that path has a hand-written Hopper kernel beside a
 plain PyTorch version of the same math (``kernels/``).  On a CPU tensor a
 kernel wrapper runs the plain version; on a CUDA tensor it launches the

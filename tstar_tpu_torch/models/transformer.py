@@ -26,6 +26,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from tstar_tpu_torch.kernels.attention import (
     HEAD_DIM,
@@ -48,7 +49,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-ACTIVATIONS: Dict[str, Callable] = {"quick_gelu": quick_gelu}
+ACTIVATIONS: Dict[str, Callable] = {
+    "quick_gelu": quick_gelu,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+}
 
 
 class Dense(nn.Module):

@@ -77,7 +77,7 @@ def _use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
     if graphs is None:
         return device.type == "cuda"
     if graphs and device.type != "cuda":
-        raise ValueError(f"CUDA graphs need a CUDA device, the search is on {device}")
+        raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
     return bool(graphs)
 
 

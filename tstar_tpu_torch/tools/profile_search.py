@@ -90,6 +90,20 @@ def _busy_ms(intervals):
     return total / 1e6
 
 
+def device_events(prof):
+    """A profile's device events -> ({kernel name: [ms, launches]}, their
+    (start, end) intervals in ns)."""
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[e.name()][0] += e.duration_ns() / 1e6
+        by_name[e.name()][1] += 1
+        intervals.append((e.start_ns(), e.end_ns()))
+    return by_name, intervals
+
+
 def _single(heur, config, graphs):
     """-> make(seed): a callable running one ``KeyframeSearcher.search()``
     (the searcher built outside it) and returning its ``StepStats``."""
@@ -151,14 +165,7 @@ def profile_config(make, top):
         go()
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    intervals = []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        by_name[e.name()][0] += e.duration_ns() / 1e6
-        by_name[e.name()][1] += 1
-        intervals.append((e.start_ns(), e.end_ns()))
+    by_name, intervals = device_events(prof)
     device_ms = sum(v[0] for v in by_name.values())
     port = {}
     for label, frag in PORT_KERNELS.items():
