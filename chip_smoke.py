@@ -83,11 +83,40 @@ Phases (any failed check exits non-zero and prints no result line):
      (c) a tiny checkpoint of each family written by this script, loaded
      through ``UniversalGrounder`` on the card and on the CPU in f32: equal
      QA, grounding and batched QA strings at temperature 0.
+  10. YOLO-World and the checkpoints: (a) the class-aware NMS kernel
+     (``csrc/nms.cu``) against its plain version at N = 8,400 anchors, 80
+     classes, tied scores, B = 1 and 8 (one image all below the score
+     threshold) and with as many slots as boxes: ``keep`` and ``valid``
+     equal, then ``postprocess_yolo`` through each (equal at the valid
+     slots), the kernel's time, plain time and bound, its registers and
+     spills; (b) ``initialize_heuristic('yolo-world-random', size='xl')``
+     (72,886,361 + 63,396,864 parameters) in bf16, its folded BN scales set
+     for unit variance on the scene (``profile_search.calibrated_yolo_xl``:
+     at the seeded init every anchor scores 0.5000 and every class and NMS
+     decision is a tie): the forward at B = 1 and
+     8 beside its bound, then ``KeyframeSearcher`` on the synthetic 600 s
+     video stepped through graphs equal to the eager search, K3 25 times a
+     search (the prompts' text encode, counted from the scorer's build), the
+     NMS kernel once a forward and no other kernel; (c) ``search_videos``
+     over ``scene_variant(0..7)`` in one bucket of B = 8, each video's
+     keyframes and iterations against its single-video search in bf16
+     (where they part, the script says how many, shows the cause by
+     counting the convolutions whose bits for one image depend on the
+     batch, and then holds the batched search to the single ones in f32;
+     a difference the convolutions do not explain fails); (d) ``yoloworld_small`` bf16 on the card against
+     f32 on the CPU within a derived tolerance, then the small search in f32
+     with replayed noise, card against CPU, the same keyframes; (e) an
+     mmyolo ``.pth`` of the XL model and an HF OWL-ViT B/32 directory,
+     written here with CLIP vocabulary files, loaded through
+     ``initialize_heuristic('yolo-world' | 'owl-vit', checkpoint_dir=...)``:
+     outputs equal to the written model's, the OWL-ViT search equal to
+     ``owl-vit-random``'s with the same weights and tokenizer.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
-The second-to-last line is a JSON object of per-kernel results; the last is
+The second-to-last line is a JSON object of per-kernel results (K1-K8 with
+their launches in phase 10b's YOLO search, and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -109,7 +138,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 KERNELS = ("fused_mha_from_qkv", "patch_embed_matmul", "fused_layernorm", "w8a8_matmul",
-           "ln_matmul", "grid_cell_embed", "build_detector_grid_pallas", "flash_mha")
+           "ln_matmul", "grid_cell_embed", "build_detector_grid_pallas", "flash_mha",
+           "greedy_nms")
 
 
 def launches(**per_forward):
@@ -430,6 +460,27 @@ def kernel_cases(torch):
     return cases
 
 
+def ptxas_props():
+    """ptxas -v of the built library: {kernel: {"registers", "spills"}}."""
+    import re
+
+    from tstar_tpu_torch.kernels import _build
+
+    props, current = {}, None
+    for line in _build.ptxas_report(_build.library_path()).read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            props.setdefault(current, {})["spills"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            props.setdefault(current, {})["registers"] = int(m.group(1))
+    return props
+
+
 def phase_build(torch):
     """Phase 2: build the kernels; the bf16 attention kernels must run on
     wgmma and TMA (their SASS holds HGMMA and UTMALDG), K4 on integer wgmma
@@ -453,18 +504,7 @@ def phase_build(torch):
     for chunk in sass.split("Function : ")[1:]:
         name, _, body = chunk.partition("\n")
         bodies[name.strip()] = body
-    props, current = {}, None      # ptxas -v: registers and spills per kernel
-    for line in _build.ptxas_report(path).read_text().splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            current = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and current:
-            props.setdefault(current, {})["spills"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            props.setdefault(current, {})["registers"] = int(m.group(1))
+    props = ptxas_props()
     def sass_check(name, label, ops):
         """SASS counts of ``ops`` (each must occur) and ptxas's spills (0)."""
         body, prop = bodies[name], props.get(name, {})
@@ -1547,6 +1587,533 @@ def phase_vlm(torch, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: YOLO-World v2-XL, the NMS kernel, checkpoints
+# ---------------------------------------------------------------------------
+
+YOLO_TARGETS, YOLO_CUES = ["couch", "lamp"], ["tv"]
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def nms_inputs(torch, b, n=8400, classes=80, seed=0, threshold=0.12):
+    """Seeded boxes on a 640^2 canvas, 80 classes, scores on 20 levels (so
+    ties), thresholded as ``postprocess_yolo`` does; image 1 of a batch has
+    every score at or below the threshold."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cxy = torch.rand(b, n, 2, generator=g, device="cuda") * 640
+    wh = torch.rand(b, n, 2, generator=g, device="cuda") * 120 + 8
+    boxes = torch.cat([cxy - wh / 2, cxy + wh / 2], dim=-1)
+    cls = torch.randint(0, classes, (b, n), generator=g, device="cuda", dtype=torch.int32)
+    scores = torch.floor(torch.rand(b, n, generator=g, device="cuda") * 20) / 20
+    if b > 1:
+        scores[1] *= threshold
+    return boxes, torch.where(scores > threshold, scores, torch.zeros_like(scores)), cls
+
+
+def nms_needed_ious(torch, order, keep, valid, n, max_out):
+    """The IoUs the greedy loop needs on these inputs: each survivor's
+    against the rows after it, up to the last row the loop had to reach (the
+    max_out-th survivor, else the last row)."""
+    rank = torch.argsort(order, dim=1)
+    total = 0
+    for r, k, v in zip(rank, keep.long(), valid):
+        pos = sorted(r[k[v]].tolist())
+        last = pos[-1] if len(pos) == max_out else n - 1
+        total += sum(last - p for p in pos)
+    return total
+
+
+def phase_nms(torch, card):
+    """Phase 10a: the NMS kernel against its plain version on the card, at
+    N = 8,400 (a 640^2 image's anchors), B = 1 and 8; then postprocess_yolo
+    through each.  Returns the summary rows."""
+    from tstar_tpu_torch.kernels import nms as knms
+    from tstar_tpu_torch.models.yoloworld import postprocess_yolo
+    from tstar_tpu_torch.ops import nms as onms
+
+    props = ptxas_props()
+    regs = {k: v for k, v in props.items() if "nms_" in k}
+    for name, p in sorted(regs.items()):
+        log(f"[nms] {name}: {p.get('registers')} registers, {p.get('spills')} bytes spilled")
+    rows = []
+    for b, max_out in ((1, 50), (8, 50), (1, 8400)):
+        boxes, scores, cls = nms_inputs(torch, b)
+        keep_k, valid_k = onms.batched_class_nms(boxes, scores, cls, 0.7, max_out)
+        with patched(onms, "greedy_nms", knms.greedy_nms_plain):
+            keep_p, valid_p = onms.batched_class_nms(boxes, scores, cls, 0.7, max_out)
+        torch.cuda.synchronize()
+        equal = torch.equal(keep_k, keep_p) and torch.equal(valid_k, valid_p)
+        # the kernel alone, on the class-offset boxes and the order it is given
+        span = boxes.amax(dim=(-2, -1), keepdim=True) - boxes.amin(dim=(-2, -1), keepdim=True) + 1
+        off = (boxes + cls.float()[..., None] * span).contiguous()
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        ms = cuda_ms(lambda: knms.greedy_nms(off, order, 0.7, max_out))
+        plain_ms = cuda_ms(lambda: knms.greedy_nms_plain(off, order, 0.7, max_out), iters=2, warmup=1)
+        ious = nms_needed_ious(torch, order, keep_k, valid_k, 8400, max_out)
+        n_bytes = b * 8400 * (16 + 8) + b * max_out * 5
+        b_ms, b_by = bound_ms(n_bytes, 14 * ious, "f32")
+        kept = valid_k.sum(dim=1).tolist()
+        log(f"[nms] B={b} N=8400 80 classes max_outputs={max_out}: keep/valid equal to the plain "
+            f"version: {equal}; kept {kept}; kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"bound={b_ms:.5f} ms ({b_by}: {ious} IoUs needed x 14 f32 ops, {n_bytes / 1e6:.2f} "
+            f"MB) library=none ({card}) {'OK' if equal else 'FAIL'}")
+        if not equal:
+            raise SystemExit(f"NMS kernel B={b} max_outputs={max_out} differs from its plain version")
+        rows.append({"shape": f"B={b} N=8400 max_out={max_out}", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "err": 0.0,
+                     "registers": {k: v.get("registers") for k, v in regs.items()},
+                     "spills": sum(v.get("spills", 0) for v in regs.values())})
+    # postprocess_yolo through the kernel and through the plain version
+    g = torch.Generator(device="cuda").manual_seed(1)
+    logits = torch.randn(8, 8400, 16, generator=g, device="cuda") * 3 - 2
+    boxes, _, _ = nms_inputs(torch, 8, seed=2)
+    mask = torch.arange(16, device="cuda") < 4
+    got = postprocess_yolo(logits, boxes, mask)
+    with patched(onms, "greedy_nms", knms.greedy_nms_plain):
+        want = postprocess_yolo(logits, boxes, mask)
+    v = got[3]
+    same = torch.equal(v, want[3]) and all(torch.equal(a[v], w[v]) for a, w in zip(got[:3], want[:3]))
+    log(f"[nms] postprocess_yolo at B=8 x 8,400 anchors x 16 prompts (4 real): valid, and the "
+        f"scores, classes and boxes at valid slots equal through the kernel and the plain "
+        f"version: {same}; valid slots {v.sum(dim=1).tolist()} {'OK' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("postprocess_yolo differs between the NMS kernel and its plain version")
+    return rows
+
+
+def conv_flops(torch, model, pixels, text):
+    """Multiply-adds x 2 of the detector's convolutions and text products
+    for one forward (forward hooks on every conv; the MaxSigmoid and the
+    contrastive products from their shapes)."""
+    from tstar_tpu_torch.models import yoloworld as yw
+
+    total = [0]
+
+    def conv_hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1] * mod.kernel * mod.kernel
+
+    def attn_hook(mod, inp, out):
+        b, _, h, w = out.shape
+        total[0] += 2 * b * h * w * mod.num_heads * mod.head_c * text.shape[-2]
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules() if isinstance(m, yw.Conv)]
+    hooks += [m.register_forward_hook(attn_hook) for m in model.modules()
+              if isinstance(m, yw.MaxSigmoidAttnBlock)]
+    with torch.no_grad():
+        model(pixels, text)
+    for h in hooks:
+        h.remove()
+    # the contrastive head: (anchors x text_dim) . (text_dim x T) an image
+    c = model.cfg
+    return total[0] + 2 * pixels.shape[0] * c.num_anchors * c.text_dim * text.shape[-2]
+
+
+def yolo_search(torch, heur, config, seed, graphs=None, decoder=None, record=False):
+    """One ``KeyframeSearcher`` over the synthetic 600 s video, every launch
+    count set to 0 before the searcher is built (so its prompts' text
+    encode is counted).  -> (stamps, searcher, stats, counts, wall s)."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.search.engine import run_search as engine_search
+    from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.search.step_graphs import StepStats
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    s = KeyframeSearcher("mem://synthetic-600s", heur, YOLO_TARGETS, YOLO_CUES, search_budget=0.5,
+                         config=config, seed=seed, decoder=decoder or default_scene(600.0))
+    stats = StepStats(record=record)
+    with torch.no_grad():
+        final, secs = engine_search(s._state0, s.scorer, s.config, graphs, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s._final_state, s.step_stats = final, stats
+    return [float(x) for x in secs.tolist()], s, stats, launch_counts(), wall
+
+
+def phase_yolo(torch, card):
+    """Phase 10b: YOLO-World v2-XL at full width, one video (module
+    docstring).  Returns (heuristic, row of numbers, launch counts)."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.tools.profile_search import calibrated_yolo_xl
+
+    t0 = time.perf_counter()
+    heur = calibrated_yolo_xl(torch.bfloat16)
+    torch.cuda.synchronize()
+    n_det = sum(p.numel() for p in heur.model.parameters())
+    n_text = sum(p.numel() for p in heur.text_model.parameters())
+    log(f"[yolo] YOLO-World v2-XL (widths {heur.model.cfg.widths}, depths "
+        f"{heur.model.cfg.depths}, {heur.model.cfg.num_anchors} anchors at 640^2): detector "
+        f"{n_det:,} + text tower {n_text:,} parameters, seeded and BN-calibrated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (n_det, n_text) != (72_886_361, 63_396_864):
+        raise SystemExit("YOLO-World v2-XL: parameter counts differ from the reference's")
+    # the forward alone, B = 1 and 8
+    g = torch.Generator(device="cuda").manual_seed(0)
+    text = torch.nn.functional.normalize(torch.randn(4, 512, generator=g, device="cuda"), dim=-1)
+    fwd = {}
+    for b in (1, 8):
+        px = torch.rand(b, 640, 640, 3, generator=g, device="cuda").to(torch.bfloat16)
+        flops = conv_flops(torch, heur.model, px, text)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: heur.model(px, text), iters=10)
+        b_ms, b_by = bound_ms(n_det * 2 + px.numel() * 2, flops, "bf16")
+        fwd[b] = {"ms": ms, "bound_ms": b_ms, "gflop": flops / 1e9}
+        log(f"[yolo] XL forward B={b} bf16: {ms:.3f} ms ({ms / b:.3f} ms an image) against a "
+            f"bound of {b_ms:.3f} ms ({b_by}: {flops / 1e9:.1f} GFLOP of convolutions and text "
+            f"products) ({card})")
+
+    cfg = SearchConfig(cache_hw=(192, 384))
+    yolo_search(torch, heur, cfg, seed=1)                              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    stamps, s, st, counts, wall = yolo_search(torch, heur, cfg, seed=0, record=True)
+    peak = torch.cuda.max_memory_allocated()
+    e_stamps, _, e_st, e_counts, e_wall = yolo_search(torch, heur, cfg, seed=0, graphs=False,
+                                                      record=True)
+    forwards = st.steps + len(st.verify_widths)
+    per_video = [e["secs"][0].tolist() for e in st.trace]
+    same = stamps == e_stamps and per_video == [e["secs"][0].tolist() for e in e_st.trace]
+    n_text_ln = 2 * heur.text_model.text_cfg.num_layers + 1
+    want = launches(fused_layernorm=0, greedy_nms=1)
+    checks = {
+        "graph-stepped == eager (seconds per iteration, keyframes)": same,
+        "8 keyframes in range": len(stamps) == 8 and all(0 <= x < 600 for x in stamps),
+        "stepped through CUDA graphs": st.replays > 0 and st.host_reads == 2 * st.steps,
+        f"K3 {n_text_ln} a search (the prompts' text encode)":
+            counts["fused_layernorm"] == n_text_ln == e_counts["fused_layernorm"],
+        "NMS once a forward": counts["greedy_nms"] == forwards,
+        "no other kernel": all(counts[k] == 0 for k, n in want.items()
+                               if k not in ("fused_layernorm", "greedy_nms")),
+    }
+    log(f"[yolo] search (graphs): iterations {int(s._final_state.iteration)}, {st.steps} grid "
+        f"forwards (B=1), verify batches {st.verify_widths}; wall {wall:.3f} s (eager "
+        f"{e_wall:.3f} s; both include the scorer's build and prompt encode); peak_mem "
+        f"{peak / 2**20:.1f} MiB; {st.host_reads / st.steps:.2f} host reads, "
+        f"{st.replays / st.steps:.2f} graph replays a step ({st.captures} captures) ({card})")
+    log(f"[yolo] keyframes {stamps}, remaining {s.remaining_targets}; launches {counts}")
+    failed = [k for k, v in checks.items() if not v]
+    log(f"[yolo] checks: {sorted(checks)} {'OK' if not failed else 'FAIL ' + str(failed)}")
+    if failed:
+        raise SystemExit(f"YOLO search checks failed: {failed}")
+    # the anchors that clear the score threshold in a grid forward of the search
+    px = s.scorer._grid_pixels(s.scorer.cache, torch.arange(16, device="cuda") * 37)
+    with torch.no_grad():
+        logits, _ = heur.model(px, s.scorer.text_embeds)
+        probs = torch.sigmoid(torch.where(s.scorer.query_mask, logits, -1e30)).amax(-1)
+    above = int((probs > heur.model.cfg.score_threshold).sum())
+    log(f"[yolo] calibrated random weights: {above} of {logits.shape[1]} anchors clear the 0.12 "
+        f"threshold in "
+        f"a grid forward (probabilities {probs.min().item():.4f} to {probs.max().item():.4f})")
+    # device time by kernel line and the busy share: ``python -m
+    # tstar_tpu_torch.tools.profile_search --runs yolo`` (torch.profiler
+    # imports triton, which this script must not)
+    row = {"forward": fwd, "search_wall_s": wall, "eager_wall_s": e_wall, "peak_mib": peak / 2**20,
+           "grid": st.steps, "verify": st.verify_widths, "anchors_above": above}
+    return heur, row, counts
+
+
+def conv_batch_dependence(torch, model, px, text):
+    """-> (how many of the forward's convolutions give image 0 other bits
+    inside the batch ``px`` than alone on the same input, how many ran, the
+    largest difference of image 0's logits in the batch and alone, and the
+    largest logit)."""
+    from tstar_tpu_torch.models.yoloworld import Conv
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: seen.append((mod, i[0], o)))
+             for m in model.modules() if isinstance(m, Conv)]
+    with torch.no_grad():
+        batch, _ = model(px, text)
+        for h in hooks:
+            h.remove()
+        parted = sum(not torch.equal(mod(x[:1]), o[:1]) for mod, x, o in seen)
+        alone, _ = model(px[:1], text)
+    diff = (batch[:1].float() - alone.float()).abs().max().item()
+    return parted, len(seen), diff, alone.float().abs().max().item()
+
+
+def phase_yolo_batched(torch, card, heur):
+    """Phase 10c: ``search_videos`` over eight distinct videos in one bucket
+    of B = 8 with YOLO-World v2-XL, each video's keyframes held against its
+    single-video search in bf16; where they part, the cause shown (the
+    convolutions whose bits depend on the batch) and the same comparison in
+    f32.  Returns the batched run's launch counts and the dtype held."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.parallel.multi_video import search_videos
+    from tstar_tpu_torch.search.engine import run_search as engine_search
+    from tstar_tpu_torch.search.state import init_state
+    from tstar_tpu_torch.search.step_graphs import StepStats
+    from tstar_tpu_torch.tools.profile_search import calibrated_yolo_xl
+    from tstar_tpu_torch.video.cache import build_frame_cache
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+
+    def compare(h, label):
+        tasks = _batched_tasks()
+        search_videos(_batched_tasks(), h, cfg)                         # warm-up
+        stats = StepStats(record=True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = search_videos(tasks, h, cfg, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        singles, first = [], []
+        for t in tasks:
+            cache = build_frame_cache(t.video_path, cfg, device="cuda", decoder=t.decoder)
+            scorer = h.build_scorer(cache.frames, t.target_objects, t.cue_objects, cfg)
+            with torch.no_grad():       # the first step's grid forward, alone
+                first.append(scorer.score_grid(stats.trace[0]["secs"][len(first)])[0])
+            state = init_state(cache.n_valid, len(t.target_objects), cfg,
+                               torch.Generator(device="cuda").manual_seed(t.seed),
+                               n_pad=cache.n_pad, device="cuda")
+            final, secs = engine_search(state, scorer, cfg)
+            singles.append(([float(x) for x in secs.tolist()], int(final.iteration)))
+            del cache, scorer, state, final
+            gc.collect()
+            torch.cuda.empty_cache()    # the search's graph pool
+        same = [r["keyframe_secs"] == sk and r["iterations"] == it
+                for r, (sk, it) in zip(results, singles)]
+        diff = (stats.trace[0]["conf"].float() - torch.stack(first).float()).abs().max().item()
+        forwards = stats.steps + len(stats.verify_widths)
+        log(f"[{label}] B=8 x 600 s: {stats.steps} grid forwards of 8, {len(stats.verify_widths)} "
+            f"verify forwards of {sorted(set(stats.verify_widths))}; wall {wall:.3f} s; NMS "
+            f"{counts['greedy_nms']} launches ({forwards} forwards), K3 {counts['fused_layernorm']}; "
+            f"the first grid forward's confidences in the batch against each video's own: max "
+            f"|diff| {diff:.3e}; keyframes and iterations equal to each video's single search: "
+            f"{same} ({card})")
+        return all(same), counts, results, singles
+
+    ok, counts, res, singles = compare(heur, "yolo batched bf16")
+    if ok:
+        log("[yolo batched] bf16: every video's batched search equals its single search OK")
+        return counts, "bf16"
+    diff = [(i, r["keyframe_secs"], s[0]) for i, (r, s) in enumerate(zip(res, singles))
+            if r["keyframe_secs"] != s[0]]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    px = torch.rand(8, 640, 640, 3, generator=g, device="cuda").to(torch.bfloat16)
+    text = torch.nn.functional.normalize(torch.randn(4, 512, generator=g, device="cuda"), dim=-1)
+    parted, n_conv, ldiff, lmax = conv_batch_dependence(torch, heur.model, px, text)
+    log(f"[yolo batched] bf16: {len(diff)} of 8 videos' keyframes differ from their single "
+        f"searches, e.g. {diff[:2]}; the cause: {parted} of {n_conv} convolutions of the bf16 XL "
+        f"forward give image 0 other bits in a batch of 8 than alone on the same input (cuDNN "
+        f"picks its algorithm by batch size), and image 0's logits then differ by up to "
+        f"{ldiff:.3e} (largest |logit| {lmax:.3e}) ({card})")
+    if not parted:
+        raise SystemExit("the bf16 batched YOLO search differs from the single searches, "
+                         "and the convolutions do not explain it")
+    gc.collect()
+    torch.cuda.empty_cache()
+    h32 = calibrated_yolo_xl(torch.float32)
+    ok32, _, _, _ = compare(h32, "yolo batched f32")
+    parted32, _, ldiff32, lmax32 = conv_batch_dependence(torch, h32.model, px.float(), text)
+    log(f"[yolo batched] f32: {parted32} of {n_conv} convolutions give image 0 other bits in a "
+        f"batch of 8, its logits {ldiff32:.3e} apart (largest |logit| {lmax32:.3e}); every "
+        f"video's batched search equals its single search: {ok32}")
+    del h32
+    torch.cuda.empty_cache()
+    if not ok32:
+        raise SystemExit("batched YOLO search differs from the single-video searches in f32")
+    return counts, "f32"
+
+
+def phase_yolo_numerics(torch, card):
+    """Phase 10d: ``yoloworld_small`` bf16 on the card against f32 on the
+    CPU; then the small-size YOLO search with replayed noise, f32 on the
+    card against the CPU."""
+    import numpy as np
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.search.engine import run_search as engine_search
+    from tstar_tpu_torch.search.state import init_state
+    from tstar_tpu_torch.video.cache import build_frame_cache_host
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    from tstar_tpu_torch.models.yoloworld import unit_variance_bn_
+
+    cpu = initialize_heuristic("yolo-world-random", size="small", device="cpu",
+                               dtype=torch.float32, seed=0)
+    rng = np.random.default_rng(0)
+    px = rng.random((2, 160, 160, 3), dtype=np.float32)
+    text = rng.normal(size=(4, 64)).astype(np.float32)
+    text /= np.linalg.norm(text, axis=-1, keepdims=True)
+    card16 = initialize_heuristic("yolo-world-random", size="small", device="cuda",
+                                  dtype=torch.bfloat16, seed=0)
+    dfl = []
+    hooks = [getattr(cpu.model, f"reg_pred{i}_2").register_forward_hook(
+        lambda m, i, o: dfl.append(o.abs().max().item())) for i in range(3)]
+    with torch.no_grad():
+        want_l, want_b = cpu.model(torch.from_numpy(px), torch.from_numpy(text))
+        got_l, got_b = card16.model(torch.from_numpy(px).cuda(), torch.from_numpy(text).cuda())
+    for h in hooks:
+        h.remove()
+    got_l, got_b = got_l.float().cpu(), got_b.float().cpu()
+    # bf16 keeps 8 bits: 2^-8 of the largest magnitude of a value, compounded
+    # over the ~40 conv layers of the path.  A box side moves by at most half
+    # the DFL's bin range (reg_max - 1) / 2 times the change of its logits,
+    # times the largest stride (32 px).
+    tol_l = 2 ** -8 * 40 * want_l.abs().max().item()
+    reg_max = cpu.model.cfg.reg_max
+    tol_b = 2 ** -8 * 40 * max(dfl) * (reg_max - 1) / 2 * 32
+    dl, db = (got_l - want_l).abs().max().item(), (got_b - want_b).abs().max().item()
+    # the class is decided wherever the CPU's two best logits are further
+    # apart than twice the tolerance: there the card must pick the same one
+    top2 = want_l.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol_l
+    argmax = bool((got_l.argmax(-1) == want_l.argmax(-1))[decided].all())
+    ok = dl <= tol_l and db <= tol_b and argmax
+    log(f"[yolo numerics] yoloworld_small bf16 on the card vs f32 on the CPU: logits max |diff| "
+        f"{dl:.3e} (tol {tol_l:.3e} = 2^-8 x 40 layers x max |logit| {want_l.abs().max().item():.3e}), "
+        f"boxes {db:.3e} px (tol {tol_b:.3e} = 2^-8 x 40 layers x max |DFL logit| {max(dfl):.3f} "
+        f"x (reg_max - 1) / 2 x 32 px), the same argmax class on all "
+        f"{int(decided.sum())} of {decided.numel()} anchors whose top two logits are more than "
+        f"2 x tol apart: {argmax} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 10d: yoloworld_small on the card disagrees with the CPU")
+    # the whole small search in f32, replayed noise, card against CPU.  Seeded
+    # random convs shrink the activations until every score is 0.5 to a few
+    # ulps, where any summation order flips the class and NMS ties: the folded
+    # BN scales are set, on the CPU, for unit variance on the images above
+    # (the scores then lie ~2e-4 apart; an f32 summation order moves them ~1e-6)
+    unit_variance_bn_(cpu.model, torch.from_numpy(px), torch.from_numpy(text))
+    card32 = initialize_heuristic("yolo-world-random", size="small", device="cuda",
+                                  dtype=torch.float32, seed=0)
+    card32.model.load_state_dict(cpu.model.state_dict())
+    # confidence_threshold 2.0 (the reference bench's worst case): no target is
+    # ever confirmed, so every step verifies and the search spends its budget
+    cfg = SearchConfig(cache_hw=(48, 96), search_budget=0.5, confidence_threshold=2.0)
+    host = build_frame_cache_host("mem://scene", cfg, decoder=default_scene(300.0))
+    noise = [rng.gumbel(size=host.n_pad).astype(np.float32) for _ in range(64)]
+    out = {}
+    for label, h in (("cpu", cpu), ("cuda", card32)):
+        dev = h.device
+        scorer = h.build_scorer(torch.from_numpy(host.frames).to(dev), YOLO_TARGETS, YOLO_CUES, cfg)
+        state = init_state(host.n_valid, 2, cfg, iter(noise), n_pad=host.n_pad, device=dev)
+        with torch.no_grad():
+            final, secs = engine_search(state, scorer, cfg, graphs=False)
+        out[label] = ([float(x) for x in secs.tolist()], int(final.iteration))
+    ok = out["cpu"] == out["cuda"]
+    log(f"[yolo numerics] yoloworld_small search in f32 with replayed noise: keyframes and "
+        f"iterations on the card {out['cuda']} == CPU {out['cpu']}: {ok} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 10d: the small YOLO search on the card differs from the CPU's")
+
+
+def write_clip_vocab(directory, words=("couch", "lamp", "tv")):
+    """A CLIP-style ``vocab.json`` + ``merges.txt`` that spells ``words`` with
+    merges, the two special tokens last (EOT the highest id, as CLIP's)."""
+    import os
+
+    chars = sorted(set("".join(words)) | set("abcdefghijklmnopqrstuvwxyz"))
+    vocab = {}
+    for ch in chars:
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault(ch + "</w>", len(vocab))
+    merges = []
+    for w in words:
+        cur = w[0]
+        for i, ch in enumerate(w[1:], start=1):
+            nxt = ch + "</w>" if i == len(w) - 1 else ch
+            merges.append((cur, nxt))
+            cur += nxt
+            vocab.setdefault(cur, len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def phase_checkpoints(torch, card, yolo):
+    """Phase 10e: a full-width mmyolo ``.pth`` and an HF OWL-ViT B/32
+    directory, written here, loaded through ``initialize_heuristic(...,
+    checkpoint_dir=)`` on the card, equal to the models they came from."""
+    import os
+    import tempfile
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.models.loader import save_owlvit_checkpoint
+    from tstar_tpu_torch.models.yolo_loader import save_yolo_world_checkpoint
+
+    cfg = SearchConfig(cache_hw=(192, 384))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = save_yolo_world_checkpoint(yolo.model, yolo.text_model, d)
+        write_clip_vocab(d)
+        loaded = initialize_heuristic("yolo-world", checkpoint_dir=d, size="xl", device="cuda")
+        load_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(3)
+        px = torch.rand(2, 640, 640, 3, generator=g, device="cuda")
+        ids, mask = loaded.tokenizer.encode_batch(["couch", "lamp", "tv", " "])
+        ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        with torch.no_grad():
+            te_a, te_b = yolo.text_model(ids, mask), loaded.text_model(ids, mask)
+            a, b = yolo.model(px, te_a), loaded.model(px, te_b)
+        same = torch.equal(te_a, te_b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        stamps = yolo_search(torch, loaded, cfg, seed=0)[0]
+        log(f"[checkpoints] YOLO-World v2-XL as an mmyolo .pth ({os.path.getsize(path) / 1e6:.1f} "
+            f"MB, {len(torch.load(path, weights_only=True)['state_dict'])} tensors) + CLIP vocab "
+            f"files -> initialize_heuristic('yolo-world', checkpoint_dir=...) in {load_s:.2f} s: "
+            f"text embeddings, logits and boxes equal to the written model's: {same}; a search "
+            f"with the CLIP tokenizer: keyframes {stamps} {'OK' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("phase 10e: the loaded YOLO-World checkpoint differs from its model")
+    with tempfile.TemporaryDirectory() as d:
+        rand = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+        t0 = time.perf_counter()
+        save_owlvit_checkpoint(rand.model, d)
+        write_clip_vocab(d)
+        owl = initialize_heuristic("owl-vit", checkpoint_dir=d, device="cuda")
+        load_s = time.perf_counter() - t0
+        rand.tokenizer = owl.tokenizer          # the same prompts' ids on both sides
+        runs = [yolo_search(torch, h, cfg, seed=0, record=True) for h in (owl, rand)]
+        (sa, _, sta, _, _), (sb, _, stb, _, _) = runs
+        per = [[e["secs"][0].tolist() for e in st.trace] for st in (sta, stb)]
+        same = sa == sb and per[0] == per[1]
+        log(f"[checkpoints] OWL-ViT B/32 as an HF directory (model.safetensors "
+            f"{os.path.getsize(os.path.join(d, 'model.safetensors')) / 1e6:.1f} MB, config.json, "
+            f"CLIP vocab files) -> initialize_heuristic('owl-vit', checkpoint_dir=...) in "
+            f"{load_s:.2f} s: its search equals owl-vit-random's with the same weights and "
+            f"tokenizer (seconds of every iteration, keyframes {sa}): {same} "
+            f"{'OK' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("phase 10e: the OWL-ViT checkpoint's search differs from its weights'")
+    del loaded, owl, rand
+    torch.cuda.empty_cache()
+
+
+def phase_10(torch, card):
+    """Phase 10: YOLO-World, the NMS kernel and the checkpoints."""
+    t0 = time.perf_counter()
+    nms_rows = phase_nms(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()      # the plain version's (B, N, N) IoU tensors
+    yolo, row, counts = phase_yolo(torch, card)
+    batched_counts, batched_dtype = phase_yolo_batched(torch, card, yolo)
+    phase_yolo_numerics(torch, card)
+    phase_checkpoints(torch, card, yolo)
+    del yolo
+    torch.cuda.empty_cache()
+    log(f"[yolo] phase 10 wall {time.perf_counter() - t0:.1f} s ({card})")
+    return {"nms": nms_rows, "yolo": row, "counts": counts, "batched_counts": batched_counts,
+            "batched_dtype": batched_dtype}
+
+
 def main() -> int:
     import torch
 
@@ -1579,6 +2146,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm = phase_vlm(torch, card)
     log("[vlm] " + json.dumps(vlm))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p10 = phase_10(torch, card)
+    log("[yolo] " + json.dumps({k: p10[k] for k in ("nms", "yolo", "batched_dtype")}))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -1629,11 +2200,25 @@ def main() -> int:
             "launches_batched": (batched_k6 if k == "K6" else batched_counts)[name],
             # phase 9's full-width QA request: K3 in SigLIP, no other kernel
             "launches_vlm_request": vlm["k3_launches_per_request"] if k == "K3" else 0,
+            # phase 10b's YOLO-World v2-XL search: K3 in the prompts' text encode
+            "launches_yolo_search": p10["counts"][name],
         })
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
             kernels[-1]["vlm_row"] = {key: sig[key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+    nms = p10["nms"]
+    kernels.append({
+        "name": "greedy_nms", "route": "cuda", "source": "tstar_tpu_torch/csrc/nms.cu",
+        "replaces": "tstar_tpu/ops/nms.py:33 (XLA loop, not Pallas)",
+        "impl": "nms_mask_kernel (upper-triangle IoU bitmask) + nms_scan_kernel (a warp an image)",
+        "launches": p10["counts"]["greedy_nms"], "max_abs_err": max(r["err"] for r in nms),
+        "ms": nms[0]["ms"], "plain_ms": nms[0]["plain_ms"], "bound_ms": nms[0]["bound_ms"],
+        "bound_by": nms[0]["bound_by"], "library_ms": None, "shape": nms[0]["shape"],
+        "rows_b8_full": nms[1:], "registers": nms[0]["registers"], "spills": nms[0]["spills"],
+        "launches_batched": p10["batched_counts"]["greedy_nms"], "launches_vlm_request": 0,
+        "launches_yolo_search": p10["counts"]["greedy_nms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
 from tstar_tpu_torch.kernels import layernorm as layernorm_module
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, supported_width
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+from tstar_tpu_torch.kernels.nms import greedy_nms
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
 from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
 
@@ -180,10 +181,11 @@ def _imported_modules(tree):
 
 
 # Nothing the card's machine lacks: JAX and the JAX package (the port stands
-# alone), Triton (every kernel is CUDA C++), and the reference's host
-# libraries (``regex``, ``cv2``, ``safetensors``, ``transformers``).
+# alone), Triton (every kernel is CUDA C++), the reference's host libraries
+# (``regex``, ``cv2``, ``safetensors``, ``transformers``), and packages of
+# finished detection kernels (``torchvision``'s NMS, ``mmcv``'s).
 FORBIDDEN_IMPORTS = {"jax", "flax", "tstar_tpu", "regex", "cv2", "safetensors", "transformers",
-                     "triton"}
+                     "triton", "torchvision", "mmcv"}
 
 
 def test_no_port_module_imports_triton():
@@ -206,7 +208,8 @@ def test_no_port_module_imports_triton():
     for src in ("def f():\n    import triton.language\n", "import regex as re\n",
                 "from cv2 import resize\n", "import importlib\nimportlib.import_module('safetensors.torch')\n",
                 "def g():\n    from transformers import AutoModel\n", "import jax.numpy\n",
-                "from flax import linen\n", "from tstar_tpu.models import qwen2vl\n"):
+                "from flax import linen\n", "from tstar_tpu.models import qwen2vl\n",
+                "from torchvision.ops import batched_nms\n", "import mmcv.ops\n"):
         assert set(_imported_modules(ast.parse(src))) & FORBIDDEN_IMPORTS, src
     assert not set(_imported_modules(ast.parse("import re\nimport tstar_tpu_torch\n"))) & FORBIDDEN_IMPORTS
 
@@ -227,8 +230,9 @@ def test_cpu_wrappers_run_the_plain_versions():
                                grid_shape=(2, 2), cell_hw=(16, 16), patch_size=8)
     pallas_grid.build_detector_grid_pallas(cache[0], secs[0], (2, 2), 32)
     flash_mha(*(torch.zeros(1, 8, 2, 64) for _ in range(3)))
+    greedy_nms(torch.zeros(2, 5, 4), torch.arange(5).expand(2, 5), 0.7, 3)
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
         "w8a8_matmul": 0, "ln_matmul": 0, "grid_cell_embed": 0,
-        "build_detector_grid_pallas": 0, "flash_mha": 0,
+        "build_detector_grid_pallas": 0, "flash_mha": 0, "greedy_nms": 0,
     }

@@ -284,6 +284,9 @@ PORT_MODULES = [
     "tstar_tpu_torch.models.loader", "tstar_tpu_torch.models.convert",
     "tstar_tpu_torch.grounding", "tstar_tpu_torch.grounding.vlm_backend",
     "tstar_tpu_torch.utils.images", "tstar_tpu_torch.tools.profile_vlm",
+    "tstar_tpu_torch.ops.nms", "tstar_tpu_torch.kernels.nms", "tstar_tpu_torch.models.clip_tokenizer",
+    "tstar_tpu_torch.models.yoloworld", "tstar_tpu_torch.models.yolo_loader",
+    "tstar_tpu_torch.search.yolo_scorer", "tstar_tpu_torch.framework.heuristics",
 ]
 
 
@@ -291,12 +294,12 @@ def test_port_imports_no_jax():
     """The port package, every slice module and ``chip_smoke`` (imported, not
     run) load without JAX, flax, triton, any module of the JAX package, or
     the packages the card's machine lacks (regex, cv2, safetensors,
-    transformers)."""
+    transformers, torchvision, mmcv)."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'triton', 'tstar_tpu', 'regex',\n"
-        "       'cv2', 'safetensors', 'transformers')\n"
+        "       'cv2', 'safetensors', 'transformers', 'torchvision', 'mmcv')\n"
         "       or m.startswith('tstar_tpu.')]\n"
         "assert not bad, bad\n"
     )

@@ -5,7 +5,8 @@ version: K1 ``attention.fused_mha_from_qkv`` (CUDA), K2
 (CUDA), K6 ``grid_embed.grid_cell_embed`` (CUDA), K7
 ``pallas_grid.build_detector_grid_pallas`` (CUDA) and K8
 ``attention.flash_mha`` (CUDA): every TPU kernel of the reference has its
-counterpart.  ``image.py`` (the pixel chain and the composed projection) and
+counterpart.  ``nms.greedy_nms`` (CUDA) is the loop of the reference's
+class-aware NMS, an XLA ``fori_loop`` there, not a Pallas kernel.  ``image.py`` (the pixel chain and the composed projection) and
 ``attention.bf16_probs_attention`` are plain PyTorch (the reference's are
 XLA code).
 
@@ -23,6 +24,7 @@ def _wrappers():
     from tstar_tpu_torch.kernels.grid_embed import grid_cell_embed
     from tstar_tpu_torch.kernels.layernorm import fused_layernorm
     from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+    from tstar_tpu_torch.kernels.nms import greedy_nms
     from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
     from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
     from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
@@ -36,6 +38,7 @@ def _wrappers():
         "grid_cell_embed": grid_cell_embed,
         "build_detector_grid_pallas": build_detector_grid_pallas,
         "flash_mha": flash_mha,
+        "greedy_nms": greedy_nms,
     }
 
 

@@ -164,6 +164,10 @@ def open_library(path: Path) -> ctypes.CDLL:
     # B, S, H, int[4] out: warpgroups per CTA, stages, resident, smem bytes
     lib.tstar_attn_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.tstar_attn_config.restype = ci
+    # boxes, order (int64), iou threshold, B, N, max_out, mask scratch, keep,
+    # valid, stream
+    lib.tstar_nms.argtypes = [vp, vp, cf, ci, ci, ci, vp, vp, vp, vp]
+    lib.tstar_nms.restype = ci
     lib.tstar_error_string.argtypes = [ci]
     lib.tstar_error_string.restype = ctypes.c_char_p
     return lib

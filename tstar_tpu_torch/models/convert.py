@@ -97,3 +97,78 @@ def export_state_dict(state: Mapping[str, torch.Tensor], rules: List[Rule]) -> D
         for n, p in zip(names, parts):
             out[n] = p.contiguous()
     return out
+
+
+# ---------------------------------------------------------------------------
+# CLIP encoders (OWL-ViT's towers, YOLO-World's text tower)
+# ---------------------------------------------------------------------------
+
+def clip_encoder_rules(port: str, hf: str, num_layers: int) -> List[Rule]:
+    """A CLIP encoder's layers: HF ``{hf}.layers.i`` (separate q/k/v
+    projections, ``nn.Linear`` weights) -> the port's ``{port}.layers.i``
+    (one fused (D, 3D) q|k|v kernel, Dense kernels (in, out))."""
+    rules: List[Rule] = []
+    for i in range(num_layers):
+        p, h = f"{port}.layers.{i}", f"{hf}.layers.{i}"
+        a = f"{h}.self_attn"
+        rules += [
+            *layernorm_rules(f"{p}.layer_norm1", f"{h}.layer_norm1"),
+            *layernorm_rules(f"{p}.layer_norm2", f"{h}.layer_norm2"),
+            rule(f"{p}.self_attn.qkv_kernel", f"{a}.q_proj.weight", f"{a}.k_proj.weight",
+                 f"{a}.v_proj.weight", kind="catT"),
+            rule(f"{p}.self_attn.qkv_bias", f"{a}.q_proj.bias", f"{a}.k_proj.bias",
+                 f"{a}.v_proj.bias", kind="cat"),
+            *linear_rules(f"{p}.self_attn.out_proj", f"{a}.out_proj"),
+            *linear_rules(f"{p}.mlp.fc1", f"{h}.mlp.fc1"),
+            *linear_rules(f"{p}.mlp.fc2", f"{h}.mlp.fc2"),
+        ]
+    return rules
+
+
+def linear_rules(port: str, hf: str) -> List[Rule]:
+    return [rule(f"{port}.kernel", f"{hf}.weight", kind="T"), rule(f"{port}.bias", f"{hf}.bias")]
+
+
+def layernorm_rules(port: str, hf: str) -> List[Rule]:
+    return [rule(f"{port}.scale", f"{hf}.weight"), rule(f"{port}.bias", f"{hf}.bias")]
+
+
+def clip_text_rules(port: str, hf: str, num_layers: int) -> List[Rule]:
+    """HF ``CLIPTextTransformer`` under ``hf`` -> the port's ``TextTower``."""
+    return [
+        rule(f"{port}.token_embedding", f"{hf}.embeddings.token_embedding.weight"),
+        rule(f"{port}.position_embedding", f"{hf}.embeddings.position_embedding.weight"),
+        *clip_encoder_rules(f"{port}.encoder", f"{hf}.encoder", num_layers),
+        *layernorm_rules(f"{port}.final_layer_norm", f"{hf}.final_layer_norm"),
+    ]
+
+
+def owlvit_rules(cfg, base: str = "owlvit") -> List[Rule]:
+    """HF ``OwlViTForObjectDetection`` (``base`` "owlvit") or
+    ``Owlv2ForObjectDetection`` ("owlv2") -> the port's ``OwlViTDetector``.
+    OWLv2's objectness head is not read: the T* scoring path uses the class
+    logits only."""
+    v, t = f"{base}.vision_model", f"{base}.text_model"
+    return [
+        rule("vision.patch_embedding.kernel", f"{v}.embeddings.patch_embedding.weight",
+             kind="hwio"),
+        rule("vision.class_embedding", f"{v}.embeddings.class_embedding"),
+        rule("vision.position_embedding", f"{v}.embeddings.position_embedding.weight"),
+        *layernorm_rules("vision.pre_layernorm", f"{v}.pre_layernorm"),
+        *clip_encoder_rules("vision.encoder", f"{v}.encoder", cfg.vision.num_layers),
+        *clip_text_rules("text", t, cfg.text.num_layers),
+        rule("text_projection.kernel", f"{base}.text_projection.weight", kind="T"),
+        *layernorm_rules("post_layernorm", f"{v}.post_layernorm"),
+        *layernorm_rules("merged_layernorm", "layer_norm"),
+        *(r for d in ("dense0", "dense1", "dense2")
+          for r in linear_rules(f"box_head.{d}", f"box_head.{d}")),
+        *(r for d in ("dense0", "logit_shift", "logit_scale")
+          for r in linear_rules(f"class_head.{d}", f"class_head.{d}")),
+    ]
+
+
+def convert_hf_owlvit_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """An HF OWL-ViT / OWLv2 detection state dict (the ``owlv2.`` prefix is
+    detected) -> a state dict for ``OwlViTDetector``."""
+    base = "owlv2" if any(k.startswith("owlv2.") for k in sd) else "owlvit"
+    return convert_state_dict(sd, owlvit_rules(cfg, base))

@@ -1,5 +1,5 @@
-"""Local Hugging Face checkpoints for the port's VLMs (port of the shared reader
-and the VLM half of ``tstar_tpu/models/loader.py``).  No network.
+"""Local Hugging Face checkpoints for the port's detectors and VLMs (port of
+``tstar_tpu/models/loader.py``).  No network.
 
 A checkpoint directory holds ``config.json``, the weights
 (``model.safetensors``, shards listed by ``model.safetensors.index.json``,
@@ -10,9 +10,10 @@ header naming each tensor's dtype, shape and byte range, then the bytes,
 mapped from the file and viewed with ``torch.frombuffer``.  The model is
 made on the meta device and takes the converted tensors, each moved to the
 requested device and dtype (bf16 by default, as in the reference) one at a
-time: no full-size copy is made on the host.
-
-The OWL-ViT half of the reference's loader is ROADMAP queue 1 item 4.
+time: no full-size copy is made on the host.  ``load_owlvit_checkpoint``
+reads OWL-ViT (and OWLv2) detection checkpoints with the CLIP tokenizer;
+``save_owlvit_checkpoint`` and ``save_vlm_checkpoint`` write a model back
+under the checkpoint's names.
 """
 
 from __future__ import annotations
@@ -109,6 +110,83 @@ def _read_sharded_state_dict(path: str) -> Dict[str, torch.Tensor]:
             out.update(read_safetensors(os.path.join(path, shard)))
         return out
     return _read_state_dict(path)
+
+
+def config_from_hf_json(cfg: Dict[str, Any]):
+    """An HF OWL-ViT ``config.json`` -> ``OwlViTConfig``."""
+    from tstar_tpu_torch.models.owlvit import OwlViTConfig, TextConfig, VisionConfig
+
+    v, t = cfg["vision_config"], cfg["text_config"]
+    return OwlViTConfig(
+        vision=VisionConfig(
+            hidden_size=v.get("hidden_size", 768),
+            num_layers=v.get("num_hidden_layers", 12),
+            num_heads=v.get("num_attention_heads", 12),
+            intermediate_size=v.get("intermediate_size", 3072),
+            patch_size=v.get("patch_size", 32),
+            image_size=v.get("image_size", 768),
+            activation=v.get("hidden_act", "quick_gelu"),
+            eps=v.get("layer_norm_eps", 1e-5),
+        ),
+        text=TextConfig(
+            vocab_size=t.get("vocab_size", 49408),
+            hidden_size=t.get("hidden_size", 512),
+            num_layers=t.get("num_hidden_layers", 12),
+            num_heads=t.get("num_attention_heads", 8),
+            intermediate_size=t.get("intermediate_size", 2048),
+            max_length=t.get("max_position_embeddings", 16),
+            activation=t.get("hidden_act", "quick_gelu"),
+            eps=t.get("layer_norm_eps", 1e-5),
+        ),
+        projection_dim=cfg.get("projection_dim", 512),
+    )
+
+
+def _owlvit_hf_config(cfg) -> Dict[str, Any]:
+    """The ``config.json`` that ``config_from_hf_json`` reads back as ``cfg``."""
+    v, t = cfg.vision, cfg.text
+    return {
+        "model_type": "owlvit", "projection_dim": cfg.projection_dim,
+        "vision_config": {"hidden_size": v.hidden_size, "num_hidden_layers": v.num_layers,
+                          "num_attention_heads": v.num_heads,
+                          "intermediate_size": v.intermediate_size, "patch_size": v.patch_size,
+                          "image_size": v.image_size, "hidden_act": v.activation,
+                          "layer_norm_eps": v.eps},
+        "text_config": {"vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+                        "num_hidden_layers": t.num_layers, "num_attention_heads": t.num_heads,
+                        "intermediate_size": t.intermediate_size,
+                        "max_position_embeddings": t.max_length, "hidden_act": t.activation,
+                        "layer_norm_eps": t.eps},
+    }
+
+
+def load_owlvit_checkpoint(checkpoint_dir: str, device="cuda", dtype=torch.bfloat16):
+    """-> (OwlViTDetector, ClipTokenizer) from a local HF OWL-ViT / OWLv2
+    detection checkpoint directory."""
+    from tstar_tpu_torch.models.clip_tokenizer import ClipTokenizer
+    from tstar_tpu_torch.models.convert import convert_hf_owlvit_state_dict
+    from tstar_tpu_torch.models.owlvit import OwlViTDetector
+
+    with open(os.path.join(checkpoint_dir, "config.json")) as f:
+        cfg = config_from_hf_json(json.load(f))
+    sd = _read_state_dict(checkpoint_dir)
+    # strip the framework prefix some exports carry
+    sd = {(k[6:] if k.startswith("model.") else k): v for k, v in sd.items()}
+    model = build_model(OwlViTDetector, cfg, convert_hf_owlvit_state_dict(sd, cfg), device, dtype)
+    return model, ClipTokenizer.from_dir(checkpoint_dir, context=cfg.text.max_length)
+
+
+def save_owlvit_checkpoint(model, checkpoint_dir: str) -> None:
+    """Write an ``OwlViTDetector`` as an HF OWL-ViT checkpoint: ``config.json``
+    and ``model.safetensors`` under HF's names (the tokenizer files are the
+    caller's)."""
+    from tstar_tpu_torch.models.convert import export_state_dict, owlvit_rules
+
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    with open(os.path.join(checkpoint_dir, "config.json"), "w") as f:
+        json.dump(_owlvit_hf_config(model.cfg), f)
+    write_safetensors(export_state_dict(model.state_dict(), owlvit_rules(model.cfg)),
+                      os.path.join(checkpoint_dir, "model.safetensors"))
 
 
 def qwen2vl_config_from_hf_json(cfg: Dict[str, Any]):

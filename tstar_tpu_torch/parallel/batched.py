@@ -19,7 +19,9 @@ modes, with the step math on the video axis:
   * a width of K frames or more rescores every sampled frame in one forward.
 Finished videos' candidates are rescored by no forward (the reference
 rescores them and discards the result).  Table scorers take the same flat
-steps through ``BatchedTableScorer``'s lookups.
+steps through ``BatchedTableScorer``'s lookups, and YOLO-World scorers
+through their own flat methods (the reference vmaps its single-video step
+over them: per video the same detections).
 
 Drivers.  The reference has a one-dispatch ``while_loop`` (``run_search_batched``)
 and a host-chained form with a cap (``run_search_batched_chained``), and
@@ -44,12 +46,14 @@ from tstar_tpu_torch.search.detector_scorer import OwlVitScorer
 from tstar_tpu_torch.search.scorers import BatchedTableScorer, TableScorer
 from tstar_tpu_torch.search.state import BatchedState
 from tstar_tpu_torch.search.step_graphs import StepStats, Stepper
+from tstar_tpu_torch.search.yolo_scorer import YoloWorldScorer
 from tstar_tpu_torch.utils.config import SearchConfig
 
 # Per-video (stacked) fields of each scorer class; the rest (the detector's
 # weights and views) is shared by the batch.
 _PER_VIDEO_FIELDS = {
     OwlVitScorer: ("cache", "query_embeds", "query_mask", "class_weights"),
+    YoloWorldScorer: ("cache", "text_embeds", "query_mask", "class_weights"),
     TableScorer: ("grid_conf", "grid_presence", "verify_conf", "verify_presence"),
 }
 
@@ -60,7 +64,7 @@ def stack_scorers(scorers: Sequence, config: SearchConfig):
     fields = _PER_VIDEO_FIELDS.get(type(s0))
     if fields is None or any(type(s) is not type(s0) for s in scorers):
         raise TypeError(
-            f"batched search needs OwlVitScorer or TableScorer backends, got "
+            f"batched search needs OwlVitScorer, YoloWorldScorer or TableScorer backends, got "
             f"{sorted({type(s).__name__ for s in scorers})}"
         )
     stacked = {f: torch.stack([getattr(s, f) for s in scorers]) for f in fields}

@@ -12,7 +12,10 @@ videos (``batched b8``, its caches built outside the timed region; and
 eager); ``detector_quant='int8'`` with ``verify_image_size=512``;
 ``detector_quant='w8a16'``; bf16 with ``TSTAR_LN_MATMUL=force``;
 ``use_pallas_preprocess=True`` (K7); ``TSTAR_GRID_EMBED=force`` (K6);
-``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8).  For each: one warm-up search, one search timed
+``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8); and YOLO-World v2-XL
+(``calibrated_yolo_xl``, bf16, ``chip_smoke.py`` phase 10) on the same
+video, stepped through graphs (``yolo``), eagerly (``yolo eager``) and
+over the bucket of eight (``yolo batched b8``).  For each: one warm-up search, one search timed
 on the host clock (ending in ``torch.cuda.synchronize()``), then one under
 ``torch.profiler`` (CPU + CUDA activities).  From the profiler's device
 events it reports the summed device time, the device-busy share of the
@@ -56,6 +59,7 @@ PORT_KERNELS = {
     "K6 grid_embed": ("grid_embed_kernel", "grid_embed_sm90_kernel"),
     "K7 grid pack": "grid_pack_kernel",
     "K8 flash": ("flash_kernel", "attn_sm90_kernel<2"),
+    "nms": ("nms_mask_kernel", "nms_scan_kernel"),
 }
 
 
@@ -121,6 +125,32 @@ def _single(heur, config, graphs):
             return s.step_stats
         return go
     return make
+
+
+def calibrated_yolo_xl(dtype, seed=0):
+    """``yolo-world-random`` at size xl on the card, its folded BN scales set
+    for unit variance (``unit_variance_bn_``) on four grid canvases of the
+    synthetic 600 s scene under the searches' prompts (couch, lamp; tv).  At
+    the seeded init the activations shrink until every anchor scores 0.5000
+    and every class and NMS decision is a tie; a checkpoint's BN statistics
+    do what this does."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.models.yoloworld import unit_variance_bn_
+    from tstar_tpu_torch.video.cache import build_frame_cache
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    heur = initialize_heuristic("yolo-world-random", size="xl", device="cuda", dtype=dtype,
+                                seed=seed)
+    cfg = SearchConfig(cache_hw=(192, 384))
+    cache = build_frame_cache("mem://synthetic-600s", cfg, device="cuda",
+                              decoder=default_scene(600.0))
+    scorer = heur.build_scorer(cache.frames, ["couch", "lamp"], ["tv"], cfg)
+    cells = torch.arange(16, device="cuda") * 37
+    px = torch.cat([scorer._grid_pixels(scorer.cache, cells + o) for o in (0, 9, 18, 27)])
+    with torch.no_grad():
+        unit_variance_bn_(heur.model, px.to(heur.model.dtype), scorer.text_embeds)
+    return heur
 
 
 def _bucket(heur, config, graphs, n=8):
@@ -319,6 +349,19 @@ def main(argv=None) -> int:
         "k8 flash": (_single(heur, bf16, None),
                      {"TSTAR_FUSED_MHA": "0", "TSTAR_FLASH_ATTENTION": "1"}),
     }
+    yolo = {}
+
+    def yolo_heur():
+        """YOLO-World v2-XL (``calibrated_yolo_xl``), made at first use."""
+        if not yolo:
+            yolo["h"] = calibrated_yolo_xl(torch.bfloat16)
+        return yolo["h"]
+
+    runs.update({
+        "yolo": (lambda seed: _single(yolo_heur(), bf16, None)(seed), {}),
+        "yolo eager": (lambda seed: _single(yolo_heur(), bf16, False)(seed), {}),
+        "yolo batched b8": (lambda seed: _bucket(yolo_heur(), bf16, None)(seed), {}),
+    })
     unknown = set(args.runs or ()) - set(runs)
     if unknown:
         raise SystemExit(f"unknown runs {sorted(unknown)}; choose from {sorted(runs)}")
