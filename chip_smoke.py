@@ -111,12 +111,35 @@ Phases (any failed check exits non-zero and prints no result line):
      ``initialize_heuristic('yolo-world' | 'owl-vit', checkpoint_dir=...)``:
      outputs equal to the written model's, the OWL-ViT search equal to
      ``owl-vit-random``'s with the same weights and tokenizer.
+  11. the T* pipeline end to end: (a) ``TStarFramework.run()`` (grounding,
+     search with its history, QA) on the synthetic 600 s video with
+     ``owl-vit-random`` B/32 in bf16 and phase 9a's 7B-wide LLaVA-OneVision,
+     run twice (the first captures); the grounding request runs at the
+     framework's 512-token cap and its answer is replaced by the scene's two
+     lines (seeded weights cannot name the objects), the QA request is the
+     model's own at temperature 0; the keyframes equal a plain ``search()``, one history row
+     and two host reads a search step, K1 / K2 / K3 launches per grid and
+     verify forward as phase 5's plus K3 for the prompts' text encode and
+     54 in each VLM request, the answer equal to ``inference_qa`` at
+     temperature 0 on the keyframes; each stage's seconds and the peak
+     memory, split into what was allocated as ``run()`` began and the peak
+     above it; (b) the same with phase 10's YOLO-World v2-XL (NMS once a
+     forward, K3 only in the text encode and the VLM), its detection history
+     NMS's kept set, run before (a) so that the XL model is freed before the
+     OWL-ViT pipeline's run; (c) a tiny
+     f32 pipeline (phase 9c's tiny LLaVA-OneVision checkpoint through
+     ``UniversalGrounder(model_path=)``, a tiny ``owl-vit-random``), card
+     against CPU on the same replayed noise: the same grounding (or parse
+     error), timestamps and answer; (d) ``search_videos(collect_history=True)``
+     over phase 8's bucket of 8: the keyframes without history, two host
+     reads a step, each row's history its video's steps.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
 The second-to-last line is a JSON object of per-kernel results (K1-K8 with
-their launches in phase 10b's YOLO search, and the NMS kernel); the last is
+their launches in phase 10b's YOLO search and in phase 11's pipelines, and
+the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -1305,24 +1329,13 @@ def vlm_work(model, frames: int, prompt: int, new: int):
     return siglip, prefill, (lm + h) * es + cache
 
 
-def vlm_full_width(torch, card):
-    """Phase 9a: one QA request at LLaVA-OneVision-7B's widths, bf16, with
-    graphs and eager; a second request of the same bucket, sent through
-    ``UniversalGrounder.inference_qa`` on the same model; K3 54 times a
-    request, no other kernel; a replay under the sync debug mode."""
+def vlm_7b(torch, card):
+    """LLaVA-OneVision at 7B's widths, seeded on the card in bf16, and a
+    byte-level tokenizer: phase 9a's model, which phase 11 uses again."""
     import tempfile
 
-    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
-    from tstar_tpu_torch.grounding.universal import UniversalGrounder
-    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
-    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from tstar_tpu_torch.models.generate import GenerateStats, generate
-    from tstar_tpu_torch.models.llava_onevision import (
-        LlavaOnevisionConfig, LlavaOnevisionModel, prepare_llava_inputs,
-    )
+    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionConfig, LlavaOnevisionModel
     from tstar_tpu_torch.models.qwen2vl import random_model
-    from tstar_tpu_torch.utils.images import load_video_frames
-    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
 
     cfg = LlavaOnevisionConfig()
     t0 = time.perf_counter()
@@ -1335,6 +1348,25 @@ def vlm_full_width(torch, card):
         f"({card})")
     with tempfile.TemporaryDirectory() as tmp:
         tok = byte_tokenizer(tmp)
+    return model, tok
+
+
+def vlm_full_width(torch, card, model, tok):
+    """Phase 9a: one QA request at LLaVA-OneVision-7B's widths, bf16, with
+    graphs and eager; a second request of the same bucket, sent through
+    ``UniversalGrounder.inference_qa`` on the same model; K3 54 times a
+    request, no other kernel; a replay under the sync debug mode."""
+    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.generate import GenerateStats, generate
+    from tstar_tpu_torch.models.llava_onevision import prepare_llava_inputs
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
+
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
     prompt = build_qa_prompt(QA_QUESTION, QA_OPTIONS, 8)
     eos = [tok.eos_id, tok.pad_id]
 
@@ -1432,9 +1464,7 @@ def vlm_full_width(torch, card):
            "request_bound_s": (b_prefill + steps * b_step) / 1e3,
            "captures": captures + stats.captures, "peak_gb": peak / 1e9,
            "prompt_tokens": s, "k3_launches_per_request": counts["fused_layernorm"]}
-    del model, bucket, dev, pixels, backend, grounder
-    gc.collect()              # the model and its decode buckets refer to each other
-    torch.cuda.empty_cache()
+    del bucket, dev, pixels, backend, grounder
     return row
 
 
@@ -1516,37 +1546,15 @@ def vlm_facade(torch, card):
     import numpy as np
 
     from tstar_tpu_torch.grounding.universal import UniversalGrounder
-    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionConfig, LlavaOnevisionModel
     from tstar_tpu_torch.models.loader import save_vlm_checkpoint
-    from tstar_tpu_torch.models.qwen2vl import (
-        Qwen2VLConfig, Qwen2VLModel, Qwen2VLTextConfig, Qwen2VLVisionConfig, init_random_,
-    )
-    from tstar_tpu_torch.models.qwen_tokenizer import SPECIAL_TOKENS
-    from tstar_tpu_torch.models.siglip import SiglipVisionConfig
     from tstar_tpu_torch.video.synthetic import default_scene
 
-    special = {t: 256 + i for i, t in enumerate(SPECIAL_TOKENS)}
-    text = dict(vocab_size=300, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
-                intermediate_size=64, rope_theta=10000.0)
-    models = {
-        "qwen": Qwen2VLModel(Qwen2VLConfig(
-            vision=Qwen2VLVisionConfig(depth=2, embed_dim=16, num_heads=2, mlp_ratio=2.0,
-                                       hidden_size=32),
-            text=Qwen2VLTextConfig(**text, mrope_section=(1, 1, 2)),
-            image_token_id=special["<|image_pad|>"], video_token_id=special["<|video_pad|>"],
-            vision_start_token_id=special["<|vision_start|>"])),
-        "llava": LlavaOnevisionModel(LlavaOnevisionConfig(
-            vision=SiglipVisionConfig(hidden_size=16, num_layers=2, num_heads=2,
-                                      intermediate_size=32, patch_size=2, image_size=8),
-            text=Qwen2VLTextConfig(**text, mrope_section=(4, 0, 0)),
-            image_token_id=264, video_token_id=265)),
-    }
+    models, special = tiny_vlms(torch)
     scene = default_scene(600.0)
     rng = np.random.default_rng(0)
     items = [{"frames": [rng.integers(0, 256, (360, 640, 3), np.uint8) for _ in range(2)],
               "question": f"What {'is it ' * i}?", "options": QA_OPTIONS} for i in range(4)]
     for family, model in models.items():
-        init_random_(model, torch.Generator().manual_seed(3))
         with tempfile.TemporaryDirectory() as d:
             save_vlm_checkpoint(model, d)
             byte_tokenizer(d, special)
@@ -1576,15 +1584,50 @@ def vlm_facade(torch, card):
             raise SystemExit(f"phase 9c: the {family} grounder on the card differs from the CPU")
 
 
+def tiny_vlms(torch):
+    """Phase 9c's tiny Qwen2-VL and LLaVA-OneVision, seeded, and the special
+    token ids of their byte-level vocabulary."""
+    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionConfig, LlavaOnevisionModel
+    from tstar_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLModel, Qwen2VLTextConfig, Qwen2VLVisionConfig, init_random_,
+    )
+    from tstar_tpu_torch.models.qwen_tokenizer import SPECIAL_TOKENS
+    from tstar_tpu_torch.models.siglip import SiglipVisionConfig
+
+    special = {t: 256 + i for i, t in enumerate(SPECIAL_TOKENS)}
+    text = dict(vocab_size=300, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
+                intermediate_size=64, rope_theta=10000.0)
+    models = {
+        "qwen": Qwen2VLModel(Qwen2VLConfig(
+            vision=Qwen2VLVisionConfig(depth=2, embed_dim=16, num_heads=2, mlp_ratio=2.0,
+                                       hidden_size=32),
+            text=Qwen2VLTextConfig(**text, mrope_section=(1, 1, 2)),
+            image_token_id=special["<|image_pad|>"], video_token_id=special["<|video_pad|>"],
+            vision_start_token_id=special["<|vision_start|>"])),
+        "llava": LlavaOnevisionModel(LlavaOnevisionConfig(
+            vision=SiglipVisionConfig(hidden_size=16, num_layers=2, num_heads=2,
+                                      intermediate_size=32, patch_size=2, image_size=8),
+            text=Qwen2VLTextConfig(**text, mrope_section=(4, 0, 0)),
+            image_token_id=264, video_token_id=265)),
+    }
+    for model in models.values():
+        init_random_(model, torch.Generator().manual_seed(3))
+    return models, special
+
+
 def phase_vlm(torch, card):
-    """Phase 9: the VLM stages (a) at full width, (b) numerics, (c) the facade."""
+    """Phase 9: the VLM stages (a) at full width, (b) numerics, (c) the
+    facade.  Returns (9a's numbers, 9a's model and tokenizer for phase 11)."""
     t0 = time.perf_counter()
     with torch.no_grad():
-        row = vlm_full_width(torch, card)
+        model, tok = vlm_7b(torch, card)
+        row = vlm_full_width(torch, card, model, tok)
+        gc.collect()
+        torch.cuda.empty_cache()
         vlm_numerics(torch, card)
         vlm_facade(torch, card)
     log(f"[vlm] phase 9 wall {time.perf_counter() - t0:.1f} s ({card})")
-    return row
+    return row, (model, tok)
 
 
 # ---------------------------------------------------------------------------
@@ -1741,9 +1784,11 @@ def yolo_search(torch, heur, config, seed, graphs=None, decoder=None, record=Fal
     return [float(x) for x in secs.tolist()], s, stats, launch_counts(), wall
 
 
-def phase_yolo(torch, card):
+def phase_yolo(torch, card, resident):
     """Phase 10b: YOLO-World v2-XL at full width, one video (module
-    docstring).  Returns (heuristic, row of numbers, launch counts)."""
+    docstring); its peak memory is counted above ``resident``, the bytes
+    earlier phases left allocated.  Returns (heuristic, row of numbers,
+    launch counts)."""
     from tstar_tpu_torch import SearchConfig
     from tstar_tpu_torch.tools.profile_search import calibrated_yolo_xl
 
@@ -1798,7 +1843,8 @@ def phase_yolo(torch, card):
     log(f"[yolo] search (graphs): iterations {int(s._final_state.iteration)}, {st.steps} grid "
         f"forwards (B=1), verify batches {st.verify_widths}; wall {wall:.3f} s (eager "
         f"{e_wall:.3f} s; both include the scorer's build and prompt encode); peak_mem "
-        f"{peak / 2**20:.1f} MiB; {st.host_reads / st.steps:.2f} host reads, "
+        f"{(peak - resident) / 2**20:.1f} MiB above the {resident / 2**20:.1f} MiB earlier "
+        f"phases left allocated; {st.host_reads / st.steps:.2f} host reads, "
         f"{st.replays / st.steps:.2f} graph replays a step ({st.captures} captures) ({card})")
     log(f"[yolo] keyframes {stamps}, remaining {s.remaining_targets}; launches {counts}")
     failed = [k for k, v in checks.items() if not v]
@@ -1817,8 +1863,8 @@ def phase_yolo(torch, card):
     # device time by kernel line and the busy share: ``python -m
     # tstar_tpu_torch.tools.profile_search --runs yolo`` (torch.profiler
     # imports triton, which this script must not)
-    row = {"forward": fwd, "search_wall_s": wall, "eager_wall_s": e_wall, "peak_mib": peak / 2**20,
-           "grid": st.steps, "verify": st.verify_widths, "anchors_above": above}
+    row = {"forward": fwd, "search_wall_s": wall, "eager_wall_s": e_wall,
+           "peak_mib": (peak - resident) / 2**20, "grid": st.steps, "verify": st.verify_widths, "anchors_above": above}
     return heur, row, counts
 
 
@@ -2100,18 +2146,413 @@ def phase_checkpoints(torch, card, yolo):
 def phase_10(torch, card):
     """Phase 10: YOLO-World, the NMS kernel and the checkpoints."""
     t0 = time.perf_counter()
+    resident = torch.cuda.memory_allocated()     # phase 9a's model, kept for phase 11
     nms_rows = phase_nms(torch, card)
     gc.collect()
     torch.cuda.empty_cache()      # the plain version's (B, N, N) IoU tensors
-    yolo, row, counts = phase_yolo(torch, card)
+    yolo, row, counts = phase_yolo(torch, card, resident)
     batched_counts, batched_dtype = phase_yolo_batched(torch, card, yolo)
     phase_yolo_numerics(torch, card)
     phase_checkpoints(torch, card, yolo)
-    del yolo
     torch.cuda.empty_cache()
     log(f"[yolo] phase 10 wall {time.perf_counter() - t0:.1f} s ({card})")
     return {"nms": nms_rows, "yolo": row, "counts": counts, "batched_counts": batched_counts,
-            "batched_dtype": batched_dtype}
+            "batched_dtype": batched_dtype, "heuristic": yolo}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the T* pipeline end to end
+# ---------------------------------------------------------------------------
+
+PIPELINE_STAGES = ("grounding", "decode_and_setup", "search", "qa")
+
+
+class GroundingStandIn:
+    """The backend phase 11's grounder talks to.  The grounding request (the
+    prompt that asks for key objects) runs through the real backend at full
+    width and at the cap the framework asks for, its decode steps, seconds
+    and kernel launches recorded; its answer is then replaced by the scene's
+    two lines, because seeded weights cannot name the scene's objects.  Every
+    other request (the QA stage) goes to the real backend at temperature 0,
+    so that its answer can be held against a direct ``inference_qa``."""
+
+    LINES = "couch, lamp\ntv"
+
+    def __init__(self, torch, backend):
+        self.torch, self.backend, self.requests = torch, backend, []
+
+    def inference_with_frames(self, query, frames=None, temperature=0.7, max_tokens=128, **kw):
+        if "key objects" not in query:
+            return self.backend.inference_with_frames(query, frames, 0.0, max_tokens, **kw)
+        from tstar_tpu_torch.kernels import launch_counts
+
+        stats = self.backend.stats
+        steps0, before = stats.decode_steps, launch_counts()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = self.backend.inference_with_frames(query, frames, temperature, max_tokens, **kw)
+        self.torch.cuda.synchronize()
+        after = launch_counts()
+        self.requests.append({
+            "seconds": time.perf_counter() - t0, "max_tokens": max_tokens,
+            "decode_steps": stats.decode_steps - steps0,
+            "prefill_ms": stats.prefill_ms[-1] if stats.prefill_ms else None,
+            "decode_ms": stats.decode_ms[-1] if stats.decode_ms else None,
+            "model_text": text[:40], "launches": {k: after[k] - before[k] for k in after},
+        })
+        return self.LINES
+
+
+def pipeline_run(torch, card, label, heur, grounder, config, decoder, repeat=2):
+    """``TStarFramework.run()`` on the synthetic 600 s video (the phase-5
+    search's settings, artifacts off, QA at temperature 0 through the
+    stand-in), ``repeat`` times; every launch count set to 0 just before
+    each run and read just after it.  -> (framework, its searcher, result,
+    launch counts, wall s, peak bytes, bytes allocated as the run began) of
+    the last run."""
+    import tempfile
+
+    from tstar_tpu_torch.framework.framework import TStarFramework
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    with tempfile.TemporaryDirectory() as out:
+        for i in range(repeat):
+            fw = None                   # the last run's searcher, its cache and graphs
+            gc.collect()
+            fw = TStarFramework("mem://synthetic-600s", heur, grounder, QA_QUESTION, QA_OPTIONS,
+                                search_budget=0.5, config=config, output_dir=out, seed=0,
+                                save_artifacts=False, decoder=decoder, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fw.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            timings = fw.results["Timings"]
+            stages = " ".join(f"{k} {timings[k]['total_s']:.4f} s" for k in PIPELINE_STAGES)
+            log(f"[{label}] run {i + 1} of {repeat} ({'warm' if i else 'first'}): "
+                f"wall {wall:.4f} s = {stages} ({card})")
+    return (fw, fw.video_searcher, result, counts, wall, torch.cuda.max_memory_allocated(),
+            resident)
+
+
+def pipeline_checks(torch, card, label, fw, s, result, counts, standin, per_forward, per_run,
+                    decoder):
+    """The checks 11a and 11b share: the keyframes equal a plain ``search()``
+    on the same seed, one history row a search step and two host reads a
+    step, each kernel's launches equal to its launches per grid / verify
+    forward times the forwards plus ``per_run`` (the prompts' text encode
+    and the two VLM requests), K3 54 in the grounding request, and the answer
+    equal to a direct ``inference_qa`` at temperature 0 on the keyframes,
+    whose request launches K3 54 times and no other kernel."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    st = s.step_stats
+    forwards = (st.steps, len(st.verify_widths))
+    objects = result["Grounding Objects"]
+    plain = fw.initialize_videoSearcher(objects["target_objects"], objects["cue_objects"])
+    visual = fw.initialize_videoSearcher(objects["target_objects"], objects["cue_objects"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stamps = plain.search()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, v_stamps = visual.search_with_visualization()
+    torch.cuda.synchronize()
+    visual_wall = time.perf_counter() - t0
+    frames = list(decoder.decode_batch([int(t * s.raw_fps) for t in result["Frame Timestamps"]]))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answer = fw.grounder.inference_qa(frames, QA_QUESTION, QA_OPTIONS, temperature=0.0)
+    torch.cuda.synchronize()
+    qa_s = time.perf_counter() - t0
+    qa_counts = launch_counts()
+
+    def expected(k):
+        n = per_forward.get(k, 0)
+        g, v = n if isinstance(n, tuple) else (n, n)
+        return g * forwards[0] + v * forwards[1] + per_run.get(k, 0)
+
+    grounding = standin.requests[-1]
+    checks = {
+        "grounding objects from the stand-in's lines":
+            result["Grounding Objects"] == {"target_objects": ["couch", "lamp"],
+                                            "cue_objects": ["tv"]},
+        "keyframes == a plain search() on the same seed": result["Frame Timestamps"] == stamps,
+        "search_with_visualization again == search()": v_stamps == stamps,
+        "one history row a step": len(s.P_history) == len(s.sampled_history) == st.steps > 0,
+        "two host reads a step, graphs replayed": st.host_reads == 2 * st.steps and st.replays > 0,
+        "grounding at the framework's cap (512)": grounding["max_tokens"] == 512,
+        "K3 54 in the grounding request": grounding["launches"]["fused_layernorm"] == 54,
+        **{f"{k} {per_forward.get(k, 0)} per (grid, verify) forward + {per_run.get(k, 0)} a run":
+           counts[k] == expected(k) for k in KERNELS},
+        "answer == inference_qa at temperature 0 on the keyframes": result["Answer"] == answer,
+        "K3 54 in the QA request, no other kernel":
+            qa_counts["fused_layernorm"] == 54 and sum(qa_counts.values()) == 54,
+        "8 keyframes in range": len(stamps) == 8 and all(0 <= t < 600 for t in stamps),
+    }
+    timings = fw.results["Timings"]
+    log(f"[{label}] stages (StageTimer, each ended by torch.cuda.synchronize()): "
+        + ", ".join(f"{k} {timings[k]['total_s']:.4f} s" for k in PIPELINE_STAGES)
+        + f"; grounding request {grounding['seconds']:.4f} s for {grounding['decode_steps']} "
+        f"decode steps (cap {grounding['max_tokens']}; prefill {grounding['prefill_ms']} ms, "
+        f"decode {grounding['decode_ms']} ms; the seeded model wrote {grounding['model_text']!r}"
+        f"...) ({card})")
+    log(f"[{label}] search: {st.steps} steps, {forwards[0]} grid + {forwards[1]} verify "
+        f"forwards ({st.verify_widths}), {st.host_reads / st.steps:.2f} host reads and "
+        f"{st.replays / st.steps:.2f} replays a step, {st.captures} captures; keyframes "
+        f"{result['Frame Timestamps']}; search() {plain_wall:.4f} s vs "
+        f"search_with_visualization() {visual_wall:.4f} s (fresh searchers, warm); QA request "
+        f"{qa_s:.4f} s, answer {answer[:24]!r}; launches in run(): "
+        f"{ {k: v for k, v in counts.items() if v} } ({card})")
+    failed = [k for k, v in checks.items() if not v]
+    log(f"[{label}] checks: {len(checks)} {'OK' if not failed else 'FAIL ' + str(failed)}")
+    if failed:
+        raise SystemExit(f"{label} checks failed: {failed}")
+    return {"stages_s": {k: timings[k]["total_s"] for k in PIPELINE_STAGES},
+            "grounding_request_s": grounding["seconds"],
+            "grounding_decode_steps": grounding["decode_steps"],
+            "grounding_prefill_ms": grounding["prefill_ms"],
+            "grounding_decode_ms": grounding["decode_ms"],
+            "search_s": plain_wall, "search_with_visualization_s": visual_wall, "qa_s": qa_s,
+            "steps": st.steps, "forwards": forwards, "captures": st.captures}
+
+
+def pipeline_grounder(torch, model, tok):
+    """Phase 11's grounder: ``UniversalGrounder`` over ``GroundingStandIn``
+    over the 7B-wide LLaVA-OneVision of phase 9a."""
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
+    from tstar_tpu_torch.models.generate import GenerateStats
+
+    backend = TorchVLMBackend.from_model(model, tok)
+    backend.stats = GenerateStats(timed=True)
+    log("[pipeline] the grounder's backend is a stand-in for the grounding request only: that "
+        "request runs on the 7B-wide model at the framework's 512-token cap and is timed, then "
+        "its answer is replaced by the scene's two lines ('couch, lamp' / 'tv'), since seeded "
+        "weights cannot name the scene's objects; the QA request goes to the model unchanged "
+        "but for its temperature, set to 0 (the real parse path: phase 11c and the CPU tests)")
+    return UniversalGrounder("llava-onevision-7b", backend=GroundingStandIn(torch, backend))
+
+
+def pipeline_memory(label, card, peak, resident, weights):
+    """Log a run's peak memory: the whole, the bytes allocated as it began
+    (``weights``: the VLM's and the heuristic's parameters; the rest what
+    earlier runs left, such as the VLM's decode buckets) and the peak above
+    them."""
+    log(f"[{label}] peak memory {peak / 1e9:.2f} GB = {resident / 1e9:.2f} GB allocated as run() "
+        f"began (the VLM's and the heuristic's weights {weights / 1e9:.2f} GB; the rest left by "
+        f"earlier runs) + {(peak - resident) / 1e9:.2f} GB above it ({card})")
+    return {"peak_gb": peak / 1e9, "resident_gb": resident / 1e9, "weights_gb": weights / 1e9}
+
+
+def param_bytes(*modules):
+    return sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+
+
+def pipeline_owl(torch, card, grounder, vlm_bytes):
+    """Phase 11a: the pipeline with ``owl-vit-random`` B/32 in bf16 and the
+    7B-wide LLaVA-OneVision of phase 9a."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    cfg = SearchConfig(cache_hw=(192, 384))
+    decoder = default_scene(600.0)
+    fw, s, result, counts, wall, peak, resident = pipeline_run(
+        torch, card, "pipeline owl", heur, grounder, cfg, decoder)
+    text_ln = 2 * heur.model.cfg.text.num_layers + 1
+    row = pipeline_checks(
+        torch, card, "pipeline owl", fw, s, result, counts, grounder.backend,
+        per_forward=dict(fused_mha_from_qkv=12, patch_embed_matmul=1, fused_layernorm=27),
+        per_run={"fused_layernorm": text_ln + 2 * 54}, decoder=decoder)
+    row.update(wall_s=wall, **pipeline_memory("pipeline owl", card, peak, resident,
+                                              vlm_bytes + param_bytes(heur.model)))
+    log(f"[pipeline owl] run() wall {wall:.4f} s ({card})")
+    return row, counts, heur
+
+
+def pipeline_yolo(torch, card, yolo, grounder, vlm_bytes):
+    """Phase 11b: the pipeline with phase 10's YOLO-World v2-XL
+    (``calibrated_yolo_xl``, bf16); the history's boxes are the NMS'd set."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    cfg = SearchConfig(cache_hw=(192, 384))
+    decoder = default_scene(600.0)
+    fw, s, result, counts, wall, peak, resident = pipeline_run(
+        torch, card, "pipeline yolo", yolo, grounder, cfg, decoder)
+    text_ln = 2 * yolo.text_model.text_cfg.num_layers + 1
+    row = pipeline_checks(torch, card, "pipeline yolo", fw, s, result, counts, grounder.backend,
+                          per_forward={"greedy_nms": 1},
+                          per_run={"fused_layernorm": text_ln + 2 * 54}, decoder=decoder)
+    with torch.no_grad():
+        _, _, dets = s.scorer.score_grid_detailed(
+            torch.tensor(s.sampled_history[0], device="cuda"))
+    valid = dets["valid"].cpu()
+    first = s.detect_bbox_iters[0]
+    same = (len(first["boxes"]) == int(valid.sum())
+            and first["class_ids"].tolist() == dets["class_ids"].cpu()[valid].tolist()
+            and bool(torch.allclose(torch.from_numpy(first["boxes"]).float(),
+                                    dets["boxes"].cpu()[valid].float(), atol=1e-2)))
+    sizes = [len(d["boxes"]) for d in s.detect_bbox_iters]
+    ok = same and len(sizes) == len(s.sampled_history) and max(sizes) <= yolo.model.cfg.max_dets
+    log(f"[pipeline yolo] detect_bbox_iters: {sizes} boxes an iteration (at most max_dets "
+        f"{yolo.model.cfg.max_dets}); iteration 0's set equal to score_grid_detailed's NMS'd "
+        f"(valid) detections on its seconds: {same} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("pipeline yolo: the detection history is not the NMS'd set")
+    weights = vlm_bytes + param_bytes(yolo.model, yolo.text_model)
+    row.update(wall_s=wall, **pipeline_memory("pipeline yolo", card, peak, resident, weights))
+    return row, counts
+
+
+def pipeline_numerics(torch, card):
+    """Phase 11c: a tiny pipeline in f32 (phase 9c's tiny LLaVA-OneVision
+    checkpoint through ``UniversalGrounder(model_path=)``, a tiny
+    ``owl-vit-random``), on the card and on the CPU, at temperature 0 with
+    TF32 off and the search's noise drawn on the CPU and replayed on both
+    (the search steps eagerly here; 11a and 11b hold the graph path):
+    ``run()``'s grounding objects (or the same parse error), timestamps and
+    answer are equal.  Where the tiny model's grounding does not parse, the
+    framework's own stages then run with the scene's objects, on both."""
+    import tempfile
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.framework import TStarFramework
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.grounding.prompts import GroundingParseError
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.models import owlvit as tow
+    from tstar_tpu_torch.models.loader import save_vlm_checkpoint
+    from tstar_tpu_torch.ops.sampling import draw_gumbel
+    from tstar_tpu_torch.search import searcher as tsearcher
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    tiny_owl = tow.OwlViTConfig(
+        vision=tow.VisionConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                                patch_size=16, image_size=64),
+        text=tow.TextConfig(vocab_size=100, hidden_size=24, num_layers=2, num_heads=4,
+                            intermediate_size=48, max_length=8),
+        projection_dim=24)
+    cfg = SearchConfig(cache_hw=(32, 64))
+    n_pad = cfg.padded_frames(600)
+    g = torch.Generator().manual_seed(7)
+    noise = [draw_gumbel(g, n_pad, "cpu").numpy() for _ in range(cfg.iteration_cap(600) + 1)]
+    real_init, real_history = tsearcher.init_state, tsearcher.run_search_with_history
+    models, special = tiny_vlms(torch)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        save_vlm_checkpoint(models["llava"], d)
+        byte_tokenizer(d, special)
+        for device in ("cuda", "cpu"):
+            grounder = UniversalGrounder("llava-tiny", model_path=d, device=device,
+                                         dtype=torch.float32)
+            heur = initialize_heuristic("owl-vit-random", device=device, dtype=torch.float32,
+                                        model_config=tiny_owl, seed=1)
+            fw = TStarFramework("mem://synthetic-600s", heur, grounder, QA_QUESTION, QA_OPTIONS,
+                                search_budget=0.5, config=cfg, output_dir=d, seed=0,
+                                save_artifacts=False, decoder=default_scene(600.0),
+                                device=device)
+            replay = lambda *a, **k: real_init(*a, **k).replace(rng=iter(noise))  # noqa: E731
+            eager = lambda st, sc, c, graphs=None, stats=None: real_history(  # noqa: E731
+                st, sc, c, False, stats)
+            qa_at_0 = functools.partial(grounder.inference_qa, temperature=0.0)
+            with patched(tsearcher, "init_state", replay), \
+                    patched(tsearcher, "run_search_with_history", eager), \
+                    patched(grounder, "inference_qa", qa_at_0):
+                try:
+                    r = fw.run()
+                    out[device] = ("run", r["Grounding Objects"], r["Frame Timestamps"],
+                                   r["Answer"])
+                except GroundingParseError as e:
+                    searcher = fw.initialize_videoSearcher(["couch", "lamp"], ["tv"])
+                    frames, stamps = fw.perform_search(searcher, visualization=True)
+                    out[device] = (f"{type(e).__name__}: {e}", None, stamps,
+                                   fw.perform_qa(frames))
+    a = out["cuda"]
+    ok = a == out["cpu"] and len(a[2]) == 8
+    log(f"[pipeline numerics] tiny LLaVA-OneVision checkpoint + tiny owl-vit-random, f32, "
+        f"temperature 0, the CPU's noise: grounding {str(a[0] if a[1] is None else a[1])[:70]!r}, "
+        f"timestamps {a[2]}, answer {a[3][:24]!r}; cuda == cpu: {a == out['cpu']} "
+        f"{'OK' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise SystemExit(f"phase 11c: the pipeline on the card differs from the CPU: {out}")
+
+
+def pipeline_batched(torch, card, heur):
+    """Phase 11d: ``search_videos(collect_history=True)`` over phase 8's B = 8
+    bucket: the keyframes and iterations of the same bucket without history,
+    two host reads a step, each row's history the video's steps."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.parallel.multi_video import search_videos
+    from tstar_tpu_torch.search.step_graphs import StepStats
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    runs = {}
+    for hist in (False, True):
+        search_videos(_batched_tasks(), heur, cfg, collect_history=hist)         # warm-up
+        stats = StepStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = search_videos(_batched_tasks(), heur, cfg, stats=stats, collect_history=hist)
+        torch.cuda.synchronize()
+        runs[hist] = (res, stats, time.perf_counter() - t0)
+    (plain, p_st, p_wall), (hist, h_st, h_wall) = runs[False], runs[True]
+    checks = {
+        "keyframes and iterations == without history": all(
+            h["keyframe_secs"] == p["keyframe_secs"] and h["iterations"] == p["iterations"]
+            for p, h in zip(plain, hist)),
+        "two host reads a step": h_st.host_reads == 2 * h_st.steps and h_st.replays > 0,
+        "one capture per phase, as without history": h_st.captures == p_st.captures,
+        "each row's sampled_history: its video's steps": all(
+            len(h["sampled_history"]) == len(h["P_history"]) == len(h["detect_bbox_iters"])
+            == h["iterations"] for h in hist),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    log(f"[pipeline batched] B=8 x 600 s with collect_history: {h_st.steps} steps, iterations "
+        f"{[h['iterations'] for h in hist]}; wall {h_wall:.4f} s vs {p_wall:.4f} s without "
+        f"history (decode and upload of the 8 caches included); {h_st.host_reads / h_st.steps:.2f} "
+        f"host reads a step, {h_st.captures} captures; checks {len(checks)} "
+        f"{'OK' if not failed else 'FAIL ' + str(failed)} ({card})")
+    if failed:
+        raise SystemExit(f"phase 11d checks failed: {failed}")
+    return {"wall_s": h_wall, "plain_wall_s": p_wall, "steps": h_st.steps}
+
+
+def phase_11(torch, card, vlm_7b_model, yolo):
+    """Phase 11: the T* pipeline (module docstring).  Returns the rows and
+    the launch counts of 11a's and 11b's runs."""
+    t0 = time.perf_counter()
+    model, tok = vlm_7b_model
+    vlm_bytes = param_bytes(model)
+    grounder = pipeline_grounder(torch, model, tok)
+    with torch.no_grad():
+        yolo_row, yolo_counts = pipeline_yolo(torch, card, yolo, grounder, vlm_bytes)
+        del yolo
+        gc.collect()
+        torch.cuda.empty_cache()
+        owl_row, owl_counts, heur = pipeline_owl(torch, card, grounder, vlm_bytes)
+    del grounder
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_numerics(torch, card)
+    batched_row = pipeline_batched(torch, card, heur)
+    log(f"[pipeline] phase 11 wall {time.perf_counter() - t0:.1f} s ({card})")
+    return {"rows": {"owl": owl_row, "yolo": yolo_row, "batched": batched_row},
+            "counts": {"owl": owl_counts, "yolo": yolo_counts}}
+
+
+def log_allocated(torch, phase):
+    """What earlier phases left allocated, which each later phase's peak
+    memory includes (phases 10b and 11 count theirs above it)."""
+    log(f"[memory] {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated as {phase} begins")
 
 
 def main() -> int:
@@ -2143,13 +2584,24 @@ def main() -> int:
     phase_k6_trace(torch, card, heur)
     batched_counts, batched_k6 = phase_batched(torch, card, heur)
     del heur
+    gc.collect()
     torch.cuda.empty_cache()
-    vlm = phase_vlm(torch, card)
+    log_allocated(torch, "phase 9")
+    vlm, vlm_7b_model = phase_vlm(torch, card)
+    # phase 11 keeps the 7B model's weights, not its decode buckets
+    vlm_7b_model[0]._decode_buckets.clear()
     log("[vlm] " + json.dumps(vlm))
     gc.collect()
     torch.cuda.empty_cache()
+    log_allocated(torch, "phase 10")
     p10 = phase_10(torch, card)
     log("[yolo] " + json.dumps({k: p10[k] for k in ("nms", "yolo", "batched_dtype")}))
+    log_allocated(torch, "phase 11")
+    p11 = phase_11(torch, card, vlm_7b_model, p10.pop("heuristic"))
+    del vlm_7b_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[pipeline] " + json.dumps(p11["rows"]))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -2202,6 +2654,9 @@ def main() -> int:
             "launches_vlm_request": vlm["k3_launches_per_request"] if k == "K3" else 0,
             # phase 10b's YOLO-World v2-XL search: K3 in the prompts' text encode
             "launches_yolo_search": p10["counts"][name],
+            # phase 11a / 11b: run() of the T* pipeline (grounding, search, QA)
+            "launches_pipeline": p11["counts"]["owl"][name],
+            "launches_pipeline_yolo": p11["counts"]["yolo"][name],
         })
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
@@ -2218,6 +2673,8 @@ def main() -> int:
         "rows_b8_full": nms[1:], "registers": nms[0]["registers"], "spills": nms[0]["spills"],
         "launches_batched": p10["batched_counts"]["greedy_nms"], "launches_vlm_request": 0,
         "launches_yolo_search": p10["counts"]["greedy_nms"],
+        "launches_pipeline": p11["counts"]["owl"]["greedy_nms"],
+        "launches_pipeline_yolo": p11["counts"]["yolo"]["greedy_nms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -180,6 +180,39 @@ def _imported_modules(tree):
                 yield node.args[0].value.split(".")[0]
 
 
+def _module_scope_imports(tree):
+    """``_imported_modules`` of the statements that run when the module is
+    imported: everything outside function bodies."""
+    import ast
+
+    class Scope(ast.NodeVisitor):
+        def __init__(self):
+            self.nodes = []
+
+        def visit_FunctionDef(self, node):
+            self.nodes.extend(node.decorator_list)
+
+        visit_AsyncFunctionDef = visit_FunctionDef
+
+        def visit_Lambda(self, node):
+            pass
+
+        def generic_visit(self, node):
+            if isinstance(node, (ast.Import, ast.ImportFrom, ast.Call)):
+                self.nodes.append(node)
+            super().generic_visit(node)
+
+    scope = Scope()
+    scope.visit(tree)
+    return set(_imported_modules(ast.Module(body=scope.nodes, type_ignores=[])))
+
+
+# Host libraries the card's machine lacks that the port may use only when a
+# function needs them (the artifact sinks, the OpenAI backend): never at
+# module scope.
+LAZY_IMPORTS = {"PIL", "matplotlib", "imageio", "openai"}
+
+
 # Nothing the card's machine lacks: JAX and the JAX package (the port stands
 # alone), Triton (every kernel is CUDA C++), the reference's host libraries
 # (``regex``, ``cv2``, ``safetensors``, ``transformers``), and packages of
@@ -191,7 +224,7 @@ FORBIDDEN_IMPORTS = {"jax", "flax", "tstar_tpu", "regex", "cv2", "safetensors", 
 def test_no_port_module_imports_triton():
     """No file under ``tstar_tpu_torch/`` and not ``chip_smoke.py`` imports a
     module of ``FORBIDDEN_IMPORTS`` (AST scan, imports inside functions
-    included)."""
+    included), nor one of ``LAZY_IMPORTS`` at module scope."""
     import ast
     from pathlib import Path
 
@@ -204,6 +237,8 @@ def test_no_port_module_imports_triton():
         mods = set(_imported_modules(ast.parse(path.read_text(), str(path))))
         bad = mods & FORBIDDEN_IMPORTS
         assert not bad, f"{path.relative_to(root.parent)} imports {sorted(bad)}"
+        eager = _module_scope_imports(ast.parse(path.read_text(), str(path))) & LAZY_IMPORTS
+        assert not eager, f"{path.relative_to(root.parent)} imports {sorted(eager)} at module scope"
     # the scan sees function-level and dotted imports, and each name
     for src in ("def f():\n    import triton.language\n", "import regex as re\n",
                 "from cv2 import resize\n", "import importlib\nimportlib.import_module('safetensors.torch')\n",
@@ -212,6 +247,14 @@ def test_no_port_module_imports_triton():
                 "from torchvision.ops import batched_nms\n", "import mmcv.ops\n"):
         assert set(_imported_modules(ast.parse(src))) & FORBIDDEN_IMPORTS, src
     assert not set(_imported_modules(ast.parse("import re\nimport tstar_tpu_torch\n"))) & FORBIDDEN_IMPORTS
+    for src in ("from PIL import Image\n", "import matplotlib.pyplot as plt\n",
+                "if True:\n    import imageio\n", "class A:\n    import openai\n",
+                "try:\n    from PIL import ImageDraw\nexcept ImportError:\n    pass\n"):
+        assert _module_scope_imports(ast.parse(src)) & LAZY_IMPORTS, src
+    for src in ("def f():\n    from PIL import Image\n",
+                "class A:\n    def f(self):\n        import openai\n",
+                "async def g():\n    import matplotlib\n"):
+        assert not _module_scope_imports(ast.parse(src)) & LAZY_IMPORTS, src
 
 
 def test_cpu_wrappers_run_the_plain_versions():

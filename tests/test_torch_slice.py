@@ -287,6 +287,10 @@ PORT_MODULES = [
     "tstar_tpu_torch.ops.nms", "tstar_tpu_torch.kernels.nms", "tstar_tpu_torch.models.clip_tokenizer",
     "tstar_tpu_torch.models.yoloworld", "tstar_tpu_torch.models.yolo_loader",
     "tstar_tpu_torch.search.yolo_scorer", "tstar_tpu_torch.framework.heuristics",
+    "tstar_tpu_torch.framework.framework", "tstar_tpu_torch.search.snapshot",
+    "tstar_tpu_torch.grounding.openai_backend", "tstar_tpu_torch.utils.profiling",
+    "tstar_tpu_torch.viz", "tstar_tpu_torch.viz.artifacts", "tstar_tpu_torch.viz.boxes",
+    "tstar_tpu_torch.cli", "tstar_tpu_torch.cli.demo",
 ]
 
 
@@ -294,12 +298,14 @@ def test_port_imports_no_jax():
     """The port package, every slice module and ``chip_smoke`` (imported, not
     run) load without JAX, flax, triton, any module of the JAX package, or
     the packages the card's machine lacks (regex, cv2, safetensors,
-    transformers, torchvision, mmcv)."""
+    transformers, torchvision, mmcv; PIL, matplotlib, imageio and openai,
+    which the artifact sinks and the OpenAI backend import when called)."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'triton', 'tstar_tpu', 'regex',\n"
-        "       'cv2', 'safetensors', 'transformers', 'torchvision', 'mmcv')\n"
+        "       'cv2', 'safetensors', 'transformers', 'torchvision', 'mmcv', 'PIL',\n"
+        "       'matplotlib', 'imageio', 'openai')\n"
         "       or m.startswith('tstar_tpu.')]\n"
         "assert not bad, bad\n"
     )

@@ -273,9 +273,27 @@ def test_batched_failure_raises_and_item_failures_stay(grounders):
     assert all(isinstance(r, (tuple, GroundingParseError)) for r in real)
 
 
-def test_gpt_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+def test_gpt_raises_naming_the_roadmap(monkeypatch):
+    """The ``gpt`` route is ported (``grounding/openai_backend.py``): without
+    ``OPENAI_API_KEY`` it raises ValueError, as the reference's does; with a
+    key it builds the backend, here over a stub ``openai`` client that
+    answers."""
+    import sys
+    import types
+
+    reply = types.SimpleNamespace(
+        choices=[types.SimpleNamespace(message=types.SimpleNamespace(content=" B "))])
+    client = types.SimpleNamespace(chat=types.SimpleNamespace(
+        completions=types.SimpleNamespace(create=lambda **kw: reply)))
+    fake_openai = types.ModuleType("openai")
+    fake_openai.OpenAI = lambda api_key=None: client
+    monkeypatch.setitem(sys.modules, "openai", fake_openai)
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    with pytest.raises(ValueError, match="OPENAI_API_KEY"):
         tuniversal.UniversalGrounder("gpt-4o")
+    monkeypatch.setenv("OPENAI_API_KEY", "test-key")
+    g = tuniversal.UniversalGrounder("gpt-4o")
+    assert g.inference_qa([np.zeros((8, 8, 3), np.uint8)], "q?", "A) x\nB) y") == "B"
     with pytest.raises(ValueError, match="LOCAL checkpoint"):
         tuniversal.UniversalGrounder("qwen2-vl", model_path="/no/such/dir")
 

@@ -8,7 +8,8 @@ cache, with the reference's Gumbel draws replayed.  Single and batched (B =
 2: the reference vmaps its single-video step over the stacked scorer, the
 port runs the flat batch methods): the seconds sampled in every iteration,
 the keyframes, the iterations and the remaining targets are EQUAL; final
-scores agree to 1e-5.
+scores agree to 1e-5.  The single search's history (with the NMS'd
+detections) is held entry by entry against the same reference run.
 """
 
 import dataclasses
@@ -77,12 +78,20 @@ def _jscorer(pair, frames, cfg):
     )
 
 
-def test_search_matches_reference(search_pair):
+@pytest.fixture(scope="module")
+def scene_run(search_pair):
+    """The reference's history search on the synthetic 300 s scene at seed
+    4: (host cache, reference scorer, (final, keyframe secs, history))."""
     jcfg, tcfg = JSearchConfig(**BASE), TSearchConfig(**BASE)
     host = tcache.build_frame_cache_host("mem://scene", tcfg, decoder=default_scene(300.0))
     js = _jscorer(search_pair, host.frames, jcfg)
     s0 = jinit(host.n_valid, len(TARGETS), jcfg, jax.random.key(4), n_pad=host.n_pad)
-    jfinal, jsecs, history = jeng.run_search_with_history(s0, js, jcfg)
+    return host, js, jeng.run_search_with_history(s0, js, jcfg)
+
+
+def test_search_matches_reference(search_pair, scene_run):
+    tcfg = TSearchConfig(**BASE)
+    host, js, (jfinal, jsecs, history) = scene_run
     assert len(history) >= 3
 
     heur = search_pair[4]
@@ -103,6 +112,20 @@ def test_search_matches_reference(search_pair):
     np.testing.assert_array_equal(tsecs.numpy(), np.asarray(jsecs))
     np.testing.assert_array_equal(state.remaining.numpy(), np.asarray(jfinal.remaining))
     np.testing.assert_allclose(state.scores.numpy(), np.asarray(jfinal.scores), atol=1e-5)
+
+
+def test_history_matches_reference_yolo(search_pair, scene_run):
+    """The port's history search against the reference's, entry by entry
+    (``tests/test_torch_history.py``'s tolerances): ``score_grid_detailed``
+    is the NMS'd set, ``valid`` NMS's keep.  ``P`` within 1e-2 relative (the
+    module docstring there)."""
+    from tests.test_torch_history import port_history_matches
+
+    host, _, ref = scene_run
+    tcfg = TSearchConfig(**BASE)
+    ts = search_pair[4].build_scorer(torch.from_numpy(host.frames), TARGETS, CUES, tcfg)
+    thist = port_history_matches(ref, ts, tcfg, host, seed=4, p_rtol=1e-2)
+    assert thist[0]["detections"]["valid"].any()
 
 
 def test_batched_search_matches_reference(search_pair):

@@ -11,11 +11,21 @@ batched multi-video search, both stepping through CUDA graphs on the card
       -> resident FrameCache
     parallel.search_videos -> run_search_batched_auto -> stacked OwlVitScorer
 
-and the VLM stages, grounding and QA, from a local checkpoint, decoding
-through a CUDA graph on the card (``models/generate.py``):
+the VLM stages, grounding and QA, from a local checkpoint, decoding
+through a CUDA graph on the card (``models/generate.py``), or through the
+OpenAI API:
 
     grounding.UniversalGrounder("llava..." | "qwen...", model_path=dir)
       -> TorchVLMBackend -> prepare_*_inputs -> generate
+
+and the T* pipeline end to end, which chains them (``framework/``, and the
+demo CLI ``python -m tstar_tpu_torch.cli.demo``):
+
+    run_tstar / TStarFramework.run()
+      -> grounding (UniversalGrounder.inference_query_grounding)
+      -> search (KeyframeSearcher.search_with_visualization: the same graph
+         steps, with each iteration's history)
+      -> QA (UniversalGrounder.inference_qa)
 
 Every Pallas kernel on that path has a hand-written Hopper kernel beside a
 plain PyTorch version of the same math (``kernels/``).  On a CPU tensor a
@@ -23,9 +33,11 @@ kernel wrapper runs the plain version; on a CUDA tensor it launches the
 kernel or raises.
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
-package: it keeps its own ``SearchConfig`` (``utils/config.py``).
+package: it keeps its own ``SearchConfig`` and ``FrameworkConfig``
+(``utils/config.py``).
 """
 
 __version__ = "0.1.0"
 
-from tstar_tpu_torch.utils.config import SearchConfig  # noqa: F401
+from tstar_tpu_torch.utils.config import FrameworkConfig, SearchConfig  # noqa: F401
+from tstar_tpu_torch.framework.framework import TStarFramework, run_tstar  # noqa: F401

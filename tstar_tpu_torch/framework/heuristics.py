@@ -14,7 +14,10 @@ A backend, given a device frame cache and the grounded objects, builds a
     files, or the reference's native ``.npz`` files
     (``models/yolo_loader.py``);
   * ``yolo-world-random`` — YOLO-World v2 at size ``xl`` (v2-XL, the
-    reference's evaluation detector) or ``small``, seeded random weights.
+    reference's evaluation detector) or ``small``, seeded random weights;
+  * ``color-probe`` / ``fake`` — the weight-free detector that scores each
+    second by the coverage of its objects' colors, into a ``TableScorer``
+    (the hermetic end-to-end backend for the synthetic videos).
 
 ``owl-vit`` and ``yolo-world`` without a ``checkpoint_dir`` raise
 ValueError, as the reference's do: random weights are an explicit opt-in
@@ -22,15 +25,16 @@ through the ``-random`` names.  Checkpoints are read from local paths only.
 Every backend runs on ``device`` ("cuda" unless the caller asks for the
 CPU) in ``dtype`` (bf16 unless asked otherwise).
 
-Both detector backends also carry the arrays half of the reference's
-detector surface (``reparameterize_object_list``, ``inference_detector``);
-the path-based ``inference`` and ``bbox_visualization`` need PIL and the
-viz package, which come with the framework slice (ROADMAP queue 1 item 9).
+Both detector backends also carry the reference's detector surface
+(``reparameterize_object_list``, ``inference_detector``, the path-based
+``inference`` and ``bbox_visualization``); PIL is imported by ``inference``
+only.  ``owl-vit-calibrated`` is ROADMAP queue 1 item 3 and raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import logging
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +46,9 @@ from tstar_tpu_torch.search.detector_scorer import (
     build_prompt_batch,
     make_owlvit_scorer,
 )
+from tstar_tpu_torch.search.scorers import TableScorer
+
+logger = logging.getLogger(__name__)
 
 
 class _DetectorCompatMixin:
@@ -67,6 +74,26 @@ class _DetectorCompatMixin:
     def _numpy(*tensors):
         return [t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
                 for t in tensors]
+
+    def inference(self, image_path: str, score_threshold: float = 0.3, **kw):
+        """Detect on one image file (the reference's defaults: threshold
+        0.3; YOLO-World also ``max_dets`` 100)."""
+        from PIL import Image
+
+        with Image.open(image_path) as im:
+            image = np.array(im.convert("RGB"))
+        return self.inference_detector([image], score_threshold=score_threshold, **kw)[0]
+
+    def bbox_visualization(self, images, detections_inbatch):
+        """Annotated copies of the images, one label a box."""
+        from tstar_tpu_torch.viz.boxes import draw_boxes
+
+        out = []
+        for image, det in zip(images, detections_inbatch):
+            labels = [f"{self.texts[c][0]} {s:.2f}"
+                      for c, s in zip(det["class_id"], det["confidence"]) if c < len(self.texts)]
+            out.append(draw_boxes(image, det["xyxy"], labels=labels, class_ids=det["class_id"]))
+        return out
 
 
 class OwlVitHeuristic(_DetectorCompatMixin):
@@ -211,12 +238,82 @@ class YoloWorldHeuristic(_DetectorCompatMixin):
         self.detections_inbatch = out
         return out
 
+    def inference(self, image_path: str, score_threshold: float = 0.3, max_dets: int = 100,
+                  **kw):
+        return super().inference(image_path, score_threshold=score_threshold,
+                                 max_dets=max_dets, **kw)
+
+
+# Colors of the synthetic scenes' objects (video/synthetic.py default_scene).
+DEFAULT_COLOR_MAP: Dict[str, Tuple[int, int, int]] = {
+    "couch": (200, 40, 40),
+    "tv": (40, 40, 200),
+    "chair": (40, 200, 40),
+    "table": (200, 200, 40),
+    "person": (200, 40, 200),
+    "lamp": (40, 200, 200),
+}
+
+
+class ColorProbeHeuristic:
+    """Weight-free detector: a frame's confidence for an object is the share
+    of its pixels within ``tolerance`` of the object's color, times
+    ``gain``, clipped to 1.  It builds per-second tables for a
+    ``TableScorer`` on the cache's device, so the search runs as with a
+    detector."""
+
+    def __init__(
+        self,
+        color_map: Optional[Dict[str, Tuple[int, int, int]]] = None,
+        tolerance: float = 40.0,
+        gain: float = 30.0,
+        presence_threshold: float = 0.05,
+        device="cuda",
+    ):
+        self.name = "color-probe"
+        self.device = torch.device(device)
+        self.color_map = dict(DEFAULT_COLOR_MAP if color_map is None else color_map)
+        self.tolerance = tolerance
+        self.gain = gain
+        self.presence_threshold = presence_threshold
+
+    @torch.no_grad()
+    def build_scorer(self, cache, target_objects, cue_objects, config):
+        names = list(target_objects) + list(cue_objects)
+        q = config.max_objects
+        colors = np.zeros((q, 3), np.float32)
+        active = np.zeros((q,), bool)
+        for i, n in enumerate(names):
+            if n in self.color_map:
+                colors[i] = self.color_map[n]
+                active[i] = True
+            else:
+                logger.warning("color-probe: no color registered for %r", n)
+        weights = np.full((q,), config.cue_weight, np.float32)
+        weights[: len(target_objects)] = config.target_weight
+        dev = cache.device
+        colors_t = torch.from_numpy(colors).to(dev)
+        # 32 frames at a time: (32, h, w, Q) distances, not (N, h, w, Q)
+        coverage = torch.cat([
+            (torch.linalg.vector_norm(chunk.float()[:, :, :, None, :] - colors_t, dim=-1)
+             < self.tolerance).float().mean(dim=(1, 2))
+            for chunk in cache.split(32)
+        ])                                                              # (N, Q)
+        raw_conf = (coverage * self.gain).clamp(0.0, 1.0) * torch.from_numpy(active).to(dev)
+        presence = raw_conf > self.presence_threshold
+        weighted = raw_conf * torch.from_numpy(weights).to(dev)
+        # the cell max of the weighted confidences, as the splat takes it
+        conf = torch.where(presence, weighted, torch.zeros_like(weighted)).amax(dim=-1)
+        return TableScorer(grid_conf=conf, grid_presence=presence,
+                           verify_conf=conf, verify_presence=presence)
+
 
 def initialize_heuristic(heuristic_type: str = "owl-vit", **kwargs):
     """String dispatch (the reference's ``initialize_heuristic``).  Every
-    backend takes ``device`` (default "cuda") and ``dtype`` (default bf16);
-    the checkpoint ones ``checkpoint_dir``, the random ones ``seed``;
-    ``owl-vit-random`` also ``model_config``, the YOLO ones ``size``."""
+    backend takes ``device`` (default "cuda"), the detectors ``dtype``
+    (default bf16); the checkpoint ones ``checkpoint_dir``, the random ones
+    ``seed``; ``owl-vit-random`` also ``model_config``, the YOLO ones
+    ``size``, ``color-probe`` ``color_map``."""
     name = heuristic_type.lower()
     common = {"device": kwargs.get("device", "cuda"), "dtype": kwargs.get("dtype")}
     if name in ("owl-vit", "owlv2", "owl-v2"):
@@ -243,4 +340,10 @@ def initialize_heuristic(heuristic_type: str = "owl-vit", **kwargs):
     if name == "yolo-world-random":
         return YoloWorldHeuristic(checkpoint_dir=None, size=kwargs.get("size", "xl"),
                                   seed=kwargs.get("seed", 0), **common)
-    raise NotImplementedError(f"Heuristic type '{heuristic_type}' is not ported.")
+    if name in ("color-probe", "fake"):
+        return ColorProbeHeuristic(color_map=kwargs.get("color_map"), device=common["device"])
+    if name == "owl-vit-calibrated":
+        raise NotImplementedError(
+            "initialize_heuristic('owl-vit-calibrated') is not ported yet (ROADMAP queue 1 item 3)"
+        )
+    raise NotImplementedError(f"Heuristic type '{heuristic_type}' is not implemented.")

@@ -2,9 +2,8 @@
 backend dispatch and the three inference APIs.
 
 The reference's ``TStarUniversalGrounder`` (``TStar/interface_grounding.py
-:327-468``): substring dispatch on the model name ("qwen" / "llava" /
-"fake"; "gpt" is ROADMAP queue 1 item 9 and raises here), 8-frame uniform
-video sampling for grounding, the strict 2-line grounding parse with
+:327-468``): substring dispatch on the model name ("gpt" / "qwen" / "llava"
+/ "fake"), 8-frame uniform video sampling for grounding, the strict 2-line grounding parse with
 object-name normalization and a bounded re-prompt, multiple-choice QA capped
 at 30 generated tokens, and open-ended QA.
 
@@ -59,9 +58,9 @@ class UniversalGrounder:
         if "fake" in name:
             self.backend = FakeVLM()
         elif "gpt" in name:
-            raise NotImplementedError(
-                "the OpenAI grounder is not ported yet (ROADMAP queue 1 item 9)"
-            )
+            from tstar_tpu_torch.grounding.openai_backend import OpenAIBackend
+
+            self.backend = OpenAIBackend(model=model_name, api_key=api_key)
         elif "qwen" in name or "llava" in name:
             path = model_path or model_name
             if not os.path.isdir(path):

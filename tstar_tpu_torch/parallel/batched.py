@@ -30,14 +30,17 @@ the cap below it).  Here both are the same loop of graph-stepped steps, one
 with and one without a cap, so ``_auto`` is the chained driver at every batch
 size: the cap always applies.
 
-Not ported: the mesh guard and ``scorer_batch_axes`` (TPU- and mesh-only),
-histories (``run_search_batched_with_history``, ROADMAP queue 1 item 6).
+``run_search_batched_with_history`` is the chained driver in the stepper's
+history mode: the same steps, each one's per-video snapshot kept on the
+device and read once after the loop.
+
+Not ported: the mesh guard and ``scorer_batch_axes`` (TPU- and mesh-only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -100,10 +103,12 @@ def _batched_pop(states: BatchedState, config: SearchConfig) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _run(states, scorer, config, max_iterations, graphs, stats):
-    stepper = Stepper.batched(states, scorer, config, graphs, stats)
+def _run(states, scorer, config, max_iterations, graphs, stats, history=False):
+    stepper = Stepper.batched(states, scorer, config, graphs, stats, history)
     stepper.run(max_iterations)
     final = stepper.batched_state()
+    if history:
+        return final, _batched_pop(final, config), stepper.history_rows()
     return final, _batched_pop(final, config)
 
 
@@ -132,3 +137,15 @@ def run_search_batched_auto(
     """The batched driver for any batch size: the chained one, whose cap
     applies at every B (module docstring)."""
     return run_search_batched_chained(states, scorer, config, max_iterations, graphs, stats)
+
+
+def run_search_batched_with_history(
+    states: BatchedState, scorer, config: SearchConfig, max_iterations: int,
+    graphs: Optional[bool] = None, stats: Optional[StepStats] = None,
+) -> Tuple[BatchedState, torch.Tensor, List[Dict[str, Any]]]:
+    """``run_search_batched_chained`` that also returns each step's snapshot:
+    {"active" (B,), "secs", "conf" (B, K), "P", "scores", "visited" (B,
+    N_pad)[, "detections" with a leading video axis]} of host arrays, one a
+    step (the reference's per-video history for the artifacts of batched
+    dataset runs).  The same steps and results as the chained driver."""
+    return _run(states, scorer, config, max_iterations, graphs, stats, history=True)

@@ -17,8 +17,10 @@ Until the port has a file decoder, each ``VideoTask`` carries a ``decoder``
 (as ``KeyframeSearcher(decoder=)`` does).  Videos whose full-resolution
 cache exceeds their bucket's per-video budget would take the reference's
 streaming search, which is not ported (ROADMAP queue 1 item 6): they raise,
-unless ``cache_mode='downscale'`` shrinks their cache to fit.  Not ported:
-the mesh half of ``_search_bucket`` (queue 1 item 10) and histories.
+unless ``cache_mode='downscale'`` shrinks their cache to fit.  With
+``collect_history=True`` each result row also holds the video's
+per-iteration histories (``_per_video_history``).  Not ported: the mesh
+half of ``_search_bucket`` (queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -31,10 +33,14 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from tstar_tpu_torch.parallel.batched import run_search_batched_auto, stack_scorers
+from tstar_tpu_torch.parallel.batched import (
+    run_search_batched_auto,
+    run_search_batched_with_history,
+    stack_scorers,
+)
 from tstar_tpu_torch.search.detector_scorer import resolve_pallas_preprocess
 from tstar_tpu_torch.search.state import init_state, stack_states
-from tstar_tpu_torch.search.step_graphs import StepStats
+from tstar_tpu_torch.search.step_graphs import StepStats, history_lists
 from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.video.cache import (
     FrameCache,
@@ -73,6 +79,7 @@ def _search_bucket(
     config: SearchConfig,
     graphs: Optional[bool] = None,
     stats: Optional[StepStats] = None,
+    collect_history: bool = False,
 ) -> List[Dict]:
     """Stack one bucket and search it to completion.
 
@@ -109,9 +116,15 @@ def _search_bucket(
     del scorers, states        # the stacked copies hold the frames now
 
     max_iters = max(config.iteration_cap(nv) for nv in n_valids)
-    finals, secs = run_search_batched_auto(
-        stacked, batched_scorer, batched_config, max_iters, graphs, stats
-    )
+    history = None
+    if collect_history:
+        finals, secs, history = run_search_batched_with_history(
+            stacked, batched_scorer, batched_config, max_iters, graphs, stats
+        )
+    else:
+        finals, secs = run_search_batched_auto(
+            stacked, batched_scorer, batched_config, max_iters, graphs, stats
+        )
     secs = secs.cpu().tolist()
     remaining = finals.remaining.cpu().tolist()
     iterations = finals.iteration.cpu().tolist()
@@ -119,15 +132,34 @@ def _search_bucket(
 
     results = []
     for i, task in enumerate(tasks):
-        results.append({
+        row = {
             "video_path": task.video_path,
             "keyframe_timestamps": sorted(float(s) / config.sampling_fps for s in secs[i]),
             "keyframe_secs": secs[i],
             "keyframe_distribution": final_p[i, :n_valids[i]].tolist(),
             "remaining_targets": [t for j, t in enumerate(task.target_objects) if remaining[i][j]],
             "iterations": int(iterations[i]),
-        })
+        }
+        if history is not None:
+            row.update(_per_video_history(history, i, n_valids[i]))
+        results.append(row)
     return results
+
+
+def _per_video_history(history, i: int, n_valid: int) -> Dict:
+    """Video ``i``'s histories from the batched snapshots (``P_history``,
+    ``Score_history``, ``non_visiting_history``, ``sampled_history`` and,
+    with detections, ``detect_bbox_iters``), over the steps it was active."""
+    p_hist, s_hist, nv_hist, samp, dets = history_lists(history, n_valid, video=i)
+    out = {
+        "P_history": p_hist,
+        "Score_history": s_hist,
+        "non_visiting_history": nv_hist,
+        "sampled_history": samp,
+    }
+    if dets:
+        out["detect_bbox_iters"] = [{k: v.tolist() for k, v in d.items()} for d in dets]
+    return out
 
 
 class _Uploader:
@@ -172,6 +204,7 @@ def search_videos(
     hbm_budget_bytes: Optional[int] = None,
     graphs: Optional[bool] = None,
     stats: Optional[StepStats] = None,
+    collect_history: bool = False,
 ) -> List[Dict]:
     """Search every video to completion in batched searches on the
     heuristic's device, one length bucket at a time.
@@ -187,7 +220,11 @@ def search_videos(
 
     Returns one dict per video, in task order: {"video_path",
     "keyframe_timestamps", "keyframe_secs", "keyframe_distribution",
-    "remaining_targets", "iterations"}.
+    "remaining_targets", "iterations"}, and with ``collect_history`` also
+    the video's "P_history", "Score_history", "non_visiting_history",
+    "sampled_history" and, for detector scorers, "detect_bbox_iters" (the
+    same searches: history collection changes what is copied out, not the
+    trajectory).
     """
     config = config or SearchConfig()
     device = torch.device(heuristic.device)
@@ -239,7 +276,7 @@ def search_videos(
                 oom = False
                 try:
                     out = _search_bucket([tasks[i] for i in bucket], caches, heuristic, config,
-                                         graphs, stats)
+                                         graphs, stats, collect_history)
                 except torch.cuda.OutOfMemoryError:
                     if attempt == 2:
                         raise

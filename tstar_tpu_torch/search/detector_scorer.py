@@ -21,8 +21,9 @@ query embeddings, masks and class weights on a leading video axis, weights
 shared) scores with the flat batch methods: ``score_grid_batch`` (one grid
 canvas per video, one detector forward over the B canvases with per-video
 queries), ``score_verify_batch`` and ``score_verify_flat`` (any (video,
-second) pairs in one forward).  Streaming caches and the detailed methods
-are later slices.
+second) pairs in one forward).  ``score_grid_detailed`` and
+``score_grid_batch_detailed`` also return the grid images' top detections,
+for the search's history.  Streaming caches are a later slice.
 """
 
 from __future__ import annotations
@@ -182,8 +183,9 @@ class OwlVitScorer:
             queries=queries,
         )
 
-    def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(K,) seconds -> one grid image -> (conf (K,), presence (K, C))."""
+    def _score_grid_full(self, secs: torch.Tensor):
+        """(K,) seconds -> one grid image -> (conf (K,), presence (K, C), the
+        grid image's raw (scores, class_ids, boxes))."""
         cfg = self.config
         grid_shape = (cfg.grid_rows, cfg.grid_cols)
         size = self.detection_image_size
@@ -210,7 +212,23 @@ class OwlVitScorer:
             grid_shape=grid_shape, image_hw=(size, size),
             num_classes=self.num_classes,
         )
-        return conf_map.reshape(-1), presence
+        return conf_map.reshape(-1), presence, (scores[0], class_ids[0], boxes[0])
+
+    def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K,) seconds -> one grid image -> (conf (K,), presence (K, C))."""
+        conf, presence, _ = self._score_grid_full(secs)
+        return conf, presence
+
+    def score_grid_detailed(
+        self, secs: torch.Tensor, max_boxes: int = 64
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """``score_grid`` + the grid image's top ``max_boxes`` raw detections
+        (the reference's per-iteration detection history): {"scores",
+        "class_ids", "boxes" (xyxy in detector-image pixels), "valid" (above
+        the post-process threshold)}, highest score first, ties in box
+        order."""
+        conf, presence, raw = self._score_grid_full(secs)
+        return conf, presence, _top_detections(*raw, max_boxes, self.config.detector_threshold)
 
     def score_verify(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(T,) seconds, each rescored alone at the verification view's size."""
@@ -243,12 +261,13 @@ class OwlVitScorer:
 
     # ---- flat multi-video batch (stacked scorer) ------------------------------
 
-    def score_grid_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _score_grid_batch_full(self, secs: torch.Tensor):
         """(B, K) seconds -> one grid canvas per video -> ONE detector forward
         over the B canvases with each video's queries -> (conf (B, K),
-        presence (B, K, C)).  Routes as the reference's: K6 under its gate
-        (which an image batch of 8 opens), the composed projection, else the
-        pixel chain; K7 is off in a batched search."""
+        presence (B, K, C), raw (scores, class_ids, boxes) with a leading B
+        axis).  Routes as the reference's: K6 under its gate (which an image
+        batch of 8 opens), the composed projection, else the pixel chain; K7
+        is off in a batched search."""
         cfg = self.config
         grid_shape = (cfg.grid_rows, cfg.grid_cols)
         size = self.detection_image_size
@@ -271,7 +290,22 @@ class OwlVitScorer:
             boxes, scores, class_ids, keep, self.class_weights,
             grid_shape=grid_shape, image_hw=(size, size), num_classes=self.num_classes,
         )
-        return conf_map.reshape(secs.shape[0], -1), presence
+        return conf_map.reshape(secs.shape[0], -1), presence, (scores, class_ids, boxes)
+
+    def score_grid_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, K) seconds -> (conf (B, K), presence (B, K, C)): one detector
+        forward over the B videos' grid canvases."""
+        conf, presence, _ = self._score_grid_batch_full(secs)
+        return conf, presence
+
+    def score_grid_batch_detailed(
+        self, secs: torch.Tensor, max_boxes: int = 64
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """``score_grid_batch`` + each video's top ``max_boxes`` raw
+        detections, every field with a leading video axis (as
+        ``score_grid_detailed``)."""
+        conf, presence, raw = self._score_grid_batch_full(secs)
+        return conf, presence, _top_detections(*raw, max_boxes, self.config.detector_threshold)
 
     def score_verify_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) seconds -> ONE flat (B*T)-image verification forward ->
@@ -295,6 +329,21 @@ class OwlVitScorer:
             pixels, (self.query_embeds[video_idx], self.query_mask[video_idx]),
             self.class_weights[video_idx],
         )
+
+
+def _top_detections(scores, class_ids, boxes, max_boxes: int, threshold: float):
+    """The ``max_boxes`` highest-scoring detections along the box axis, as
+    ``lax.top_k`` orders them (ties: the lower box index first; a stable
+    descending sort, where ``torch.topk`` promises no order)."""
+    m = min(max_boxes, scores.shape[-1])
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :m]
+    top = scores.gather(-1, idx)
+    return {
+        "scores": top,
+        "class_ids": class_ids.gather(-1, idx),
+        "boxes": boxes.gather(-2, idx[..., None].expand(*idx.shape, boxes.shape[-1])),
+        "valid": top > threshold,
+    }
 
 
 def build_prompt_batch(

@@ -31,7 +31,7 @@ once unless ``deterministic_pop``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -237,3 +237,24 @@ def run_search_chained(
         max_iterations = config.iteration_cap(state.n_valid)
     final = run_single(state, scorer, config, max_iterations, graphs, stats)
     return final, pop_frame_secs(final, config)
+
+
+def run_search_with_history(
+    state: SearchState, scorer: Scorer, config: SearchConfig,
+    graphs: Optional[bool] = None, stats=None,
+) -> Tuple[SearchState, torch.Tensor, List[Dict[str, Any]]]:
+    """``run_search`` that also keeps each step's snapshot for the
+    visualization sinks: (final state, keyframe seconds, history), one
+    history entry a step with the host arrays ``P``, ``scores``, ``visited``
+    (N_pad,), ``secs``, ``conf`` (K,) and, where the scorer has
+    ``score_grid_detailed``, ``detections`` ({"scores", "class_ids",
+    "boxes", "valid"}, the grid image's top boxes).
+
+    The same steps as ``run_search`` (on a CUDA device through the same CUDA
+    graphs, in history mode: ``step_graphs.Stepper``), so the same
+    trajectory and two host reads a step; the history is read once, after
+    the loop."""
+    from tstar_tpu_torch.search.step_graphs import run_single
+
+    final, history = run_single(state, scorer, config, None, graphs, stats, history=True)
+    return final, pop_frame_secs(final, config), history

@@ -31,13 +31,28 @@ their capture recorded (the capture itself launches nothing).
 
 On the CPU, or with ``graphs=False``, the same phase functions run eagerly
 every time, and noise is drawn only for videos still searching.
+
+History mode (``history=True``, the drivers behind the reference's
+``run_search_with_history`` and ``run_search_batched_with_history``) keeps
+what each step did for the visualization sinks: phase (a) scores the grid
+through the scorer's detailed method where it has one
+(``score_grid_detailed`` / ``score_grid_batch_detailed``), which computes the
+same confidences and also writes the grid image's detections into static
+buffers; phase (c) copies the step's snapshot (active mask, sampled seconds,
+grid confidences, the committed ``P`` / ``scores`` / ``visited`` and the
+detections) device to device into ``(cap, ...)`` buffers at the row of a
+step counter kept on the device.  ``cap`` is the most steps the budgets
+allow (``ceil(budget / K)``, read with the setup read).  The buffers are read
+once, after the loop, so a history search makes the same two host reads a
+step as one without.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tstar_tpu_torch.ops.sampling import draw_gumbel
@@ -92,9 +107,12 @@ class Stepper:
 
     def __init__(self, *, scores, visited, P, remaining, budget, n_valid, iteration,
                  rngs, scorer, config: SearchConfig, mode: str, graphs: Optional[bool],
-                 stats: Optional[StepStats] = None):
+                 stats: Optional[StepStats] = None, history: bool = False):
         self.dev = scores.device
         self.config, self.scorer, self.mode = config, scorer, mode
+        self.history = history
+        detailed = "score_grid_detailed" if mode == "single" else "score_grid_batch_detailed"
+        self.detailed = history and hasattr(scorer, detailed)
         self.graphs = _use_graphs(graphs, self.dev)
         self.rngs = list(rngs)
         self.stats = stats if stats is not None else StepStats()
@@ -125,6 +143,12 @@ class Stepper:
         self.round = torch.zeros((), dtype=torch.int64, device=dev)
         self.round_rows = torch.arange(self.width, device=dev)
         self.flags = torch.zeros(b, dtype=torch.bool, device=dev)
+        # history mode: the step counter, the detections of the step's grid
+        # forward and the (cap, ...) history rows, allocated by the first
+        # phase (a) and (c), which run eagerly
+        self.hstep = torch.zeros((), dtype=torch.int64, device=dev)
+        self.dets: Optional[Dict[str, torch.Tensor]] = None
+        self.hist: Dict[str, torch.Tensor] = {}
         self._graphs: Dict[str, _Graph] = {}
         if self.graphs:
             gens = [g for g in self.rngs if isinstance(g, torch.Generator)]
@@ -136,13 +160,14 @@ class Stepper:
             self._pinned = {
                 "count": torch.empty((), dtype=torch.int64, pin_memory=True),
                 "flags": torch.empty(b, dtype=torch.bool, pin_memory=True),
-                "setup": torch.empty(2 * b, dtype=torch.int64, pin_memory=True),
+                "setup": torch.empty(3 * b, dtype=torch.int64, pin_memory=True),
             }
             self._event = torch.cuda.Event()
 
     # -- construction ---------------------------------------------------------
     @classmethod
-    def single(cls, state: SearchState, scorer, config, graphs=None, stats=None) -> "Stepper":
+    def single(cls, state: SearchState, scorer, config, graphs=None, stats=None,
+               history=False) -> "Stepper":
         dev = state.scores.device
 
         def one(v):
@@ -151,15 +176,17 @@ class Stepper:
         return cls(scores=state.scores[None], visited=state.visited[None], P=state.P[None],
                    remaining=state.remaining[None], budget=one(state.budget),
                    n_valid=one(state.n_valid), iteration=one(state.iteration), rngs=[state.rng],
-                   scorer=scorer, config=config, mode="single", graphs=graphs, stats=stats)
+                   scorer=scorer, config=config, mode="single", graphs=graphs, stats=stats,
+                   history=history)
 
     @classmethod
-    def batched(cls, states: BatchedState, scorer, config, graphs=None, stats=None) -> "Stepper":
+    def batched(cls, states: BatchedState, scorer, config, graphs=None, stats=None,
+                history=False) -> "Stepper":
         mode = "per_video" if config.verify_flat is False else "flat"
         return cls(scores=states.scores, visited=states.visited, P=states.P,
                    remaining=states.remaining, budget=states.budget, n_valid=states.n_valid,
                    iteration=states.iteration, rngs=states.rngs, scorer=scorer, config=config,
-                   mode=mode, graphs=graphs, stats=stats)
+                   mode=mode, graphs=graphs, stats=stats, history=history)
 
     def single_state(self, state: SearchState, steps: int) -> SearchState:
         """The run's final single-video state (the host keeps budget and
@@ -179,10 +206,17 @@ class Stepper:
 
     # -- the scorer, as the mode calls it -------------------------------------
     def _grid(self, secs):
+        """-> (conf (B, K), presence (B, K, C), detections with a leading B
+        axis or None)."""
         if self.mode == "single":
+            if self.detailed:
+                conf, presence, dets = self.scorer.score_grid_detailed(secs[0])
+                return conf[None], presence[None], {k: v[None] for k, v in dets.items()}
             conf, presence = self.scorer.score_grid(secs[0])
-            return conf[None], presence[None]
-        return self.scorer.score_grid_batch(secs)
+            return conf[None], presence[None], None
+        if self.detailed:
+            return self.scorer.score_grid_batch_detailed(secs)
+        return (*self.scorer.score_grid_batch(secs), None)
 
     def _verify_flat(self, video_idx, secs):
         if self.mode == "single":
@@ -207,7 +241,12 @@ class Stepper:
         all_first = first is not None and not any(draw)
         secs = sample_secs(self.P, self.visited, self.valid, self.n_valid,
                            None if all_first else self.gumbel, first, cfg)
-        conf, presence = self._grid(secs)
+        conf, presence, dets = self._grid(secs)
+        if dets is not None:
+            if self.dets is None:
+                self.dets = {k: torch.zeros_like(v) for k, v in dets.items()}
+            for k, v in dets.items():
+                self.dets[k].copy_(v)
         scores, visited, p = apply_grid_scores(
             self.scores, self.visited, self.valid, self.n_valid, secs, conf, cfg
         )
@@ -274,6 +313,36 @@ class Stepper:
         self.budget.copy_(torch.where(self.active, self.budget - k, self.budget))
         self.iteration.copy_(torch.where(self.active, self.iteration + 1, self.iteration))
         self.flags.copy_(self.remaining.any(dim=-1) & (self.budget > 0))
+        if self.history:
+            self._snapshot()
+
+    def _snapshot(self) -> None:
+        """Copy the step's snapshot into history row ``hstep`` (device to
+        device, no read), then count the step."""
+        row = torch.clamp(self.hstep, max=self.cap - 1).view(1)
+        src = {"active": self.active, "secs": self.secs, "conf": self.conf, "P": self.P,
+               "scores": self.scores, "visited": self.visited}
+        if self.dets is not None:
+            src.update({"det_" + k: v for k, v in self.dets.items()})
+        for k, v in src.items():
+            if k not in self.hist:
+                self.hist[k] = torch.zeros((self.cap, *v.shape), dtype=v.dtype, device=self.dev)
+            self.hist[k].index_copy_(0, row, v[None])
+        self.hstep += 1
+
+    def history_rows(self) -> List[Dict[str, Any]]:
+        """The run's history, one dict of host arrays a step (read once):
+        {"active" (B,), "secs" (B, K), "conf" (B, K), "P", "scores",
+        "visited" (B, N_pad)[, "detections": {"scores", "class_ids", "boxes",
+        "valid"} with a leading B axis]}."""
+        host = {k: v[:self._steps].cpu().numpy() for k, v in self.hist.items()}
+        rows = []
+        for t in range(self._steps):
+            row = {k: host[k][t] for k in ("active", "secs", "conf", "P", "scores", "visited")}
+            if self.dets is not None:
+                row["detections"] = {k: host["det_" + k][t] for k in self.dets}
+            rows.append(row)
+        return rows
 
     # -- graphs ---------------------------------------------------------------
     def _run(self, name: str, eager: Callable[[], None],
@@ -365,9 +434,12 @@ class Stepper:
         """The read before the first step: which videos search, and each
         one's iteration count."""
         flags = self.remaining.any(dim=-1) & (self.budget > 0)
-        vals = self._read(torch.cat([flags.to(torch.int64), self.iteration]), "setup")
+        vals = self._read(torch.cat([flags.to(torch.int64), self.iteration, self.budget]), "setup")
         self.stats.setup_reads += 1
-        self._it0 = vals[self.b:]
+        self._it0 = vals[self.b:2 * self.b]
+        # the most steps any video's budget allows: the history's rows
+        self.cap = max(1, max(-(-int(v) // self.k) for v in vals[2 * self.b:]))
+        self.hstep.zero_()
         self._steps = 0
         self._saved: Dict[int, torch.Tensor] = {}
         return [bool(v) for v in vals[:self.b]]
@@ -431,10 +503,44 @@ class Stepper:
 
 
 @torch.no_grad()
+def history_lists(rows, n_valid: int, video: Optional[int] = None) -> Tuple[list, ...]:
+    """The searcher's five histories from history snapshots (the engine's
+    single-video ones, or ``Stepper.history_rows``' batched ones with
+    ``video``, over the steps that video was active): ``P_history``,
+    ``Score_history`` and ``non_visiting_history`` (1 - visited) over the
+    first ``n_valid`` frames as lists, ``sampled_history`` and
+    ``detect_bbox_iters`` (each step's boxes, scores and class ids masked by
+    ``valid``, host arrays; empty without detections)."""
+    pick = (lambda a: a) if video is None else (lambda a: a[video])  # noqa: E731
+    p_hist, s_hist, nv_hist, samp, dets = [], [], [], [], []
+    for snap in rows:
+        if video is not None and not snap["active"][video]:
+            continue
+        p_hist.append(pick(snap["P"])[:n_valid].tolist())
+        s_hist.append(pick(snap["scores"])[:n_valid].tolist())
+        nv_hist.append((1.0 - pick(snap["visited"])[:n_valid].astype(np.float32)).tolist())
+        samp.append(pick(snap["secs"]).tolist())
+        if "detections" in snap:
+            d = {k: pick(v) for k, v in snap["detections"].items()}
+            dets.append({k: d[k][d["valid"]] for k in ("boxes", "scores", "class_ids")})
+    return p_hist, s_hist, nv_hist, samp, dets
+
+
 def run_single(state: SearchState, scorer, config: SearchConfig,
                max_iterations: Optional[int], graphs: Optional[bool],
-               stats: Optional[StepStats]) -> SearchState:
-    """Step one video's search to its end (or ``max_iterations`` steps)."""
-    stepper = Stepper.single(state, scorer, config, graphs, stats)
+               stats: Optional[StepStats], history: bool = False):
+    """Step one video's search to its end (or ``max_iterations`` steps).
+    Returns the final state, and with ``history`` also the history rows of
+    ``Stepper.history_rows`` with the video axis dropped."""
+    stepper = Stepper.single(state, scorer, config, graphs, stats, history)
     steps = stepper.run(max_iterations)
-    return stepper.single_state(state, steps)
+    final = stepper.single_state(state, steps)
+    if not history:
+        return final
+    rows = []
+    for row in stepper.history_rows():
+        one = {k: row[k][0] for k in ("P", "scores", "visited", "secs", "conf")}
+        if "detections" in row:
+            one["detections"] = {k: v[0] for k, v in row["detections"].items()}
+        rows.append(one)
+    return final, rows

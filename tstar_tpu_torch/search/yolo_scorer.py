@@ -14,15 +14,16 @@ detector shared) scores with the flat batch methods, one detector forward
 over all the images with each image's own text: ``score_grid_batch``,
 ``score_verify_batch`` and ``score_verify_flat``.  Each image's detections
 depend on its pixels and its video's text alone, so per video they are what
-the reference's vmapped single-video step computes.  Every method has static
-shapes and reads nothing back to the host, so the search steps replay as
-CUDA graphs (``search/step_graphs.py``).
+the reference's vmapped single-video step computes.  The detailed methods
+also return the NMS'd detections, for the search's history.  Every method
+has static shapes and reads nothing back to the host, so the search steps
+replay as CUDA graphs (``search/step_graphs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,6 +31,13 @@ from tstar_tpu_torch.kernels.image import bilinear_resize, pack_grid
 from tstar_tpu_torch.models.yoloworld import YoloWorldDetector, postprocess_yolo
 from tstar_tpu_torch.ops.splat import splat_detections_to_cells
 from tstar_tpu_torch.utils.config import SearchConfig
+
+
+def _named(dets) -> Dict[str, torch.Tensor]:
+    """``postprocess_yolo``'s (scores, class_ids, boxes, keep) as the
+    detection history's fields."""
+    scores, class_ids, boxes, keep = dets
+    return {"scores": scores, "class_ids": class_ids, "boxes": boxes, "valid": keep}
 
 
 @dataclasses.dataclass
@@ -81,10 +89,19 @@ class YoloWorldScorer:
 
     def score_grid(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(K,) seconds -> one grid image -> (conf (K,), presence (K, C))."""
+        conf, presence, _ = self.score_grid_detailed(secs)
+        return conf, presence
+
+    def score_grid_detailed(
+        self, secs: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """``score_grid`` + the grid image's NMS'd detections: {"scores",
+        "class_ids", "boxes" (xyxy on the detector's canvas), "valid" (NMS
+        kept)}, ``max_dets`` slots."""
         cfg = self.config
         dets = self._detect(self._grid_pixels(self.cache, secs), self.text_embeds, self.query_mask)
         conf, presence = self._splat(dets, self.class_weights, (cfg.grid_rows, cfg.grid_cols))
-        return conf[0].reshape(-1), presence[0]
+        return conf[0].reshape(-1), presence[0], {k: v[0] for k, v in _named(dets).items()}
 
     def score_verify(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(T,) seconds, each frame scored alone as a 1x1 grid."""
@@ -98,11 +115,20 @@ class YoloWorldScorer:
         """(B, K) seconds -> one grid canvas per video -> ONE detector forward
         over the B canvases with each video's text -> (conf (B, K), presence
         (B, K, C))."""
+        conf, presence, _ = self.score_grid_batch_detailed(secs)
+        return conf, presence
+
+    def score_grid_batch_detailed(
+        self, secs: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """``score_grid_batch`` + each video's NMS'd detections, every field
+        with a leading video axis (what the reference's vmapped single-video
+        step returns from ``score_grid_detailed``)."""
         cfg = self.config
         pixels = torch.cat([self._grid_pixels(c, s) for c, s in zip(self.cache, secs)])
         dets = self._detect(pixels, self.text_embeds, self.query_mask)
         conf, presence = self._splat(dets, self.class_weights, (cfg.grid_rows, cfg.grid_cols))
-        return conf.reshape(secs.shape[0], -1), presence
+        return conf.reshape(secs.shape[0], -1), presence, _named(dets)
 
     def score_verify_batch(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) seconds -> ONE (B*T)-image verification forward -> (conf (B,

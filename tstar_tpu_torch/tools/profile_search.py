@@ -7,10 +7,13 @@ The search of ``chip_smoke.py`` phases 5 to 7 (``owl-vit-random`` B/32 in
 bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
 under each configuration (all by default, or those named by ``--runs``),
 stepped through CUDA graphs unless the label says "eager": bf16; bf16
-eager; the batched search of phase 8 over one bucket of eight distinct
-videos (``batched b8``, its caches built outside the timed region; and
-eager); ``detector_quant='int8'`` with ``verify_image_size=512``;
-``detector_quant='w8a16'``; bf16 with ``TSTAR_LN_MATMUL=force``;
+eager; bf16 through ``search_with_visualization()`` (``bf16 history``, the
+framework's search stage: the same steps, in history mode); the batched
+search of phase 8 over one bucket of eight distinct videos (``batched
+b8``, its caches built outside the timed region; eager; and with
+``collect_history``, ``batched b8 history``); ``detector_quant='int8'``
+with ``verify_image_size=512``; ``detector_quant='w8a16'``; bf16 with
+``TSTAR_LN_MATMUL=force``;
 ``use_pallas_preprocess=True`` (K7); ``TSTAR_GRID_EMBED=force`` (K6);
 ``TSTAR_FUSED_MHA=0 TSTAR_FLASH_ATTENTION=1`` (K8); and YOLO-World v2-XL
 (``calibrated_yolo_xl``, bf16, ``chip_smoke.py`` phase 10) on the same
@@ -108,9 +111,10 @@ def device_events(prof):
     return by_name, intervals
 
 
-def _single(heur, config, graphs):
+def _single(heur, config, graphs, history=False):
     """-> make(seed): a callable running one ``KeyframeSearcher.search()``
-    (the searcher built outside it) and returning its ``StepStats``."""
+    (``search_with_visualization()`` with ``history``; the searcher built
+    outside it) and returning its ``StepStats``."""
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
     from tstar_tpu_torch.video.synthetic import default_scene
 
@@ -121,7 +125,10 @@ def _single(heur, config, graphs):
         )
 
         def go():
-            s.search(graphs=graphs)
+            if history:
+                s.search_with_visualization(graphs=graphs)
+            else:
+                s.search(graphs=graphs)
             return s.step_stats
         return go
     return make
@@ -153,10 +160,11 @@ def calibrated_yolo_xl(dtype, seed=0):
     return heur
 
 
-def _bucket(heur, config, graphs, n=8):
+def _bucket(heur, config, graphs, n=8, history=False):
     """-> make(seed): a callable searching one bucket of ``n`` distinct
-    600 s videos (``scene_variant``) through ``multi_video._search_bucket``,
-    their caches decoded and uploaded outside it; returns its ``StepStats``."""
+    600 s videos (``scene_variant``) through ``multi_video._search_bucket``
+    (with ``collect_history`` under ``history``), their caches decoded and
+    uploaded outside it; returns its ``StepStats``."""
     from tstar_tpu_torch.parallel.multi_video import VideoTask, _search_bucket
     from tstar_tpu_torch.search.step_graphs import StepStats
     from tstar_tpu_torch.video.cache import build_frame_cache
@@ -170,7 +178,7 @@ def _bucket(heur, config, graphs, n=8):
 
         def go():
             stats = StepStats()
-            _search_bucket(tasks, caches, heur, config, graphs, stats)
+            _search_bucket(tasks, caches, heur, config, graphs, stats, history)
             return stats
         return go
     return make
@@ -337,8 +345,10 @@ def main(argv=None) -> int:
     runs = {
         "bf16": (_single(heur, bf16, None), {}),
         "bf16 eager": (_single(heur, bf16, False), {}),
+        "bf16 history": (_single(heur, bf16, None, history=True), {}),
         "batched b8": (_bucket(heur, bf16, None), {}),
         "batched b8 eager": (_bucket(heur, bf16, False), {}),
+        "batched b8 history": (_bucket(heur, bf16, None, history=True), {}),
         "int8+verify512": (_single(heur, SearchConfig(
             detector_quant="int8", verify_image_size=512, **base), None), {}),
         "w8a16": (_single(heur, SearchConfig(detector_quant="w8a16", **base), None), {}),

@@ -5,8 +5,9 @@ A copy of the reference's dataclass with the same fields, defaults and
 helper methods, so the port imports nothing of the JAX package.  The
 reference's default values follow its source (reference ``TStar/
 interface_searcher.py``, ``run_TStarDemo.py``, ``run_TStar_onDataset.py``);
-the comments below are the reference's.  ``FrameworkConfig`` is ported with
-the framework.
+the comments below are the reference's.  ``FrameworkConfig``,
+``demo_config`` and ``dataset_config`` configure the whole pipeline
+(``framework/framework.py``).
 """
 
 from __future__ import annotations
@@ -105,3 +106,31 @@ class SearchConfig:
     def padded_frames(self, total_frame_num: int) -> int:
         m = self.frame_pad_multiple
         return max(m, ((total_frame_num + m - 1) // m) * m)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameworkConfig:
+    """End-to-end framework configuration (grounder + searcher + QA)."""
+
+    search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
+
+    grounder: str = "gpt-4o"           # backend name, substring-dispatched
+    heuristic: str = "owl-vit"         # detector backend name
+    grounding_num_frames: int = 8      # frames shown to the grounder VLM
+    qa_temperature: float = 0.2        # QA sampling temperature
+    qa_max_tokens: int = 30            # QA generation cap (interface_grounding.py:443)
+    output_dir: str = "./output"
+    save_artifacts: bool = True        # keyframe JPEGs / GIF / score plot
+    seed: int = 0                      # PRNG seed for the search (ours; reference unseeded)
+
+
+def demo_config(**overrides) -> FrameworkConfig:
+    """Defaults matching the demo CLI (run_TStarDemo.py:14-31)."""
+    search = SearchConfig(confidence_threshold=0.6, search_budget=0.5)
+    return dataclasses.replace(FrameworkConfig(search=search), **overrides)
+
+
+def dataset_config(**overrides) -> FrameworkConfig:
+    """Defaults matching the dataset runner (run_TStar_onDataset.py:154-178)."""
+    search = SearchConfig(confidence_threshold=0.7, search_budget=1.0)
+    return dataclasses.replace(FrameworkConfig(search=search), **overrides)

@@ -1,19 +1,35 @@
-"""Frame loading for the grounder (port of ``load_video_frames`` in
-``tstar_tpu/utils/images.py``).
+"""Host-side image utilities (port of ``tstar_tpu/utils/images.py``).
 
-The port has no file decoder yet (ROADMAP queue 1 item 4): the caller
-passes ``decoder=`` (any object with ``meta.total_frames`` and
-``decode_batch``, as ``KeyframeSearcher`` and ``VideoTask`` take), which
-stays open for its owner.
+Frames come from ``decoder=`` (any object with ``meta`` (fps,
+total_frames), ``decode_batch`` and ``decode_sweep``, as
+``KeyframeSearcher`` and ``VideoTask`` take): the port has no file decoder
+yet (ROADMAP queue 1 item 4).  The decoder stays open for its owner.  PIL is
+imported by the functions that need it, never with the module.
 """
 
 from __future__ import annotations
 
-from typing import List
+import base64
+import io
+import os
+from typing import List, Sequence
 
 import numpy as np
 
 from tstar_tpu_torch.video.cache import _decoder_for
+
+
+def encode_image_to_base64(image) -> str:
+    """PIL.Image or (H, W, 3) uint8 array -> base64 JPEG string."""
+    from PIL import Image
+
+    if isinstance(image, np.ndarray):
+        image = Image.fromarray(image)
+    if not hasattr(image, "save"):
+        raise ValueError("Input must be a PIL.Image or numpy.ndarray")
+    buf = io.BytesIO()
+    image.convert("RGB").save(buf, format="JPEG")
+    return base64.b64encode(buf.getvalue()).decode("utf-8")
 
 
 def load_video_frames(video_path: str, num_frames: int = 8, decoder=None) -> List[np.ndarray]:
@@ -27,3 +43,60 @@ def load_video_frames(video_path: str, num_frames: int = 8, decoder=None) -> Lis
     step = total / n
     indices = [int(np.floor(i * step)) for i in range(n)]
     return list(dec.decode_batch(indices))
+
+
+def save_as_gif(images: Sequence[np.ndarray], output_gif_path: str, fps: float = 1.0):
+    """Animated GIF at ``fps`` frames a second, looping."""
+    from PIL import Image
+
+    pil = [Image.fromarray(np.asarray(img).astype(np.uint8)) for img in images]
+    if not pil:
+        raise ValueError("no images to save")
+    pil[0].save(output_gif_path, save_all=True, append_images=pil[1:],
+                duration=int(1000 / fps), loop=0)
+
+
+def save_frames_as_jpegs(
+    frames: Sequence[np.ndarray], timestamps: Sequence[float], out_dir: str
+) -> List[str]:
+    """Keyframe JPEGs named ``frame_{i}_at_{t:.2f}s.jpg``."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for idx, (frame, ts) in enumerate(zip(frames, timestamps)):
+        p = os.path.join(out_dir, f"frame_{idx}_at_{ts:.2f}s.jpg")
+        Image.fromarray(np.asarray(frame).astype(np.uint8)).save(p)
+        paths.append(p)
+    return paths
+
+
+def extract_frames_from_gif(input_gif_path: str, output_dir: str) -> int:
+    """A GIF's frames as PNGs under ``output_dir/<gif name>/``; returns the
+    count."""
+    from PIL import Image, ImageSequence
+
+    base = os.path.basename(input_gif_path).split(".")[0]
+    subdir = os.path.join(output_dir, base)
+    os.makedirs(subdir, exist_ok=True)
+    count = 0
+    with Image.open(input_gif_path) as gif:
+        for i, frame in enumerate(ImageSequence.Iterator(gif)):
+            frame.convert("RGB").save(os.path.join(subdir, f"frame_{i + 1}.png"))
+            count += 1
+    return count
+
+
+def extract_frames_at_fps(video_path: str, output_dir: str, fps: float = 1.0,
+                          decoder=None) -> int:
+    """A video's frames at ``fps`` a second as JPEGs ``frame_{i:04d}.jpg``;
+    returns the count."""
+    from PIL import Image
+
+    dec = _decoder_for(video_path, decoder)
+    os.makedirs(output_dir, exist_ok=True)
+    count = int(dec.meta.total_frames / dec.meta.fps * fps)
+    frames = dec.decode_sweep(1.0 / fps, count)
+    for i, frame in enumerate(frames):
+        Image.fromarray(frame).save(os.path.join(output_dir, f"frame_{i:04d}.jpg"))
+    return len(frames)
