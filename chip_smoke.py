@@ -133,13 +133,34 @@ Phases (any failed check exits non-zero and prints no result line):
      error), timestamps and answer; (d) ``search_videos(collect_history=True)``
      over phase 8's bucket of 8: the keyframes without history, two host
      reads a step, each row's history its video's steps.
+  12. the streaming search and reference-fidelity verification, on
+     ``owl-vit-random`` B/32 in bf16: (a) phase 5's 600 s scene searched with
+     ``cache_mode='streaming'`` (each step's sampled seconds decoded on the
+     host and copied into the scorer's step buffer) and resident, both
+     through graphs: the same keyframes and iterations, ``P`` bitwise equal,
+     phase 5's launches (K1 12, K2 1, K3 27 a forward), three host reads a
+     step; the wall, the host milliseconds a step spends decoding and
+     uploading, and (``tools/profile_search.py`` in a process of its own)
+     each search's device-busy share; (b) the 4-hour scene (14,400 s) under
+     ``cache_mode='auto'`` streams, its peak memory above what the search
+     began with at most the 600 s streaming search's plus 256 B a further
+     padded second, and under 0.5 GB, beside the 3.2 GB a resident cache
+     would take,
+     then ``search_videos`` over it and three shorter videos with a 2 GB
+     device total: exactly it streams, and every row equals that video's
+     single search; (c) ``run_search_reference_verify`` on the 600 s scene,
+     its raw 360x640 frames resized to 285x600 by ``make_raw_frame_source``:
+     the graphed run's decisions and keyframes equal the eager run's, the
+     tower's launches per forward.  The file decoder is not exercised on the
+     card: its machine has no FFmpeg (``native/libtstar_video.so`` does not
+     load, ``native/video_decoder.cpp`` does not build there).
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
 The second-to-last line is a JSON object of per-kernel results (K1-K8 with
-their launches in phase 10b's YOLO search and in phase 11's pipelines, and
-the NMS kernel); the last is
+their launches in phase 10b's YOLO search, in phase 11's pipelines and in
+phase 12a's streaming search, and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2548,6 +2569,265 @@ def phase_11(torch, card, vlm_7b_model, yolo):
     return {"rows": {"owl": owl_row, "yolo": yolo_row, "batched": batched_row},
             "counts": {"owl": owl_counts, "yolo": yolo_counts}}
 
+STREAM_TARGETS, STREAM_CUES = ["couch", "lamp"], ["tv"]
+# the bf16 B/32 tower's launches per detector forward (phase 5)
+TOWER_LAUNCHES = launches(fused_mha_from_qkv=12, patch_embed_matmul=1, fused_layernorm=27)
+# what a streaming search may add to its peak memory for each padded second
+# of video: its O(n_pad) state (scores, visited, P, noise and their step
+# copies, ~60 B), with room; a resident 192x384 cache takes 221,184 B
+STREAM_BYTES_PER_SECOND = 256
+
+
+def stream_searcher(heur, cache_mode, seed, duration=600.0):
+    """Phase 5's ``KeyframeSearcher`` (bf16, cache 192x384, budget 0.5) on
+    the synthetic scene of ``duration`` seconds, served from memory."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    return KeyframeSearcher(
+        f"mem://synthetic-{duration:.0f}s", heur, STREAM_TARGETS, STREAM_CUES, search_budget=0.5,
+        config=SearchConfig(cache_hw=(192, 384), cache_mode=cache_mode), seed=seed,
+        decoder=default_scene(duration),
+    )
+
+
+def stream_busy_shares(card):
+    """The device-busy share of the resident and the streaming search (and
+    the streamed 4-hour one), from ``tools/profile_search.py`` in a process
+    of its own: ``torch.profiler`` imports triton, which this one must not."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        out = f"{d}/profile.json"
+        done = subprocess.run(
+            [sys.executable, "-m", "tstar_tpu_torch.tools.profile_search", "--runs", "bf16",
+             "bf16 streaming", "bf16 streaming 4h", "--out", out],
+            capture_output=True, text=True, timeout=600,
+        )
+        if done.returncode != 0:
+            raise SystemExit(f"profile_search failed ({done.returncode}):\n{done.stderr[-3000:]}")
+        with open(out) as f:
+            runs = json.load(f)["runs"]
+    for label, r in runs.items():
+        log(f"[streaming] profiled {label}: wall {r['wall_s']:.4f} s, device {r['device_ms']:.2f} "
+            f"ms, busy {100 * r['busy_share']:.1f}% of the profiled wall "
+            f"({r['profiled_wall_s']:.4f} s), {r['steps']} steps, "
+            f"{r['host_reads_per_step']:.2f} host reads a step, host decode + upload "
+            f"{r['stream_ms_per_step']:.3f} ms a step  ({card})")
+        for line in r["largest"][:4]:
+            log(f"[streaming]   {label}: {line['ms']:.3f} ms {line['count']}x {line['name'][:80]}")
+    return {k: r["busy_share"] for k, r in runs.items()}
+
+
+def phase_12a(torch, card, heur):
+    """12a: the 600 s scene searched streaming and resident, both with
+    graphs: the same keyframes, iterations and ``P``; the streaming search
+    launches phase 5's kernels and reads the host three times a step.
+    Returns its launch counts, its peak memory above what it began with and
+    its padded seconds."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.video.cache import StreamingFrameCache
+
+    runs = {}
+    for mode in ("resident", "streaming"):
+        stream_searcher(heur, mode, seed=1).search()           # warm-up
+        s = stream_searcher(heur, mode, seed=0)
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, stamps = s.search()
+        torch.cuda.synchronize()
+        runs[mode] = (s, stamps, time.perf_counter() - t0, launch_counts(),
+                      torch.cuda.max_memory_allocated() - start)
+    (rs, r_stamps, r_wall, r_counts, _), (ss, s_stamps, s_wall, s_counts, s_above) = (
+        runs["resident"], runs["streaming"])
+    st = ss.step_stats
+    forwards = st.steps + len(st.verify_widths)
+    p_diff = (ss._final_state.P.float() - rs._final_state.P.float()).abs().max().item()
+    checks = {
+        "the streaming search streamed": isinstance(ss.cache, StreamingFrameCache)
+        and tuple(ss.cache.frames.shape) == (1, 192, 384, 3),
+        "the same keyframes": s_stamps == r_stamps,
+        "the same iterations": ss._final_state.iteration == rs._final_state.iteration,
+        "P bitwise equal": torch.equal(ss._final_state.P, rs._final_state.P),
+        "three host reads a step": st.host_reads == 3 * st.steps,
+        "stepped through CUDA graphs": st.replays > 0,
+        "the resident search's launches": s_counts == r_counts,
+        **{f"{k} launched {n} per forward": s_counts[k] == n * forwards
+           for k, n in TOWER_LAUNCHES.items()},
+    }
+    log(f"[streaming] 12a 600 s: streaming wall {s_wall:.4f} s, resident {r_wall:.4f} s; "
+        f"{st.steps} steps, verify batches {st.verify_widths}; {st.host_reads / st.steps:.2f} "
+        f"host reads, {st.replays / st.steps:.2f} graph replays a step ({st.captures} captures); "
+        f"host decode + upload {1e3 * st.stream_seconds / st.steps:.3f} ms a step; peak "
+        f"{s_above / 1e9:.4f} GB above the search's start  ({card})")
+    log(f"[streaming] 12a keyframes {s_stamps} (resident {r_stamps}); largest |P| difference "
+        f"{p_diff:.3e}; launches {s_counts}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"12a checks failed: {failed}")
+    return s_counts, s_above, ss.cache.n_pad
+
+
+def phase_12b(torch, card, heur, short_above, short_n_pad):
+    """12b: the 4-hour scene streamed: its peak memory above the search's
+    start at most 12a's 600 s streaming search's (``short_above`` over
+    ``short_n_pad`` padded seconds) plus ``STREAM_BYTES_PER_SECOND`` for each
+    further padded second, and under 0.5 GB; then ``search_videos`` over
+    four videos of which exactly
+    one streams, each row equal to that video's single search (resident:
+    the streamed row so shows the streaming search equal to the resident
+    one on the 4-hour video too)."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.parallel import multi_video
+    from tstar_tpu_torch.parallel.multi_video import VideoTask, search_videos
+    from tstar_tpu_torch.search.searcher import KeyframeSearcher
+    from tstar_tpu_torch.video.cache import StreamingFrameCache
+    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
+
+    stream_searcher(heur, "streaming", seed=1, duration=14400.0).search()   # warm-up
+    s = stream_searcher(heur, "streaming", seed=0, duration=14400.0)
+    resident_bytes = s.cache.n_pad * 192 * 384 * 3
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, stamps = s.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    above = torch.cuda.max_memory_allocated() - start
+    st = s.step_stats
+    allowed = short_above + STREAM_BYTES_PER_SECOND * (s.cache.n_pad - short_n_pad)
+    log(f"[streaming] 12b 4 h ({s.cache.n_valid} s, {s.cache.n_pad} padded): wall {wall:.4f} s, "
+        f"{st.steps} steps, verify batches {st.verify_widths}, host decode + upload "
+        f"{1e3 * st.stream_seconds / st.steps:.3f} ms a step; peak {above / 1e9:.4f} GB above the "
+        f"{start / 1e9:.3f} GB the search began with, where a resident cache would take "
+        f"{resident_bytes / 1e9:.3f} GB; keyframes {stamps}  ({card})")
+    log(f"[streaming] 12b peak above the start: 4 h {above} B, 600 s ({short_n_pad} padded) "
+        f"{short_above} B, difference {above - short_above} B (allowed {allowed - short_above} B, "
+        f"{STREAM_BYTES_PER_SECOND} B a further padded second)")
+    checks = {"the 4-hour video streamed": isinstance(s.cache, StreamingFrameCache),
+              "peak above the start at most the 600 s search's plus its O(n_pad) state":
+              above <= allowed,
+              "peak above the start under 0.5 GB": above < 0.5e9,
+              "three host reads a step": st.host_reads == 3 * st.steps}
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    videos = [(14400.0, lambda: default_scene(14400.0)), (600.0, lambda: scene_variant(1, 600.0)),
+              (300.0, lambda: scene_variant(2, 300.0)), (450.0, lambda: scene_variant(3, 450.0))]
+    tasks = [VideoTask(f"mem://synthetic-{d:.0f}s", STREAM_TARGETS, STREAM_CUES, seed=i,
+                       decoder=make()) for i, (d, make) in enumerate(videos)]
+    # a 2 GB device total: a bucket of one gets 256 MiB, so the 3.2 GB cache
+    # streams and the 600 s one (141.6 MB) stays resident
+    streamed = []
+    stream_video = multi_video._search_streaming_video
+    with patched(multi_video, "_search_streaming_video",
+                 lambda task, *a: (streamed.append(task.video_path), stream_video(task, *a))[1]):
+        rows = search_videos(tasks, heur, cfg, hbm_budget_bytes=2 * 1024 ** 3)
+    checks["exactly the 4-hour video streamed"] = streamed == [tasks[0].video_path]
+    for i, ((d, make), row) in enumerate(zip(videos, rows)):
+        # the single search keeps every cache resident (the card's whole budget)
+        one = KeyframeSearcher(tasks[i].video_path, heur, STREAM_TARGETS, STREAM_CUES,
+                               search_budget=0.5, config=cfg, seed=i, decoder=make())
+        _, single = one.search()
+        same = (row["keyframe_timestamps"] == single
+                and row["iterations"] == one._final_state.iteration)
+        log(f"[streaming] 12b search_videos {d:.0f} s ({'streamed' if i == 0 else 'resident'}): "
+            f"keyframes {row['keyframe_timestamps']}, iterations {row['iterations']}; its single "
+            f"resident search {single}, {one._final_state.iteration}: "
+            f"{'equal' if same else 'DIFFERENT'}")
+        checks[f"{d:.0f} s row equal to its single search"] = same
+        del one
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"12b checks failed: {failed}")
+    return {"wall_s": wall, "peak_above_gb": above / 1e9, "resident_gb": resident_bytes / 1e9,
+            "peak_above_600s_gb": short_above / 1e9}
+
+
+def phase_12c(torch, card, heur):
+    """12c: ``run_search_reference_verify`` on the 600 s scene, its raw frames
+    (360x640) resized to 285x600 by ``make_raw_frame_source``: the graphed
+    run's decisions and keyframes equal the eager run's."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.search.reference_verify import (
+        make_raw_frame_source,
+        run_search_reference_verify,
+    )
+    from tstar_tpu_torch.search.state import init_state
+    from tstar_tpu_torch.search.step_graphs import StepStats
+    from tstar_tpu_torch.video.cache import build_frame_cache
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    cache = build_frame_cache("mem://synthetic-600s", cfg, device="cuda",
+                              decoder=default_scene(600.0))
+    scorer = heur.build_scorer(cache.frames, STREAM_TARGETS, STREAM_CUES, cfg)
+    verify_raw, calls = scorer.score_verify_raw, []
+    scorer.score_verify_raw = lambda frames: (calls.append(len(frames)), verify_raw(frames))[1]
+    source = make_raw_frame_source("mem://synthetic-600s", cfg, decoder=default_scene(600.0))
+    runs = {}
+    for label, graphs in (("graphs", None), ("eager", False)):
+        state = init_state(cache.n_valid, len(STREAM_TARGETS), cfg,
+                           torch.Generator(device="cuda").manual_seed(0), n_pad=cache.n_pad,
+                           device="cuda")
+        stats = StepStats()
+        calls.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        final, secs, decisions = run_search_reference_verify(
+            state, scorer, cfg, source, collect_decisions=True, graphs=graphs, stats=stats)
+        torch.cuda.synchronize()
+        runs[label] = (final, secs.cpu().tolist(), decisions, stats, launch_counts(),
+                       list(calls), time.perf_counter() - t0)
+    (gf, gs, gd, gst, gc_, g_calls, g_wall), (ef, es, ed, est, _, _, e_wall) = (
+        runs["graphs"], runs["eager"])
+    forwards = gst.steps + len(g_calls)
+    log(f"[streaming] 12c reference verify: {len(gd)} decisions "
+        f"({sum(d['removed_slot'] is not None for d in gd)} removals) in {gst.steps} steps, "
+        f"raw verify batches {g_calls}; keyframes {gs}; wall {g_wall:.4f} s graphed, "
+        f"{e_wall:.4f} s eager; launches K1 {gc_['fused_mha_from_qkv']}, K2 "
+        f"{gc_['patch_embed_matmul']}, K3 {gc_['fused_layernorm']}  ({card})")
+    checks = {
+        "graphed decisions equal eager": gd == ed,
+        "graphed keyframes equal eager": gs == es,
+        "graphed remaining equal eager": torch.equal(gf.remaining, ef.remaining),
+        "stepped through CUDA graphs": gst.replays > 0 and est.replays == 0,
+        **{f"{k} launched {n} per forward": gc_[k] == n * forwards
+           for k, n in TOWER_LAUNCHES.items()},
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"12c checks failed: {failed}")
+    return {"decisions": len(gd), "launches": gc_}
+
+
+def phase_12(torch, card):
+    """Phase 12: the streaming search and reference-fidelity verification
+    at the full B/32 width in bf16 (module docstring).  Returns 12a's launch
+    counts."""
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+
+    t0 = time.perf_counter()
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    with torch.no_grad():
+        counts, short_above, short_n_pad = phase_12a(torch, card, heur)
+        p12b = phase_12b(torch, card, heur, short_above, short_n_pad)
+        p12c = phase_12c(torch, card, heur)
+    del heur
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = stream_busy_shares(card)
+    log(f"[streaming] phase 12 wall {time.perf_counter() - t0:.1f} s ({card})")
+    return {"counts": counts, "long": p12b, "verify": p12c, "busy": busy}
+
 
 def log_allocated(torch, phase):
     """What earlier phases left allocated, which each later phase's peak
@@ -2602,6 +2882,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("[pipeline] " + json.dumps(p11["rows"]))
+    log_allocated(torch, "phase 12")
+    p12 = phase_12(torch, card)
+    log("[streaming] " + json.dumps({k: p12[k] for k in ("long", "verify", "busy")}))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -2657,6 +2940,8 @@ def main() -> int:
             # phase 11a / 11b: run() of the T* pipeline (grounding, search, QA)
             "launches_pipeline": p11["counts"]["owl"][name],
             "launches_pipeline_yolo": p11["counts"]["yolo"][name],
+            # phase 12a: the streaming search of phase 5's video
+            "launches_streaming": p12["counts"][name],
         })
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
@@ -2675,6 +2960,7 @@ def main() -> int:
         "launches_yolo_search": p10["counts"]["greedy_nms"],
         "launches_pipeline": p11["counts"]["owl"]["greedy_nms"],
         "launches_pipeline_yolo": p11["counts"]["yolo"]["greedy_nms"],
+        "launches_streaming": p12["counts"]["greedy_nms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -338,16 +338,38 @@ def test_search_videos_equals_per_video_searches():
         assert len(res["keyframe_distribution"]) == cache.n_valid
 
 
-def test_search_videos_refuses_streaming():
+def test_search_videos_streams_over_budget_videos(caplog):
+    """Videos over their bucket's budget (a 1 MB device total: 300 s and 200
+    s caches of 1.6-2.4 MB) stream, as does every video under
+    ``cache_mode='streaming'``: each row equals the video's own resident
+    single search, without histories (a warning says so), three host reads
+    a step; 'downscale' shrinks the cache instead."""
     heur = initialize_heuristic("owl-vit-random", device="cpu", dtype=torch.float32,
                                 model_config=tiny_pair(tow), seed=1)
     _, cfg = configs()
-    tasks = [VideoTask("mem://0", TARGETS, CUES, decoder=default_scene(450.0))]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        search_videos(tasks, heur, cfg, hbm_budget_bytes=10 ** 6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        search_videos(tasks, heur, dataclasses.replace(cfg, cache_mode="streaming"))
-    out = search_videos(tasks, heur, dataclasses.replace(cfg, cache_mode="downscale"),
+    decs = [default_scene(300.0), scene(200.0, 50.0)]
+    tasks = [VideoTask(f"mem://{i}", TARGETS, CUES, seed=7 + i, decoder=d)
+             for i, d in enumerate(decs)]
+    stats = StepStats()
+    with caplog.at_level("WARNING"):
+        auto = search_videos(tasks, heur, cfg, hbm_budget_bytes=10 ** 6, stats=stats,
+                             collect_history=True)
+    assert "histories are not collected for streamed videos" in caplog.text
+    assert stats.steps > 0 and stats.host_reads == 3 * stats.steps
+    forced = search_videos(tasks[1:], heur, dataclasses.replace(cfg, cache_mode="streaming"))
+    assert forced == auto[1:]
+    for task, res, dec in zip(tasks, auto, decs):
+        cache = tcache.build_frame_cache(task.video_path, cfg, device="cpu", decoder=dec)
+        assert isinstance(cache, tcache.FrameCache)
+        scorer = heur.build_scorer(cache.frames, TARGETS, CUES, cfg)
+        state = tinit(cache.n_valid, len(TARGETS), cfg,
+                      torch.Generator().manual_seed(task.seed), n_pad=cache.n_pad)
+        final, secs = teng.run_search(state, scorer, cfg)
+        assert res["keyframe_secs"] == secs.tolist()
+        assert res["iterations"] == final.iteration
+        assert res["keyframe_distribution"] == final.P[:cache.n_valid].tolist()
+        assert "P_history" not in res
+    out = search_videos(tasks[:1], heur, dataclasses.replace(cfg, cache_mode="downscale"),
                         hbm_budget_bytes=64 * 10 ** 6)
     assert len(out[0]["keyframe_secs"]) == cfg.search_nframes
 

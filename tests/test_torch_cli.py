@@ -43,11 +43,24 @@ def test_human_output_lines(tmp_path, capsys):
         assert needle in out, out
 
 
-def test_real_video_without_decoder_raises(tmp_path):
-    """A video file needs the file decoder (ROADMAP queue 1 item 4): the demo
-    raises before any stage runs."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        demo.main(["--video_path", str(tmp_path / "v.mp4"), *ARGS,
+def test_demo_reads_a_video_file(tmp_path, capsys):
+    """Without ``--synthesize`` the demo reads the file at ``--video_path``
+    (an mp4 the reference's ``write_synthetic_video`` writes: 120 s, the couch
+    at 70-80 s) with the port's file decoder; ``--deterministic`` keyframes
+    land near the couch, and a missing file raises the decoder's error."""
+    pytest.importorskip("cv2")
+    from tstar_tpu.video.synthetic import default_scene as write_default_scene
+
+    path = str(tmp_path / "scene.mp4")
+    write_default_scene(path, duration_sec=120.0)
+    results = demo.main(["--video_path", path, "--deterministic", *ARGS,
+                         "--confidence_threshold", "0.5", "--search_budget", "1.0",
+                         "--output_dir", str(tmp_path / "out"), "--json"])
+    ts = results["Frame Timestamps"]
+    assert len(ts) == 8 and sum(any(abs(t - g) <= 5 for g in range(70, 80)) for t in ts) >= 2
+    assert "Synthesized" not in capsys.readouterr().out
+    with pytest.raises(ValueError, match="Cannot open video file"):
+        demo.main(["--video_path", str(tmp_path / "missing.mp4"), *ARGS,
                    "--output_dir", str(tmp_path / "out")])
 
 

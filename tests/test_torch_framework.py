@@ -2,9 +2,9 @@
 heuristic, the detector surface, profiling, images) against the JAX
 package's, on the CPU; mirrors ``tests/test_framework.py``.
 
-The reference reads a synthetic mp4 (``write_synthetic_video``: ``default_scene``,
-120 s) through its own decoder; the port reads the same decoder's frames,
-passed as ``decoder=`` (the port has no file decoder yet).  The search noise
+Both read a synthetic mp4 (``write_synthetic_video``: ``default_scene``,
+120 s) from its path, each through its own file decoder (their frames are
+byte-equal, ``tests/test_torch_decoder.py``).  The search noise
 is the reference's Gumbel draws, replayed into the port's searcher
 (``jax_noise``), so both pipelines sample the same seconds: the grounding
 objects, the keyframe timestamps and the answer of ``run()`` must be EQUAL.
@@ -102,7 +102,7 @@ def _run_both(monkeypatch, tmp_path, scene, jheur, theur, seed=0, **kw):
     monkeypatch.setattr(tsearcher, "init_state",
                         lambda *a, **k: real(*a, **k).replace(rng=noise))
     fw = tfw.TStarFramework(
-        video_path=path, heuristic=theur, device="cpu", decoder=open_video(path),
+        video_path=path, heuristic=theur, device="cpu",
         grounder=FakeGrounder(["couch"], ["tv"], qa_answer="B"),
         output_dir=str(tmp_path / "port"),
         config=None if config is None else SearchConfig(**config), **args,
@@ -163,8 +163,7 @@ def test_int_budget_maps_to_full_cap(scene, tmp_path):
     fw = tfw.TStarFramework(
         video_path=path, heuristic=initialize_heuristic("color-probe", device="cpu"),
         grounder=FakeGrounder(["couch"], ["tv"]), question="q?", options="A) x",
-        output_dir=str(tmp_path / "budget"), search_budget=1000, decoder=open_video(path),
-        device="cpu",
+        output_dir=str(tmp_path / "budget"), search_budget=1000, device="cpu",
     )
     searcher = fw.initialize_videoSearcher(["couch"], ["tv"])
     n = searcher.total_frame_num
@@ -178,23 +177,35 @@ def test_run_tstar_one_shot(scene, tmp_path):
     results = tfw.run_tstar(
         video_path=path, question="Where is the couch?", options="A) Left\nB) Right",
         grounder="fake", heuristic="color-probe", search_budget=0.5,
-        output_dir=str(tmp_path / "out2"), decoder=open_video(path), device="cpu",
+        output_dir=str(tmp_path / "out2"), device="cpu",
     )
     assert set(results) == {"Grounding Objects", "Frame Timestamps", "Answer"}
     assert len(results["Frame Timestamps"]) == 8
 
 
-def test_no_decoder_raises_before_grounding(tmp_path):
-    """Without a decoder nothing runs: no grounding call, no model built."""
+def test_a_path_alone_reads_the_file(scene, tmp_path):
+    """Without ``decoder=`` the framework reads the file with the port's
+    decoder: ``run_tstar`` gives what it gives over the reference's decoder
+    passed in, the keyframes at native size; a missing file raises the
+    decoder's ``ValueError`` at its first read, after the grounding."""
+    path, _ = scene
+    kw = dict(question="Where is the couch?", options="A) Left\nB) Right", grounder="fake",
+              heuristic="color-probe", search_budget=0.5, device="cpu", seed=3)
+    alone = tfw.run_tstar(path, output_dir=str(tmp_path / "a"), **kw)
+    given = tfw.run_tstar(path, output_dir=str(tmp_path / "b"), decoder=open_video(path), **kw)
+    assert alone == given
+    fw = tfw.TStarFramework(video_path=path, heuristic=ColorProbeHeuristic(device="cpu"),
+                            grounder=FakeGrounder(), question="q?", options="A) x",
+                            output_dir=str(tmp_path / "c"), device="cpu", save_artifacts=False)
+    frames, _ = fw.perform_search(fw.initialize_videoSearcher(["couch"], ["tv"]))
+    assert len(frames) == 8 and all(f.shape == (96, 160, 3) for f in frames)
     grounder = FakeGrounder()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tfw.TStarFramework(video_path="v.mp4", heuristic=ColorProbeHeuristic(device="cpu"),
-                           grounder=grounder, question="q?", options="A) x",
-                           output_dir=str(tmp_path), device="cpu")
-    assert grounder.calls == []
-    # run_tstar raises before it builds the (here OpenAI) grounder
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tfw.run_tstar("v.mp4", "q?", "A) x", device="cpu")
+    fw = tfw.TStarFramework(video_path=str(tmp_path / "missing.mp4"),
+                            heuristic=ColorProbeHeuristic(device="cpu"), grounder=grounder,
+                            question="q?", options="A) x", output_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="Cannot open video file"):
+        fw.run()
+    assert [c["kind"] for c in grounder.calls] == ["grounding"]
 
 
 def test_cuda_without_a_card_raises(monkeypatch, scene, tmp_path):

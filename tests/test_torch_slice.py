@@ -290,7 +290,11 @@ PORT_MODULES = [
     "tstar_tpu_torch.framework.framework", "tstar_tpu_torch.search.snapshot",
     "tstar_tpu_torch.grounding.openai_backend", "tstar_tpu_torch.utils.profiling",
     "tstar_tpu_torch.viz", "tstar_tpu_torch.viz.artifacts", "tstar_tpu_torch.viz.boxes",
-    "tstar_tpu_torch.cli", "tstar_tpu_torch.cli.demo",
+    "tstar_tpu_torch.cli", "tstar_tpu_torch.cli.demo", "tstar_tpu_torch.video.decoder",
+    "tstar_tpu_torch.search.reference_verify", "tstar_tpu_torch.bench",
+    "tstar_tpu_torch.bench.metrics", "tstar_tpu_torch.bench.datasets",
+    "tstar_tpu_torch.bench.evaluate", "tstar_tpu_torch.bench.runner",
+    "tstar_tpu_torch.cli.dataset", "tstar_tpu_torch.cli.evaluate",
 ]
 
 

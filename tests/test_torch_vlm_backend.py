@@ -253,7 +253,7 @@ def test_batched_failure_raises_and_item_failures_stay(grounders):
     scene = default_scene(60.0, hw=(64, 80))
     reqs = [{"video_path": "mem://a", "question": "q", "options": "A) x", "decoder": scene},
             {"video_path": "mem://b", "question": "q", "options": "A) x", "decoder": scene},
-            {"video_path": "/no/decoder.mp4", "question": "q", "options": "A) x"}]
+            {"video_path": "/no/such/video.mp4", "question": "q", "options": "A) x"}]
 
     class Failing:
         def inference_with_frames_batch(self, *a, **k):
@@ -268,7 +268,7 @@ def test_batched_failure_raises_and_item_failures_stay(grounders):
     fake = tuniversal.UniversalGrounder("fake")
     out = fake.inference_query_grounding_batch(reqs)
     assert out[0] == out[1] == (["couch"], ["tv", "chair"])
-    assert isinstance(out[2], NotImplementedError)
+    assert isinstance(out[2], ValueError)         # the file decoder cannot open it
     real = tg.inference_query_grounding_batch(reqs[:2], temperature=0.0, max_tokens=8)
     assert all(isinstance(r, (tuple, GroundingParseError)) for r in real)
 

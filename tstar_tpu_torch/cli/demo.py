@@ -6,12 +6,12 @@
         --options "A) Red\\nB) Blue" --grounder fake --heuristic color-probe \\
         --device cpu --json
 
-``--synthesize`` serves the in-memory synthetic scene
-(``video/synthetic.default_scene``, 120 s) as the video's decoder; the
-``--video_path`` then only names the run.  A real video file needs the file
-decoder, which the port does not have yet (ROADMAP queue 1 item 4): without
-``--synthesize`` the run raises.  ``--device`` is "cuda" unless asked
-otherwise, for the grounder and the detector alike.
+Without ``--synthesize`` the file at ``--video_path`` is read with the file
+decoder (``video/decoder.py``).  ``--synthesize`` serves the in-memory
+synthetic scene (``video/synthetic.default_scene``, 120 s) as the video's
+decoder instead; the ``--video_path`` then only names the run.
+``--device`` is "cuda" unless asked otherwise, for the grounder and the
+detector alike.
 """
 
 from __future__ import annotations

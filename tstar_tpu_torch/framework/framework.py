@@ -11,10 +11,10 @@ keeps the reference's signature, method set (``get_grounded_objects``,
 and ``run()``'s result (``{"Grounding Objects", "Frame Timestamps",
 "Answer"}``), and adds:
 
-  * ``decoder=``: what the grounder's frames, the frame cache and the
-    keyframes are decoded from.  The port has no file decoder yet (ROADMAP
-    queue 1 item 4), so without one the framework raises when it is built,
-    before any stage runs;
+  * ``decoder=``: an object the grounder's frames, the frame cache and the
+    keyframes are decoded from in place of the file at ``video_path``
+    (``video/synthetic.SyntheticDecoder``, say); without one the file is
+    read (``video/decoder.open_video``);
   * ``device=`` ("cuda" unless the caller asks for the CPU): the device the
     heuristic must run on, whose work each stage's time includes.
 
@@ -48,14 +48,6 @@ def _safe_dirname(text: str) -> str:
     return re.sub(r"[^\w\s-]", "", text)[:120].strip() or "question"
 
 
-def _require_decoder(video_path: str, decoder) -> None:
-    if decoder is None:
-        raise NotImplementedError(
-            f"no file decoder in this port yet (ROADMAP queue 1 item 4): pass decoder= to "
-            f"read {video_path!r}"
-        )
-
-
 def _require_device(device: torch.device) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -84,7 +76,6 @@ class TStarFramework:
         decoder=None,
         device="cuda",
     ):
-        _require_decoder(video_path, decoder)
         self.device = torch.device(device)
         _require_device(self.device)
         heuristic_device = getattr(heuristic, "device", None)
@@ -226,7 +217,6 @@ def run_tstar(
 ) -> dict:
     """One-shot API: the grounder and the heuristic built by name on
     ``device``, then ``TStarFramework.run()``."""
-    _require_decoder(video_path, decoder)
     _require_device(torch.device(device))
     grounder_obj = UniversalGrounder(model_name=grounder, device=device)
     heuristic_obj = initialize_heuristic(heuristic, device=device, **heuristic_kwargs)

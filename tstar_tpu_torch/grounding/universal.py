@@ -7,8 +7,8 @@ The reference's ``TStarUniversalGrounder`` (``TStar/interface_grounding.py
 object-name normalization and a bounded re-prompt, multiple-choice QA capped
 at 30 generated tokens, and open-ended QA.
 
-Frames for grounding come from ``decoder=`` (``utils/images.py``): the port
-has no file decoder yet.  Where the JAX facade retries a failed batched
+Frames for grounding are read from the video file, or from ``decoder=``
+when given (``utils/images.py``).  Where the JAX facade retries a failed batched
 grounding forward item by item, this one lets the failure raise: only a
 frame-decode error or a parse error (after the re-prompts) stays an item's
 own result.
@@ -124,7 +124,7 @@ class UniversalGrounder:
             try:
                 frames = load_video_frames(req["video_path"], num_frames=self.num_frames,
                                            decoder=req.get("decoder"))
-            except (OSError, ValueError, NotImplementedError) as e:   # this item's frames
+            except (OSError, ValueError, RuntimeError) as e:   # this item's frames
                 errors[i] = e
                 frames_list.append(None)
                 prompts.append(None)

@@ -13,14 +13,17 @@ video after another.
     threads and uploaded from pinned memory on a side stream while the
     current bucket searches; its search waits on that stream's event.
 
-Until the port has a file decoder, each ``VideoTask`` carries a ``decoder``
-(as ``KeyframeSearcher(decoder=)`` does).  Videos whose full-resolution
-cache exceeds their bucket's per-video budget would take the reference's
-streaming search, which is not ported (ROADMAP queue 1 item 6): they raise,
-unless ``cache_mode='downscale'`` shrinks their cache to fit.  With
-``collect_history=True`` each result row also holds the video's
-per-iteration histories (``_per_video_history``).  Not ported: the mesh
-half of ``_search_bucket`` (queue 1 item 10).
+Each video is read from its path with the file decoder, a handle per task
+(a handle is not thread-safe), or from the task's ``decoder`` when it
+carries one (as ``KeyframeSearcher(decoder=)`` takes).  A video whose
+full-resolution cache exceeds its bucket's per-video budget, or every video
+under ``cache_mode='streaming'``, takes the streaming search
+(``_search_streaming_video``: host-paged at full resolution, one video at a
+time, before the buckets); ``cache_mode='downscale'`` shrinks such caches to
+fit instead.  With ``collect_history=True`` each batched result row also
+holds the video's per-iteration histories (``_per_video_history``); a
+streamed video's row has none.  Not ported: the mesh half of
+``_search_bucket`` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -39,13 +42,15 @@ from tstar_tpu_torch.parallel.batched import (
     stack_scorers,
 )
 from tstar_tpu_torch.search.detector_scorer import resolve_pallas_preprocess
+from tstar_tpu_torch.search.engine import run_search_streaming
 from tstar_tpu_torch.search.state import init_state, stack_states
 from tstar_tpu_torch.search.step_graphs import StepStats, history_lists
 from tstar_tpu_torch.utils.config import SearchConfig
 from tstar_tpu_torch.video.cache import (
     FrameCache,
-    _decoder_for,
+    build_frame_cache,
     build_frame_cache_host,
+    cache_route,
     per_video_hbm_budget,
     probe_video_length,
 )
@@ -59,7 +64,7 @@ class VideoTask:
     target_objects: List[str]
     cue_objects: List[str]
     seed: int = 0
-    decoder: Any = None      # what the cache is decoded from (no file decoder yet)
+    decoder: Any = None      # read in place of the file at video_path when given
 
 
 def _bucket_indices(n_pads: Sequence[int], bucket_by_length: bool) -> List[List[int]]:
@@ -162,6 +167,37 @@ def _per_video_history(history, i: int, n_valid: int) -> Dict:
     return out
 
 
+def _search_streaming_video(
+    task: VideoTask, heuristic, config: SearchConfig, graphs: Optional[bool] = None,
+    stats: Optional[StepStats] = None,
+) -> Dict:
+    """One video searched through the streaming cache (full resolution,
+    memory that does not grow with its length).  The row has the keys of
+    ``_search_bucket``'s rows, without histories."""
+    device = torch.device(heuristic.device)
+    stream = build_frame_cache(task.video_path, dataclasses.replace(config, cache_mode="streaming"),
+                               device=device, decoder=task.decoder)
+    try:
+        scorer = heuristic.build_scorer(stream.frames, task.target_objects, task.cue_objects,
+                                        config)
+        rng = torch.Generator(device=device).manual_seed(task.seed)
+        state = init_state(stream.n_valid, len(task.target_objects), config, rng,
+                           n_pad=stream.n_pad, device=device)
+        final, secs = run_search_streaming(state, scorer, stream, config, graphs, stats)
+    finally:
+        stream.close()
+    secs = secs.cpu().tolist()
+    remaining = final.remaining.cpu().tolist()
+    return {
+        "video_path": task.video_path,
+        "keyframe_timestamps": sorted(float(s) / config.sampling_fps for s in secs),
+        "keyframe_secs": secs,
+        "keyframe_distribution": final.P.float().cpu()[:stream.n_valid].tolist(),
+        "remaining_targets": [t for j, t in enumerate(task.target_objects) if remaining[j]],
+        "iterations": int(final.iteration),
+    }
+
+
 class _Uploader:
     """Decodes a video into a host cache and uploads it: on a CUDA device
     from pinned memory on a side stream, with an event the search waits on."""
@@ -211,52 +247,64 @@ def search_videos(
 
     Each video's cache budget is its bucket's share of the device's free
     memory (``per_video_hbm_budget``; ``hbm_budget_bytes`` replaces the free
-    memory).  ``prefetch=False`` decodes each bucket only when it is
-    searched.  A bucket that runs out of device memory
+    memory).  A video whose full-resolution cache exceeds its own bucket's
+    budget streams (``_search_streaming_video``, serially, before the
+    buckets), as does every video under ``cache_mode='streaming'``;
+    'downscale' shrinks such caches instead, and 'resident' raises
+    ``ValueError`` on them.  ``prefetch=False`` decodes each bucket only
+    when it is searched.  A bucket that runs out of device memory
     (``torch.cuda.OutOfMemoryError``) is retried twice, each time with half
     the per-video budget, so at a lower cache resolution, as the reference
-    retries.
-    ``graphs`` and ``stats`` go to the batched driver.
+    retries.  ``graphs`` and ``stats`` go to the drivers.
 
     Returns one dict per video, in task order: {"video_path",
     "keyframe_timestamps", "keyframe_secs", "keyframe_distribution",
     "remaining_targets", "iterations"}, and with ``collect_history`` also
-    the video's "P_history", "Score_history", "non_visiting_history",
-    "sampled_history" and, for detector scorers, "detect_bbox_iters" (the
-    same searches: history collection changes what is copied out, not the
-    trajectory).
+    the batched video's "P_history", "Score_history",
+    "non_visiting_history", "sampled_history" and, for detector scorers,
+    "detect_bbox_iters" (the same searches: history collection changes what
+    is copied out, not the trajectory).
     """
     config = config or SearchConfig()
     device = torch.device(heuristic.device)
-    n_pads = [
-        probe_video_length(_decoder_for(t.video_path, t.decoder), config)[1] for t in tasks
-    ]
-    buckets = _bucket_indices(n_pads, bucket_by_length)
+    n_pads = [probe_video_length(t.decoder or t.video_path, config)[1] for t in tasks]
+
+    # Each video is judged by its OWN bucket's budget (the budget its bucket's
+    # videos would get if none streamed); streaming a video only grows the
+    # survivors' budgets, so none of them goes over.
+    stream_idx: List[int] = []
+    for bucket in _bucket_indices(n_pads, bucket_by_length):
+        budget = per_video_hbm_budget(len(bucket), device, total_bytes=hbm_budget_bytes)
+        stream_idx += [
+            i for i in bucket
+            if cache_route(n_pads[i], config, budget, f"{tasks[i].video_path!r} (its "
+                           "bucket's per-video budget)") == "streaming"
+        ]
+    stream_idx.sort()
+    if stream_idx and collect_history:
+        logger.warning(
+            "search_videos: %d videos stream (full-resolution cache over their bucket's "
+            "per-video budget); per-iteration histories are not collected for streamed "
+            "videos", len(stream_idx),
+        )
+    results: List[Optional[Dict]] = [None] * len(tasks)
+    for i in stream_idx:
+        results[i] = _search_streaming_video(tasks[i], heuristic, config, graphs, stats)
+    streamed = set(stream_idx)
+    batched_idx = [i for i in range(len(tasks)) if i not in streamed]
+    if not batched_idx:
+        return results
+    buckets = [[batched_idx[j] for j in b]
+               for b in _bucket_indices([n_pads[i] for i in batched_idx], bucket_by_length)]
     budget_by_index = {
         i: per_video_hbm_budget(len(bucket), device, total_bytes=hbm_budget_bytes)
         for bucket in buckets for i in bucket
     }
-    h, w = config.cache_hw
-    if config.cache_mode not in ("auto", "resident", "downscale"):
-        raise NotImplementedError(
-            f"cache_mode={config.cache_mode!r}: the streaming search is not ported "
-            "(ROADMAP queue 1 item 6)"
-        )
-    if config.cache_mode != "downscale":
-        over = [tasks[i].video_path for i, budget in budget_by_index.items()
-                if n_pads[i] * h * w * 3 > budget]
-        if over:
-            raise NotImplementedError(
-                f"{len(over)} videos ({over[:3]}) exceed their bucket's per-video cache "
-                "budget and would take the streaming search, which is not ported "
-                "(ROADMAP queue 1 item 6); cache_mode='downscale' shrinks them instead"
-            )
     if len(buckets) > 1:
         logger.info("search_videos: %d videos -> %d length buckets %s",
-                    len(tasks), len(buckets), [n_pads[b[0]] for b in buckets])
+                    len(batched_idx), len(buckets), [n_pads[b[0]] for b in buckets])
 
     uploader = _Uploader(device, config)
-    results: List[Optional[Dict]] = [None] * len(tasks)
     with ThreadPoolExecutor(max_workers=max(1, decode_workers)) as pool:
         futures = {}
 

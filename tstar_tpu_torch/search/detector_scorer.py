@@ -23,7 +23,16 @@ canvas per video, one detector forward over the B canvases with per-video
 queries), ``score_verify_batch`` and ``score_verify_flat`` (any (video,
 second) pairs in one forward).  ``score_grid_detailed`` and
 ``score_grid_batch_detailed`` also return the grid images' top detections,
-for the search's history.  Streaming caches are a later slice.
+for the search's history.
+
+Streaming caches (``video/cache.StreamingFrameCache``): the scorer's
+``cache`` is a (1, ch, cw, 3) placeholder, and ``step_frames`` /
+``step_secs``, static device buffers that ``engine.run_search_streaming``
+fills each step with the host-decoded frames of the sampled seconds, are
+what the grid and the verification read.  The grid is then built by the
+plain pixel chain (``build_detector_grid_frames``), never by K6, K7 or the
+composed projection, which read a resident cache.  ``score_verify_raw``
+rescores frames the caller decoded (``search/reference_verify.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from tstar_tpu_torch.kernels.grid_embed import (
 from tstar_tpu_torch.kernels.image import (
     bilinear_resize,
     build_detector_grid,
+    build_detector_grid_frames,
     build_verify_batch,
     composed_patch_projection,
     grid_patch_embeddings,
@@ -99,6 +109,10 @@ class OwlVitScorer:
     gb_awk: Optional[torch.Tensor] = None
     gb_bias: Optional[torch.Tensor] = None
     gb_ah: Optional[torch.Tensor] = None
+    # Streaming step buffer: this step's host-decoded frames (K, ch, cw, 3)
+    # uint8 and their seconds (K,) int64, when the cache streams.
+    step_frames: Optional[torch.Tensor] = None
+    step_secs: Optional[torch.Tensor] = None
 
     @property
     def num_classes(self) -> int:
@@ -183,13 +197,26 @@ class OwlVitScorer:
             queries=queries,
         )
 
+    def _gather_frames(self, secs: torch.Tensor) -> torch.Tensor:
+        """(K,) seconds -> (K, ch, cw, 3) uint8 frames: rows of the resident
+        cache, or of the streaming step buffer (each second a search asks
+        for is one of the step's sampled seconds)."""
+        if self.step_frames is None:
+            return self.cache[secs]
+        idx = torch.argmax((secs[:, None] == self.step_secs[None, :]).to(torch.int32), dim=1)
+        return self.step_frames[idx]
+
     def _score_grid_full(self, secs: torch.Tensor):
         """(K,) seconds -> one grid image -> (conf (K,), presence (K, C), the
         grid image's raw (scores, class_ids, boxes))."""
         cfg = self.config
         grid_shape = (cfg.grid_rows, cfg.grid_cols)
         size = self.detection_image_size
-        if self._use_grid_embed_kernel((1,) + tuple(self.cache.shape)):
+        if self.step_frames is not None:
+            dets = self._detect(build_detector_grid_frames(
+                self._gather_frames(secs), grid_shape, size, dtype=self.model.dtype
+            ))
+        elif self._use_grid_embed_kernel((1,) + tuple(self.cache.shape)):
             # K6, the single video as a batch of one; reaches the batch gate
             # only under TSTAR_GRID_EMBED=force
             dets = self._detect_embeds(self._grid_embeds_kernel(self.cache[None], secs[None]))
@@ -232,8 +259,18 @@ class OwlVitScorer:
 
     def score_verify(self, secs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(T,) seconds, each rescored alone at the verification view's size."""
+        if self.step_frames is not None:
+            return self.score_verify_raw(self._gather_frames(secs))
         size = self._verify_model.cfg.vision.image_size
         pixels = build_verify_batch(self.cache, secs, size, dtype=self.model.dtype)
+        return self._score_verify_pixels(pixels)
+
+    def score_verify_raw(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The verification rescore of caller-decoded uint8 frames (K, h, w,
+        3) at any size (``search/reference_verify.py``: raw frames at
+        ``verify_hw``) -> (conf (K,), presence (K, C))."""
+        size = self._verify_model.cfg.vision.image_size
+        pixels = normalize_clip(bilinear_resize(frames, (size, size)), self.model.dtype)
         return self._score_verify_pixels(pixels)
 
     def _score_verify_pixels(

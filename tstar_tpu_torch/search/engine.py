@@ -5,7 +5,9 @@ Here a search is a host loop of steps (``search/step_graphs.py``), each of
 three phases over static device buffers, replayed as CUDA graphs on the card.
 The host reads the device twice a step: the verification candidate count
 (how many rescore rounds) and the loop condition (any target left).
-Everything else, sampling included, stays on the device.
+Everything else, sampling included, stays on the device.  A streaming
+search (``run_search_streaming``) also reads each step's sampled seconds,
+to decode their frames on the host.
 
 The step math below works on a leading video axis, (B, N_pad) rows that never
 mix, so one code path serves the single-video search (B = 1) and the
@@ -236,6 +238,24 @@ def run_search_chained(
     if max_iterations is None:
         max_iterations = config.iteration_cap(state.n_valid)
     final = run_single(state, scorer, config, max_iterations, graphs, stats)
+    return final, pop_frame_secs(final, config)
+
+
+def run_search_streaming(
+    state: SearchState, scorer: Scorer, stream, config: SearchConfig,
+    graphs: Optional[bool] = None, stats=None,
+) -> Tuple[SearchState, torch.Tensor]:
+    """``run_search`` over a streaming cache (``video/cache.StreamingFrameCache``):
+    each step's sampled seconds are read by the host, their frames decoded
+    at the full cache resolution (``stream.gather_host``) and copied into
+    the scorer's static step buffer, between the sampling and the grid
+    forward (``step_graphs.Stepper``: three host reads a step).  The same
+    steps, trajectory and keyframes as the resident search over the same
+    frames; memory does not grow with the video's length.  A scorer without
+    a step buffer raises ``TypeError``."""
+    from tstar_tpu_torch.search.step_graphs import run_single
+
+    final = run_single(state, scorer, config, None, graphs, stats, paged=stream)
     return final, pop_frame_secs(final, config)
 
 

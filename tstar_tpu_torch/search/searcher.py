@@ -1,11 +1,16 @@
 """High-level searcher: the reference ``TStarSearcher`` API over the engine
 (port of ``tstar_tpu/search/searcher.py``).
 
-The constructor keeps the reference's signature and adds ``decoder=``: the
-object ``video/cache.py`` decodes the frame cache from and that
-``_materialize`` decodes the final keyframes from (the port has no file
-decoder yet, ROADMAP queue 1 item 4).  The search runs on the heuristic's
-device; its noise comes from a ``torch.Generator`` on that device seeded
+The constructor keeps the reference's signature and adds ``decoder=``: an
+object the frame cache and the final keyframes are decoded from in place of
+the video file (``video/synthetic.SyntheticDecoder``, say); without one the
+file at ``video_path`` is read (``video/decoder.open_video``).  A video
+whose full-resolution cache exceeds the memory budget (or any video under
+``cache_mode='streaming'``) streams: ``search()`` then decodes each step's
+sampled seconds on the host (``engine.run_search_streaming``), and
+``search_with_visualization()`` raises, as the reference's does, since its
+grid images are rebuilt from a resident cache.  The search runs on the
+heuristic's device; its noise comes from a ``torch.Generator`` on that device seeded
 with ``seed``.  On a CUDA device its steps replay CUDA graphs
 (``search/step_graphs.py``); ``step_stats`` says what the last search's
 steps did.
@@ -28,10 +33,15 @@ import numpy as np
 import torch
 
 from tstar_tpu_torch.utils.config import SearchConfig
-from tstar_tpu_torch.search.engine import run_search, run_search_with_history
+from tstar_tpu_torch.search.engine import (
+    run_search,
+    run_search_streaming,
+    run_search_with_history,
+)
 from tstar_tpu_torch.search.state import init_state
 from tstar_tpu_torch.search.step_graphs import StepStats, history_lists
-from tstar_tpu_torch.video.cache import FrameCache, build_frame_cache
+from tstar_tpu_torch.video.cache import FrameCache, StreamingFrameCache, build_frame_cache
+from tstar_tpu_torch.video.decoder import opened
 
 
 class KeyframeSearcher:
@@ -123,12 +133,21 @@ class KeyframeSearcher:
     def search(self, graphs: Optional[bool] = None) -> Tuple[List[np.ndarray], List[float]]:
         """Full search -> (keyframes at native resolution, timestamps in s).
         ``graphs``: as ``engine.run_search`` (None: CUDA graphs on a CUDA
-        device)."""
+        device).  A streaming cache runs ``engine.run_search_streaming``."""
         self.step_stats = StepStats()
         with torch.no_grad():
-            final, secs = run_search(
-                self._state0, self.scorer, self.config, graphs, self.step_stats
-            )
+            if isinstance(self.cache, StreamingFrameCache):
+                try:
+                    final, secs = run_search_streaming(
+                        self._state0, self.scorer, self.cache, self.config, graphs,
+                        self.step_stats,
+                    )
+                finally:
+                    self.cache.close()
+            else:
+                final, secs = run_search(
+                    self._state0, self.scorer, self.config, graphs, self.step_stats
+                )
         self._final_state = final
         self._record_final_history()
         return self._materialize(secs.cpu().numpy())
@@ -138,6 +157,13 @@ class KeyframeSearcher:
     ) -> Tuple[List[np.ndarray], List[float]]:
         """``search()`` with each iteration's history kept (the same steps
         and keyframes; ``engine.run_search_with_history``)."""
+        if isinstance(self.cache, StreamingFrameCache):
+            raise ValueError(
+                "search_with_visualization requires a device-resident frame cache (history "
+                "grids re-render from cached frames); this video streams because its "
+                "full-resolution cache exceeds the memory budget. Use search(), or "
+                "cache_mode='downscale' to trade cache resolution for visualization."
+            )
         self.step_stats = StepStats()
         with torch.no_grad():
             final, secs, history = run_search_with_history(
@@ -157,14 +183,12 @@ class KeyframeSearcher:
             self.non_visiting_history.append(self.non_visiting_frames.tolist())
 
     def _materialize(self, secs: np.ndarray) -> Tuple[List[np.ndarray], List[float]]:
-        """Decode the final keyframes at native resolution; timestamps in s."""
-        if self.decoder is None:
-            raise NotImplementedError(
-                "no file decoder in this port yet: pass decoder= to KeyframeSearcher"
-            )
+        """Decode the final keyframes at native resolution (from ``decoder``,
+        else the video file); timestamps in s."""
         timestamps = [float(s) / self.fps for s in secs]
         frame_indices = [int(t * self.raw_fps) for t in timestamps]
-        return list(self.decoder.decode_batch(frame_indices)), timestamps
+        with opened(self.video_path, self.decoder) as dec:
+            return list(dec.decode_batch(frame_indices)), timestamps
 
     # -- snapshot / resume ----------------------------------------------------
     def save_snapshot(self, path: str) -> str:

@@ -17,6 +17,14 @@ The host reads the device twice a step: the candidate count after (a), which
 sets the rounds of (b), and the flags after (c), which end the loop.  Each
 read is one small non-blocking copy into pinned memory, awaited on an event.
 
+A streaming search (``paged=``, a ``video/cache.StreamingFrameCache``)
+splits (a) at the sampled seconds: (a1) noise -> sample into the static
+``secs``; the host reads the K seconds, decodes their frames
+(``paged.gather_host``) and copies them through a pinned staging buffer
+into the scorer's static step buffer; (a2) grid forward -> splat ->
+smoother -> candidates.  That makes three host reads a step, and the same
+trajectory as the resident search over the same frames.
+
 With graphs (the default on a CUDA device) each phase's first use runs
 eagerly on the capture stream, which builds the lazy per-device constants,
 cuBLAS's state and the kernel library, and is then captured into a CUDA
@@ -50,6 +58,8 @@ step as one without.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +75,21 @@ class GraphCaptureError(RuntimeError):
     """A phase of the search step could not be captured into a CUDA graph."""
 
 
+_CAPTURE_STREAMS: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream every search on ``dev`` in this thread captures on.
+    cuBLAS keeps a workspace for each stream it runs on, so a new stream for
+    each search would allocate another one in every search until PyTorch's
+    pool of streams comes round again."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           threading.get_ident())
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(device=key[0])
+    return _CAPTURE_STREAMS[key]
+
+
 @dataclasses.dataclass
 class StepStats:
     """What a driver did, filled in when passed as ``stats=``.  With
@@ -77,8 +102,9 @@ class StepStats:
     verify_widths: List[int] = dataclasses.field(default_factory=list)
     replays: int = 0
     captures: int = 0
-    host_reads: int = 0          # reads inside steps (two a step)
+    host_reads: int = 0          # reads inside steps (two a step, three streaming)
     setup_reads: int = 0         # the read before the first step
+    stream_seconds: float = 0.0  # streaming: host decode + upload of the step frames
     trace: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
@@ -102,13 +128,18 @@ class Stepper:
     ``mode``: 'single' (one video, the scorer's single-video methods and the
     adaptive wide rescore), 'flat' (one candidate list over all videos,
     ``score_verify_flat``), or 'per_video' (per-video buckets,
-    ``score_verify_batch``).
+    ``score_verify_batch``).  ``paged``: a streaming cache (single mode).
+    ``verify=False``: no verification in the step (no count read, no
+    rounds, phase (c) commits the grid's scores); the caller verifies
+    between steps (``search/reference_verify.py``).
     """
 
     def __init__(self, *, scores, visited, P, remaining, budget, n_valid, iteration,
                  rngs, scorer, config: SearchConfig, mode: str, graphs: Optional[bool],
-                 stats: Optional[StepStats] = None, history: bool = False):
+                 stats: Optional[StepStats] = None, history: bool = False, paged=None,
+                 verify: bool = True):
         self.dev = scores.device
+        self.verify = verify
         self.config, self.scorer, self.mode = config, scorer, mode
         self.history = history
         detailed = "score_grid_detailed" if mode == "single" else "score_grid_batch_detailed"
@@ -143,6 +174,21 @@ class Stepper:
         self.round = torch.zeros((), dtype=torch.int64, device=dev)
         self.round_rows = torch.arange(self.width, device=dev)
         self.flags = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.paged = paged
+        if paged is not None:
+            if mode != "single":
+                raise ValueError("a streaming search steps one video")
+            if not hasattr(scorer, "step_frames"):
+                raise TypeError(
+                    f"{type(scorer).__name__} does not support streaming caches (needs "
+                    "step_frames/step_secs fields; use a detector scorer, or "
+                    "cache_mode='resident'/'downscale' for table scorers)"
+                )
+            self.scorer = scorer = dataclasses.replace(
+                scorer,
+                step_frames=torch.zeros((k, *paged.cache_hw, 3), dtype=torch.uint8, device=dev),
+                step_secs=torch.zeros(k, dtype=torch.int64, device=dev),
+            )
         # history mode: the step counter, the detections of the step's grid
         # forward and the (cap, ...) history rows, allocated by the first
         # phase (a) and (c), which run eagerly
@@ -155,19 +201,23 @@ class Stepper:
             if len(gens) != b or len({id(g) for g in gens}) != b:
                 raise ValueError("graph stepping needs one distinct torch.Generator per video")
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(device=dev)
+            self._stream = _capture_stream(dev)
         if self.dev.type == "cuda":
             self._pinned = {
                 "count": torch.empty((), dtype=torch.int64, pin_memory=True),
                 "flags": torch.empty(b, dtype=torch.bool, pin_memory=True),
                 "setup": torch.empty(3 * b, dtype=torch.int64, pin_memory=True),
+                "secs": torch.empty(b, k, dtype=torch.int64, pin_memory=True),
             }
+            if paged is not None:
+                self._staging = torch.empty(tuple(self.scorer.step_frames.shape),
+                                            dtype=torch.uint8, pin_memory=True)
             self._event = torch.cuda.Event()
 
     # -- construction ---------------------------------------------------------
     @classmethod
     def single(cls, state: SearchState, scorer, config, graphs=None, stats=None,
-               history=False) -> "Stepper":
+               history=False, paged=None, verify=True) -> "Stepper":
         dev = state.scores.device
 
         def one(v):
@@ -177,7 +227,7 @@ class Stepper:
                    remaining=state.remaining[None], budget=one(state.budget),
                    n_valid=one(state.n_valid), iteration=one(state.iteration), rngs=[state.rng],
                    scorer=scorer, config=config, mode="single", graphs=graphs, stats=stats,
-                   history=history)
+                   history=history, paged=paged, verify=verify)
 
     @classmethod
     def batched(cls, states: BatchedState, scorer, config, graphs=None, stats=None,
@@ -233,14 +283,25 @@ class Stepper:
     def _phase_a(self, first: Optional[torch.Tensor], draw: List[bool]) -> None:
         """Noise (videos in ``draw``), sample, grid forward, splat, smoother,
         candidates.  ``first``: (B,) bool of rows at iteration 0, or None."""
-        cfg = self.config
+        self._phase_a1(first, draw)
+        self._phase_a2()
+
+    def _phase_a1(self, first: Optional[torch.Tensor], draw: List[bool]) -> None:
+        """Noise and sampling into the static ``secs`` and ``active``."""
         for i, d in enumerate(draw):
             if d:
                 self.gumbel[i].copy_(draw_gumbel(self.rngs[i], self.n, self.dev))
-        active = self.remaining.any(dim=-1) & (self.budget > 0)
+        self.active.copy_(self.remaining.any(dim=-1) & (self.budget > 0))
         all_first = first is not None and not any(draw)
-        secs = sample_secs(self.P, self.visited, self.valid, self.n_valid,
-                           None if all_first else self.gumbel, first, cfg)
+        self.secs.copy_(sample_secs(self.P, self.visited, self.valid, self.n_valid,
+                                    None if all_first else self.gumbel, first, self.config))
+
+    def _phase_a2(self) -> None:
+        """Grid forward on the sampled ``secs``, splat, smoother,
+        candidates."""
+        cfg, secs, active = self.config, self.secs, self.active
+        if self.paged is not None:
+            self.scorer.step_secs.copy_(secs[0])
         conf, presence, dets = self._grid(secs)
         if dets is not None:
             if self.dets is None:
@@ -260,14 +321,28 @@ class Stepper:
         else:
             order = torch.argsort((~cand).reshape(-1).to(torch.int32), stable=True)
             count = cand.sum()
-        for buf, val in ((self.secs, secs), (self.conf, conf.to(torch.float32)), (self.tp, tp),
+        for buf, val in ((self.conf, conf.to(torch.float32)), (self.tp, tp),
                          (self.new_scores, scores), (self.new_visited, visited),
-                         (self.new_P, p), (self.active, active), (self.order, order),
-                         (self.n_cand, count)):
+                         (self.new_P, p), (self.order, order), (self.n_cand, count)):
             buf.copy_(val)
         self.vconf.zero_()
         self.vpres.zero_()
         self.round.zero_()
+
+    def _fetch_frames(self) -> None:
+        """Streaming: read the sampled seconds, decode their frames on the
+        host and copy them into the scorer's step buffer (through pinned
+        memory on a CUDA device)."""
+        secs = self._read(self.secs, "secs")
+        self.stats.host_reads += 1
+        t0 = time.perf_counter()
+        frames = torch.from_numpy(np.ascontiguousarray(self.paged.gather_host(secs)))
+        if self.dev.type == "cuda":
+            self._staging.copy_(frames)
+            self.scorer.step_frames.copy_(self._staging, non_blocking=True)
+        else:
+            self.scorer.step_frames.copy_(frames)
+        self.stats.stream_seconds += time.perf_counter() - t0
 
     def _phase_round(self) -> None:
         """One verification round of ``width`` candidates; the last round's
@@ -299,12 +374,15 @@ class Stepper:
         self.vpres.copy_(presence[..., :self.t_max].reshape(-1, self.t_max))
 
     def _phase_c(self) -> None:
-        """Replay the removals, commit active rows, set the loop flags."""
+        """Replay the removals (unless the caller verifies, ``verify=False``),
+        commit active rows, set the loop flags."""
         b, k, t = self.b, self.k, self.t_max
-        scores, remaining = replay_verification(
-            self.new_scores, self.remaining, self.secs, self.tp,
-            self.vconf.view(b, k), self.vpres.view(b, k, t), self.config,
-        )
+        scores, remaining = self.new_scores, self.remaining
+        if self.verify:
+            scores, remaining = replay_verification(
+                scores, remaining, self.secs, self.tp,
+                self.vconf.view(b, k), self.vpres.view(b, k, t), self.config,
+            )
         act = self.active[:, None]
         self.scores.copy_(torch.where(act, scores, self.scores))
         self.visited.copy_(torch.where(act, self.new_visited, self.visited))
@@ -375,7 +453,7 @@ class Stepper:
         graph = torch.cuda.CUDAGraph()
         index = self.dev.index if self.dev.index is not None else torch.cuda.current_device()
         gens = [torch.cuda.default_generators[index]]     # every capture registers it
-        if name == "a":
+        if name in ("a", "a1"):
             register = getattr(graph, "register_generator_state", None)
             if register is None:
                 raise GraphCaptureError(
@@ -449,26 +527,38 @@ class Stepper:
         previous flags; ``setup`` first); returns the new flags."""
         is_first = [it + self._steps == 0 for it in self._it0]
         draw = [a and not f for a, f in zip(active, is_first)]
-        if self.graphs and not any(a and f for a, f in zip(active, is_first)):
+        graphed = self.graphs and not any(a and f for a, f in zip(active, is_first))
+        if graphed:
             # a replay of (a) draws for every video: keep the noise state of
             # the finished ones for their final pop
             for i, a in enumerate(active):
                 if not a and i not in self._saved:
                     self._saved[i] = self.rngs[i].get_state()
-            self._run("a", lambda: self._phase_a(None, draw),
-                      lambda: self._phase_a(None, [True] * self.b))
-        else:
             first = None
-            if any(is_first):
-                first = self.iteration == 0
-            self._phase_a(first, draw)
+        else:
+            first = (self.iteration == 0) if any(is_first) else None
+
+        def run(name, eager, capture=None):
+            if graphed:
+                self._run(name, eager, capture)
+            else:
+                eager()
+
+        every = [True] * self.b
+        if self.paged is None:
+            run("a", lambda: self._phase_a(first, draw), lambda: self._phase_a(None, every))
+        else:
+            run("a1", lambda: self._phase_a1(first, draw), lambda: self._phase_a1(None, every))
+            self._fetch_frames()
+            run("a2", self._phase_a2)
         self.stats.grid_images += self.b
         if self.stats.record:
             self.stats.trace.append({"active": list(active), "secs": self.secs.clone(),
                                      "conf": self.conf.clone()})
-        count = self._read(self.n_cand, "count")[0]
-        self.stats.host_reads += 1
-        self._verify(count)
+        if self.verify:
+            count = self._read(self.n_cand, "count")[0]
+            self.stats.host_reads += 1
+            self._verify(count)
         self._run("c", self._phase_c)
         flags = [bool(v) for v in self._read(self.flags, "flags")]
         self.stats.host_reads += 1
@@ -528,11 +618,12 @@ def history_lists(rows, n_valid: int, video: Optional[int] = None) -> Tuple[list
 
 def run_single(state: SearchState, scorer, config: SearchConfig,
                max_iterations: Optional[int], graphs: Optional[bool],
-               stats: Optional[StepStats], history: bool = False):
-    """Step one video's search to its end (or ``max_iterations`` steps).
-    Returns the final state, and with ``history`` also the history rows of
-    ``Stepper.history_rows`` with the video axis dropped."""
-    stepper = Stepper.single(state, scorer, config, graphs, stats, history)
+               stats: Optional[StepStats], history: bool = False, paged=None):
+    """Step one video's search to its end (or ``max_iterations`` steps),
+    from the scorer's resident cache or, with ``paged``, a streaming
+    cache's frames.  Returns the final state, and with ``history`` also the
+    history rows of ``Stepper.history_rows`` with the video axis dropped."""
+    stepper = Stepper.single(state, scorer, config, graphs, stats, history, paged)
     steps = stepper.run(max_iterations)
     final = stepper.single_state(state, steps)
     if not history:

@@ -21,7 +21,10 @@ already quantized activations, the GEMM alone; K5: ``layer_norm`` +
 ``addmm``, two calls; K6: ``conv2d`` on a canvas already built, the GEMM
 alone; K7: bilinear ``interpolate`` of the 16 frames, the resize alone) and
 the bound (bytes over 3.35 TB/s, operations over 989 TFLOP/s bf16, 1,979
-TOP/s int8 or 67 TFLOP/s f32).  Where the host, not the card, sets
+TOP/s int8 or 67 TFLOP/s f32).  For K2, K5, K6 and K7 it also reports the
+CUDA-event milliseconds a call (20 calls after 3 warm-ups, as
+``chip_smoke.py`` phase 3 times) of the kernel, its plain version on the
+same inputs and the PyTorch call.  Where the host, not the card, sets
 the pace of a back-to-back loop (``chip_smoke.py`` phase 3's CUDA-event
 times at small shapes), these device times still say what the kernel costs
 the card.
@@ -126,14 +129,50 @@ def bench_cases(card: str, which: str, old_root, libs: dict, results: dict) -> N
             torch.cuda.synchronize()
             if not agrees(label, args, out):
                 raise SystemExit(f"{label} ({name}): the kernel disagrees with its plain version")
-        lib_us, lib_name, n_bytes, n_ops, ops_rate = yardstick(label, args)
+        lib_fn, lib_name, n_bytes, n_ops, ops_rate = yardstick(label, args)
+        lib_us = device_us(lib_fn)
         bound_us = max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate) * 1e6
+        # CUDA-event ms a call (chip_smoke.py phase 3's timing) of the default
+        # library's kernel, its plain version and the PyTorch call
+        with library(libs["default"]):
+            events = {"kernel": cuda_ms(run), "plain": cuda_ms(plain_call(label, args)),
+                      "library": cuda_ms(lib_fn)}
         row = {"case": label, "device_us": times[label], "library": lib_name,
-               "library_us": lib_us, "bound_us": bound_us}
+               "library_us": lib_us, "bound_us": bound_us, "events_ms": events}
         results[which].append(row)
         t = ", ".join(f"{k} {v:.2f}" for k, v in times[label].items())
         print(f"[{label.split()[0].lower()}] {label}: device us {t}; {lib_name} {lib_us:.2f} us, "
-              f"bound {bound_us:.2f} us  ({card})", flush=True)
+              f"bound {bound_us:.2f} us; CUDA events ms a call: kernel {events['kernel']:.4f}, "
+              f"plain {events['plain']:.4f}, {lib_name} {events['library']:.4f}  ({card})",
+              flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call, fenced by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def plain_call(label, args):
+    """The kernel's plain PyTorch version on the case's inputs, as a call."""
+    from tstar_tpu_torch.kernels import grid_embed, ln_matmul, pallas_grid, patch_matmul
+
+    if label.startswith("K2"):
+        return lambda: patch_matmul.patch_embed_matmul_plain(*args)
+    if label.startswith("K6"):
+        a, kw = args
+        return lambda: grid_embed.grid_cell_embed_plain(*a, **kw)
+    if label.startswith("K7"):
+        return lambda: pallas_grid.build_detector_grid_pallas_plain(*args)
+    return lambda: ln_matmul.ln_matmul_plain(*args, 1e-5)
 
 
 def _within(out, want, atol, rtol) -> bool:
@@ -165,15 +204,14 @@ def agrees(label, args, out) -> bool:
 
 
 def yardstick(label, args):
-    """The PyTorch call's device us, its name, the bytes and operations of
+    """The PyTorch call (a callable), its name, the bytes and operations of
     the function, and the peak rate of those operations."""
     if label.startswith("K2"):
         px, w = args
         b, hw, p = px.shape[0], px.shape[1], w.shape[0]
         x_nchw, w_oihw = px.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
-        lib_us = device_us(lambda: F.conv2d(x_nchw, w_oihw, stride=p))
         m, k = b * (hw // p) ** 2, p * p * 3
-        return (lib_us, "conv2d", (px.numel() + w.numel() + m * 768) * 2, 2 * m * k * 768,
+        return (lambda: F.conv2d(x_nchw, w_oihw, stride=p), "conv2d", (px.numel() + w.numel() + m * 768) * 2, 2 * m * k * 768,
                 BF16_OPS_PER_S)
     if label.startswith("K6"):
         (cache, _, _, _, _, w), kw = args
@@ -181,26 +219,25 @@ def yardstick(label, args):
         g = torch.Generator(device=cache.device).manual_seed(b)
         canvas = torch.randn(b, 3, 768, 768, generator=g, device=cache.device).to(w.dtype)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        lib_us = device_us(lambda: F.conv2d(canvas, w_oihw, stride=p))
         m, k = b * (768 // p) ** 2, p * p * 3
         n_bytes = b * 16 * ch * cw * 3 + k * 768 * 2 + m * 768 * 2
-        return lib_us, "conv2d on a built canvas", n_bytes, 2 * m * k * 768, BF16_OPS_PER_S
+        return (lambda: F.conv2d(canvas, w_oihw, stride=p)), "conv2d on a built canvas", n_bytes, 2 * m * k * 768, BF16_OPS_PER_S
     if label.startswith("K7"):
         cache, secs, _, size, dt = args
         ch, cw = cache.shape[1:3]
         frames = cache[secs].permute(0, 3, 1, 2).float()
-        lib_us = device_us(lambda: F.interpolate(frames, size=(size // 4, size // 4),
-                                                 mode="bilinear", align_corners=False))
+        lib = lambda: F.interpolate(frames, size=(size // 4, size // 4),  # noqa: E731
+                                    mode="bilinear", align_corners=False)
         taps = 2 if ch == size // 4 else 6             # multiply-adds a value
         n_bytes = 16 * ch * cw * 3 + size * size * 3 * torch.empty((), dtype=dt).element_size()
-        return (lib_us, "interpolate bilinear (resize only)", n_bytes,
+        return (lib, "interpolate bilinear (resize only)", n_bytes,
                 size * size * 3 * 2 * (taps + 1), F32_OPS_PER_S)
     x, scale, bias, w, b = args
     x2 = x[0]
-    lib_us = device_us(lambda: torch.addmm(b, F.layer_norm(x2, (768,), scale, bias, 1e-5), w))
     rows, n = x2.shape[0], w.shape[1]
     n_bytes = rows * 768 * 2 + 768 * n * 2 + 2 * 768 * 2 + n * 2 + rows * n * 2
-    return lib_us, "layer_norm + addmm", n_bytes, 2 * rows * 768 * n, BF16_OPS_PER_S
+    return (lambda: torch.addmm(b, F.layer_norm(x2, (768,), scale, bias, 1e-5), w)), \
+        "layer_norm + addmm", n_bytes, 2 * rows * 768 * n, BF16_OPS_PER_S
 
 
 def card_line() -> str:

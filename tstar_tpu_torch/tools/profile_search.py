@@ -8,7 +8,10 @@ bf16, a synthetic 600 s video, targets couch + lamp, cue tv, budget 0.5)
 under each configuration (all by default, or those named by ``--runs``),
 stepped through CUDA graphs unless the label says "eager": bf16; bf16
 eager; bf16 through ``search_with_visualization()`` (``bf16 history``, the
-framework's search stage: the same steps, in history mode); the batched
+framework's search stage: the same steps, in history mode); bf16 with
+``cache_mode='streaming'`` (``bf16 streaming``, eager too, and ``bf16
+streaming 4h`` on the 14,400 s scene: each step's seconds decoded on the
+host into the step buffer, ``stream_ms_per_step``); the batched
 search of phase 8 over one bucket of eight distinct videos (``batched
 b8``, its caches built outside the timed region; eager; and with
 ``collect_history``, ``batched b8 history``); ``detector_quant='int8'``
@@ -111,17 +114,18 @@ def device_events(prof):
     return by_name, intervals
 
 
-def _single(heur, config, graphs, history=False):
+def _single(heur, config, graphs, history=False, duration=600.0):
     """-> make(seed): a callable running one ``KeyframeSearcher.search()``
     (``search_with_visualization()`` with ``history``; the searcher built
-    outside it) and returning its ``StepStats``."""
+    outside it) of the synthetic scene of ``duration`` seconds and returning
+    its ``StepStats``."""
     from tstar_tpu_torch.search.searcher import KeyframeSearcher
     from tstar_tpu_torch.video.synthetic import default_scene
 
     def make(seed):
         s = KeyframeSearcher(
-            "mem://synthetic-600s", heur, ["couch", "lamp"], ["tv"],
-            search_budget=0.5, config=config, seed=seed, decoder=default_scene(600.0),
+            f"mem://synthetic-{duration:.0f}s", heur, ["couch", "lamp"], ["tv"],
+            search_budget=0.5, config=config, seed=seed, decoder=default_scene(duration),
         )
 
         def go():
@@ -219,6 +223,7 @@ def profile_config(make, top):
         "steps": stats.steps, "grid_images": stats.grid_images,
         "verify_images": sum(stats.verify_widths),
         "host_reads_per_step": stats.host_reads / steps,
+        "stream_ms_per_step": 1e3 * stats.stream_seconds / steps,
         "graph_replays_per_step": stats.replays / steps, "graph_captures": stats.captures,
         "port_kernels": port,
         "largest": [{"name": k[:120], "ms": v[0], "count": v[1]} for k, v in largest],
@@ -342,10 +347,14 @@ def main(argv=None) -> int:
     heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
     base = dict(cache_hw=(192, 384))
     bf16 = SearchConfig(**base)
+    streaming = SearchConfig(cache_mode="streaming", **base)
     runs = {
         "bf16": (_single(heur, bf16, None), {}),
         "bf16 eager": (_single(heur, bf16, False), {}),
         "bf16 history": (_single(heur, bf16, None, history=True), {}),
+        "bf16 streaming": (_single(heur, streaming, None), {}),
+        "bf16 streaming eager": (_single(heur, streaming, False), {}),
+        "bf16 streaming 4h": (_single(heur, streaming, None, duration=14400.0), {}),
         "batched b8": (_bucket(heur, bf16, None), {}),
         "batched b8 eager": (_bucket(heur, bf16, False), {}),
         "batched b8 history": (_bucket(heur, bf16, None, history=True), {}),

@@ -1,10 +1,10 @@
 """Host-side image utilities (port of ``tstar_tpu/utils/images.py``).
 
-Frames come from ``decoder=`` (any object with ``meta`` (fps,
-total_frames), ``decode_batch`` and ``decode_sweep``, as
-``KeyframeSearcher`` and ``VideoTask`` take): the port has no file decoder
-yet (ROADMAP queue 1 item 4).  The decoder stays open for its owner.  PIL is
-imported by the functions that need it, never with the module.
+Frames are read from the video file (``video/decoder.open_video``), or from
+``decoder=`` when given (any object with ``meta`` (fps, total_frames),
+``decode_batch`` and ``decode_sweep``, as ``KeyframeSearcher`` and
+``VideoTask`` take), which stays open for its owner.  PIL is imported by the
+functions that need it, never with the module.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from tstar_tpu_torch.video.cache import _decoder_for
+from tstar_tpu_torch.video.decoder import opened
 
 
 def encode_image_to_base64(image) -> str:
@@ -35,14 +35,14 @@ def encode_image_to_base64(image) -> str:
 def load_video_frames(video_path: str, num_frames: int = 8, decoder=None) -> List[np.ndarray]:
     """``num_frames`` RGB frames sampled uniformly: frame i at index
     floor(i * total / n), the reference's rule."""
-    dec = _decoder_for(video_path, decoder)
-    total = dec.meta.total_frames
-    if total <= 0:
-        raise ValueError("Video has zero frames or could not retrieve frame count.")
-    n = min(num_frames, total)
-    step = total / n
-    indices = [int(np.floor(i * step)) for i in range(n)]
-    return list(dec.decode_batch(indices))
+    with opened(video_path, decoder) as dec:
+        total = dec.meta.total_frames
+        if total <= 0:
+            raise ValueError("Video has zero frames or could not retrieve frame count.")
+        n = min(num_frames, total)
+        step = total / n
+        indices = [int(np.floor(i * step)) for i in range(n)]
+        return list(dec.decode_batch(indices))
 
 
 def save_as_gif(images: Sequence[np.ndarray], output_gif_path: str, fps: float = 1.0):
@@ -93,10 +93,10 @@ def extract_frames_at_fps(video_path: str, output_dir: str, fps: float = 1.0,
     returns the count."""
     from PIL import Image
 
-    dec = _decoder_for(video_path, decoder)
+    with opened(video_path, decoder) as dec:
+        count = int(dec.meta.total_frames / dec.meta.fps * fps)
+        frames = dec.decode_sweep(1.0 / fps, count)
     os.makedirs(output_dir, exist_ok=True)
-    count = int(dec.meta.total_frames / dec.meta.fps * fps)
-    frames = dec.decode_sweep(1.0 / fps, count)
     for i, frame in enumerate(frames):
         Image.fromarray(frame).save(os.path.join(output_dir, f"frame_{i:04d}.jpg"))
     return len(frames)

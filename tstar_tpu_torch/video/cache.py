@@ -1,28 +1,37 @@
-"""Decode-once frame cache: host video -> device memory (port of the resident
-path of ``tstar_tpu/video/cache.py``).
+"""Decode-once frame cache: host video -> device memory (port of
+``tstar_tpu/video/cache.py``).
 
 The search only reads the 1-fps sampling grid, so the whole grid is decoded
 once, in one forward sweep, into a ``(N_pad, cache_h, cache_w, 3)`` uint8
 tensor on the search's device.  At the default 192x384 a 600 s video
 (640 padded seconds) is ~142 MB.
 
-A decoder is any object with ``meta`` (fps, total_frames), ``decode_sweep``,
-``decode_batch`` and ``close``; ``video/synthetic.SyntheticDecoder`` is one.
-This slice has no file decoder, so callers pass one with ``decoder=``.  The
-streaming (host-paged) cache is a later slice: a video over the memory
-budget raises unless ``cache_mode='downscale'``.
+A video whose full-resolution cache exceeds the memory budget streams
+instead (``StreamingFrameCache``): each step's sampled seconds are
+seek-decoded on the host at the FULL cache resolution and copied into a
+step buffer on the device (``engine.run_search_streaming``), so memory does
+not grow with the video's length.  Shrinking the resolution to fit is the
+explicit ``cache_mode='downscale'``.
+
+Videos are read from their path with the file decoder
+(``video/decoder.open_video``), or from ``decoder=``: any object with
+``meta`` (fps, total_frames), ``decode_sweep``, ``decode_batch`` and
+``close``, such as ``video/synthetic.SyntheticDecoder``.  A decoder passed
+in stays open for its owner.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Optional
+import os
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.video.decoder import open_video, opened
 
 logger = logging.getLogger(__name__)
 
@@ -114,21 +123,102 @@ def fit_cache_hw(cache_hw: tuple, n_pad: int, budget_bytes: int) -> tuple:
     return (h, w)
 
 
-def probe_video_length(decoder, config: SearchConfig) -> tuple:
-    """(n_valid, n_pad) from the decoder's header: N = int(duration * fps_s)."""
-    meta = decoder.meta
+def probe_video_length(video, config: SearchConfig) -> tuple:
+    """(n_valid, n_pad) from the header alone, N = int(duration * fps_s):
+    ``video`` is a path (opened and closed here) or a decoder."""
+    if isinstance(video, (str, os.PathLike)):
+        with opened(os.fspath(video)) as dec:
+            return probe_video_length(dec, config)
+    meta = video.meta
     if meta.fps <= 0 or meta.total_frames <= 0:
         raise ValueError("cannot probe video: no frames or no frame rate")
     n_valid = int(meta.total_frames / meta.fps * config.sampling_fps)
     return n_valid, config.padded_frames(n_valid)
 
 
-def _decoder_for(video_path: str, decoder):
-    if decoder is None:
-        raise NotImplementedError(
-            f"no file decoder in this port yet: pass decoder= to read {video_path!r}"
+CACHE_MODES = ("auto", "resident", "streaming", "downscale")
+
+
+def full_cache_bytes(n_pad: int, config: SearchConfig) -> int:
+    """Bytes of a video's cache at the full ``config.cache_hw``."""
+    h, w = config.cache_hw
+    return n_pad * h * w * 3
+
+
+def cache_route(n_pad: int, config: SearchConfig, budget_bytes: int, what: str = "the video") -> str:
+    """'streaming' or 'resident': where ``config.cache_mode`` puts a video of
+    ``n_pad`` padded seconds whose cache may take ``budget_bytes``.
+
+    'auto' streams when the full-resolution cache is over the budget,
+    'streaming' always streams, 'downscale' stays resident (shrunk to fit),
+    and 'resident' raises ``ValueError`` over the budget, as does an
+    unknown mode.  ``what`` names the video in that error."""
+    mode = config.cache_mode
+    if mode not in CACHE_MODES:
+        raise ValueError(f"unknown cache_mode={mode!r}")
+    if mode == "downscale":
+        return "resident"
+    need = full_cache_bytes(n_pad, config)
+    if mode == "streaming" or (mode == "auto" and need > budget_bytes):
+        return "streaming"
+    if need > budget_bytes:
+        raise ValueError(
+            f"cache_mode='resident' but {what} needs {need / 1024 ** 3:.2f} GB > "
+            f"budget {budget_bytes / 1024 ** 3:.2f} GB"
         )
-    return decoder
+    return "resident"
+
+
+@dataclasses.dataclass
+class StreamingFrameCache:
+    """Host-paged cache for a video whose full-resolution cache exceeds the
+    memory budget: memory does not grow with the video's length, and the
+    resolution stays the full ``cache_hw``.  ``engine.run_search_streaming``
+    asks ``gather_host`` for each step's sampled seconds and copies them
+    into the scorer's step buffer; only ``frames``, a (1, ch, cw, 3)
+    placeholder that gives the scorer its cache shape, lives on the device.
+
+    Reads ``decoder`` when given (its owner closes it), else opens
+    ``video_path`` at the first gather and closes it in ``close``.  Not
+    thread-safe: one instance per video.
+    """
+
+    video_path: str
+    n_valid: int
+    n_pad: int
+    raw_fps: float
+    duration: float
+    cache_hw: tuple
+    sampling_fps: float
+    device: Any = "cpu"
+    decoder: Any = None
+
+    def __post_init__(self):
+        self._own = None
+        self._frames = torch.zeros((1, *self.cache_hw, 3), dtype=torch.uint8, device=self.device)
+
+    @property
+    def frames(self) -> torch.Tensor:
+        return self._frames
+
+    def gather_host(self, secs: Sequence[int]) -> np.ndarray:
+        """(K,) sampled seconds -> (K, ch, cw, 3) uint8 host frames, the
+        resident cache's rows: the same second -> frame mapping as its sweep
+        (clamped to the last frame) at the same ``cache_hw``."""
+        dec = self.decoder
+        if dec is None:
+            if self._own is None:
+                self._own = open_video(self.video_path)
+            dec = self._own
+        meta = dec.meta
+        period = 1.0 / self.sampling_fps
+        idx = [min(int(int(s) * period * meta.fps), meta.total_frames - 1) for s in secs]
+        return dec.decode_batch(idx, out_hw=tuple(self.cache_hw))
+
+    def close(self) -> None:
+        if self._own is not None:
+            self._own.close()
+            self._own = None
 
 
 def build_frame_cache_host(
@@ -137,8 +227,14 @@ def build_frame_cache_host(
     decoder=None,
     budget_bytes: int = DEFAULT_BUDGET_BYTES,
 ) -> HostFrameCache:
-    """Probe + sweep-decode a video into a padded host cache."""
-    dec = _decoder_for(video_path, decoder)
+    """Probe + sweep-decode a video into a padded host cache (reads
+    ``decoder``, else opens ``video_path``; runs off the device, so it may
+    overlap a search)."""
+    with opened(video_path, decoder) as dec:
+        return _sweep(dec, config, budget_bytes)
+
+
+def _sweep(dec, config: SearchConfig, budget_bytes: int) -> HostFrameCache:
     meta = dec.meta
     n_valid, n_pad = probe_video_length(dec, config)
     k = config.frames_per_iteration
@@ -167,31 +263,38 @@ def build_frame_cache(
     device=None,
     decoder=None,
     budget_bytes: Optional[int] = None,
-) -> FrameCache:
-    """Decode once into a ``FrameCache`` on ``device``.
+):
+    """Probe + decode by ``config.cache_mode``: a ``FrameCache`` on
+    ``device``, or a ``StreamingFrameCache``.
 
-    ``cache_mode`` 'auto' and 'resident' keep the full ``cache_hw`` and raise
-    when it does not fit the budget (the streaming cache is not ported yet);
-    'downscale' shrinks the resolution until it fits.  The length probe
-    reads ``decoder``; it does not reopen the path.
+    'auto' keeps a video whose full-resolution cache fits ``budget_bytes``
+    (default: ``device_budget_bytes(device)``) resident and streams a longer
+    one; 'resident' raises ``ValueError`` where 'auto' would stream;
+    'streaming' always streams; 'downscale' shrinks the resolution until the
+    cache fits.  Reads ``decoder``, else opens ``video_path``.
     """
     if device is None:
         raise ValueError("build_frame_cache needs an explicit device")
-    mode = config.cache_mode
-    if mode not in ("auto", "resident", "downscale"):
-        raise ValueError(f"cache_mode={mode!r} is not supported by this port")
-    dec = _decoder_for(video_path, decoder)
     if budget_bytes is None:
         budget_bytes = device_budget_bytes(device)
-    n_valid, n_pad = probe_video_length(dec, config)
-    h, w = config.cache_hw
-    resident_bytes = n_pad * h * w * 3
-    if mode != "downscale":
-        if resident_bytes > budget_bytes:
-            raise ValueError(
-                f"frame cache for {video_path!r} needs {resident_bytes / 1024 ** 3:.2f} GB "
-                f"> budget {budget_bytes / 1024 ** 3:.2f} GB; the streaming cache is "
-                "not ported yet (cache_mode='downscale' shrinks the resolution)"
+    with opened(video_path, decoder) as dec:
+        n_valid, n_pad = probe_video_length(dec, config)
+        if cache_route(n_pad, config, budget_bytes, repr(video_path)) == "streaming":
+            if config.cache_mode == "auto":
+                logger.warning(
+                    "frame cache for %s (%d s, %.2f GB at full %s) exceeds the %.2f GB "
+                    "budget: streaming it at full resolution (cache_mode='downscale' "
+                    "shrinks the resolution instead)", video_path, n_valid,
+                    full_cache_bytes(n_pad, config) / 1024 ** 3, tuple(config.cache_hw),
+                    budget_bytes / 1024 ** 3,
+                )
+            k = config.frames_per_iteration
+            if n_valid < k:
+                raise ValueError(f"video too short: {n_valid}s sampled < grid size {k}")
+            meta = dec.meta
+            return StreamingFrameCache(
+                video_path=video_path, n_valid=n_valid, n_pad=n_pad, raw_fps=meta.fps,
+                duration=meta.total_frames / meta.fps, cache_hw=tuple(config.cache_hw),
+                sampling_fps=config.sampling_fps, device=device, decoder=decoder,
             )
-        budget_bytes = max(budget_bytes, resident_bytes)
-    return build_frame_cache_host(video_path, config, dec, budget_bytes).to_device(device)
+        return _sweep(dec, config, budget_bytes).to_device(device)

@@ -5,7 +5,7 @@ renderer of ``tstar_tpu/video/synthetic.py``, plus a decoder over it).
 visible during known intervals.  ``SyntheticDecoder`` serves such a video
 through the decoder interface ``video/cache.py`` reads
 (``meta``/``decode_sweep``/``decode_batch``/``close``, like
-``tstar_tpu/video/decoder.py``), rendering each requested frame at the
+``video/decoder.NativeDecoder``), rendering each requested frame at the
 requested size: no file, no codec.
 """
 
@@ -16,6 +16,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from tstar_tpu_torch.video.decoder import VideoMeta
+
 
 @dataclasses.dataclass(frozen=True)
 class PlantedObject:
@@ -24,18 +26,6 @@ class PlantedObject:
     color: Tuple[int, int, int]     # RGB
     position: Tuple[float, float]   # center, fraction of (h, w)
     size: float = 0.25              # fraction of min(h, w)
-
-
-@dataclasses.dataclass(frozen=True)
-class VideoMeta:
-    fps: float
-    total_frames: int
-    width: int
-    height: int
-
-    @property
-    def duration(self) -> float:
-        return self.total_frames / self.fps if self.fps else 0.0
 
 
 def second_intensity(sec: int) -> int:

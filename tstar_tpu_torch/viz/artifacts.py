@@ -78,9 +78,10 @@ def save_batched_search_artifacts(
 ) -> bool:
     """The annotated search GIF of one video from its batched-search result
     row (``search_videos(collect_history=True)``): the sampled seconds are
-    decoded again from ``decoder`` at the cell size, since the search keeps
-    no pixels.  Returns False when the row has no history."""
-    from tstar_tpu_torch.video.cache import _decoder_for
+    decoded again at the cell size, from ``decoder`` or else the video file,
+    since the search keeps no pixels.  Returns False when the row has no
+    history."""
+    from tstar_tpu_torch.video.decoder import opened
     from tstar_tpu_torch.viz.boxes import draw_boxes
 
     samp = row.get("sampled_history")
@@ -89,10 +90,11 @@ def save_batched_search_artifacts(
     dets = row.get("detect_bbox_iters") or []
     rows, cols = grid_shape
     ch, cw = cell_hw
-    dec = _decoder_for(video_path, decoder)
-    raw_fps = dec.meta.fps
     wanted = sorted({int(s) for it in samp for s in it})
-    frames = dec.decode_batch([int(s / sampling_fps * raw_fps) for s in wanted], out_hw=cell_hw)
+    with opened(video_path, decoder) as dec:
+        raw_fps = dec.meta.fps
+        frames = dec.decode_batch([int(s / sampling_fps * raw_fps) for s in wanted],
+                                  out_hw=cell_hw)
     cache_like = np.zeros((max(wanted) + 1, ch, cw, 3), np.uint8)
     for j, s in enumerate(wanted):
         cache_like[s] = frames[j]
