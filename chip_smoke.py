@@ -154,13 +154,35 @@ Phases (any failed check exits non-zero and prints no result line):
      tower's launches per forward.  The file decoder is not exercised on the
      card: its machine has no FFmpeg (``native/libtstar_video.so`` does not
      load, ``native/video_decoder.cpp`` does not build there).
+  13. the calibrated detector and its A/B tools, Qwen2.5-VL, anyres: (a)
+     ``initialize_heuristic('owl-vit-calibrated')`` at B/32's full width,
+     calibrated (couch, lamp, tv) in f32 on the card and on the host's
+     CPU with the same weights: every direction's cosine >= 0.9999 and every
+     calibration statistic within a tolerance derived from the class head's
+     per-patch scale and the directions' difference; then phase 5's search
+     in bf16 with the calibrated scorer (K1 12, K2 1, K3 27 a forward, two
+     host reads a step), its margins printed (random weights at these
+     widths need not separate the objects); (b) ``tools/ab_knob_recall.py
+     --scenes 2 --seeds 2`` in a process of its own: its JSON line and each
+     knob's launches, then the lottery's seed calibrated here on the card
+     and on the CPU (the same directions and margins); (c) ``tools/verify_ab.py --videos 2``: the cache-row
+     verification against the raw 285x600 chain; (d) a tiny f32 Qwen2.5-VL
+     checkpoint written here, loaded through ``UniversalGrounder`` on the
+     card and on the CPU: the same QA, grounding and batched strings at
+     temperature 0, as phase 9c; (e) one QA request at
+     Qwen2.5-VL-7B-Instruct's published widths (8.3 B parameters seeded on
+     the card in bf16): prefill ms, decode ms a token beside its bound, peak
+     memory, no port kernel; (f) ``encode_anyres_image`` at phase 9a's
+     SigLIP widths on a 3x3-tile image: bf16 with K3 (54 launches) against
+     the f32 run with K3's plain version on the card.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
 The second-to-last line is a JSON object of per-kernel results (K1-K8 with
-their launches in phase 10b's YOLO search, in phase 11's pipelines and in
-phase 12a's streaming search, and the NMS kernel); the last is
+their launches in phase 10b's YOLO search, in phase 11's pipelines, in
+phase 12a's streaming search, in phase 13a's calibrated search, 13f's
+anyres encode and 13b's knob A/B, and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -741,17 +763,20 @@ def phase_int8_tower(torch, tower):
     the bf16 tower on the card and the same int8 weights in f32 on the CPU."""
     from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tstar_tpu_torch.models.owlvit import postprocess_detections
-    from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
+    from tstar_tpu_torch.models.owlvit_quant import (
+        encode_image_int8, quantize_vision_tower, route_counts,
+    )
 
     cfg, cpu_model, gpu_model = tower["cfg"], tower["cpu_model"], tower["gpu_model"]
     qp_cpu = quantize_vision_tower(cpu_model)   # from the f32 weights, for both sides
+    routes = route_counts(qp_cpu)
 
     def to_cuda(tree):
         if isinstance(tree, dict):
             return {k: to_cuda(v) for k, v in tree.items()}
         if isinstance(tree, tuple):
             return tuple(to_cuda(v) for v in tree)
-        return tree.to("cuda")
+        return tree.to("cuda") if isinstance(tree, torch.Tensor) else tree
 
     qp_gpu = to_cuda(qp_cpu)
     with torch.no_grad():
@@ -777,8 +802,10 @@ def phase_int8_tower(torch, tower):
     # quantization step each), on top of phase 4's bf16 rounding (2e-2).
     cos_min, tol = 0.98, 5e-2
     ok = (cos > cos_min and score_err <= tol and bool(torch.isfinite(gs).all())
-          and counts["w8a8_matmul"] == 4 * cfg.vision.num_layers)
-    log(f"[int8 tower] B/32 full width, one 768^2 grid image: K4 launches {counts['w8a8_matmul']} "
+          and counts["w8a8_matmul"] == 4 * cfg.vision.num_layers
+          and routes == {"k4": 4 * cfg.vision.num_layers})
+    log(f"[int8 tower] B/32 full width, one 768^2 grid image: route plan {routes} (want every "
+        f"dense layer on K4); K4 launches {counts['w8a8_matmul']} "
         f"(want {4 * cfg.vision.num_layers}); min per-patch feature cosine int8 vs bf16 tower "
         f"{cos:.4f} (bound > {cos_min}); max |score int8 cuda-bf16 - int8 cpu-f32| = "
         f"{score_err:.3e} (tol {tol:.0e}); max |score int8 - float f32| = {vs_bf16:.3e} "
@@ -1556,12 +1583,15 @@ def vlm_numerics(torch, card):
         torch.cuda.empty_cache()
 
 
-def vlm_facade(torch, card):
+def vlm_facade(torch, card, models=None, special=None):
     """Phase 9c: a tiny checkpoint of each family written here (config.json,
     byte vocabulary, model.safetensors), loaded through ``UniversalGrounder``
     onto the card and onto the CPU in f32: at temperature 0 the QA, grounding
     and (Qwen2-VL) batched QA strings agree, and the batch equals the serial
-    calls."""
+    calls.  ``models`` / ``special``: other tiny models and their
+    vocabulary's special ids (phase 13d).  The frames' pixel cap is a 2 x 2
+    grid of the tower's merge units or, for a windowed tower, its windows
+    (LLaVA's preprocessing takes no cap)."""
     import tempfile
 
     import numpy as np
@@ -1570,7 +1600,8 @@ def vlm_facade(torch, card):
     from tstar_tpu_torch.models.loader import save_vlm_checkpoint
     from tstar_tpu_torch.video.synthetic import default_scene
 
-    models, special = tiny_vlms(torch)
+    if models is None:
+        models, special = tiny_vlms(torch)
     scene = default_scene(600.0)
     rng = np.random.default_rng(0)
     items = [{"frames": [rng.integers(0, 256, (360, 640, 3), np.uint8) for _ in range(2)],
@@ -1583,7 +1614,7 @@ def vlm_facade(torch, card):
             for device in ("cuda", "cpu"):
                 g = UniversalGrounder(f"{family}-tiny", model_path=d, device=device,
                                       dtype=torch.float32)
-                g.backend.max_pixels = 56 * 56
+                g.backend.max_pixels = facade_pixels(model.cfg.vision)
                 try:
                     grounding = g.inference_query_grounding(
                         "mem://scene", QA_QUESTION, QA_OPTIONS, temperature=0.0, max_tokens=32,
@@ -1602,7 +1633,15 @@ def vlm_facade(torch, card):
             f"QA batch of 4: {ok and a == answers['cpu']}; batch == serial: {a[2] == a[3]} "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"phase 9c: the {family} grounder on the card differs from the CPU")
+            raise SystemExit(f"vlm facade: the {family} grounder on the card differs from the CPU")
+
+
+def facade_pixels(vision) -> int:
+    """Phase 9c's pixel cap for a tiny tower (``vlm_facade``)."""
+    unit = getattr(vision, "window_size", None)
+    if unit is None:
+        unit = vision.patch_size * getattr(vision, "spatial_merge_size", 1)
+    return (2 * unit) ** 2
 
 
 def tiny_vlms(torch):
@@ -2829,6 +2868,405 @@ def phase_12(torch, card):
     return {"counts": counts, "long": p12b, "verify": p12c, "busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the calibrated detector and its A/B tools, Qwen2.5-VL, anyres
+# ---------------------------------------------------------------------------
+
+def cal_canvas_scale(torch, heur, cache_hw):
+    """The largest per-patch logit scale c_p of ``heur``'s class head on one
+    calibration-style grid canvas (16 backgrounds, the couch in half the
+    cells): |A_p| of ``_probe_affine``, since img_hat_p is a unit vector."""
+    import numpy as np
+
+    from tstar_tpu_torch.framework.heuristics import DEFAULT_COLOR_MAP
+
+    frames = [heur._render_cal_frame(cache_hw, DEFAULT_COLOR_MAP["couch"] if t % 2 else None, t)
+              for t in range(16)]
+    cache = torch.from_numpy(np.stack(frames)).to(heur.device)
+    a, _ = heur._probe_affine(heur._canvas(cache, np.arange(16), (4, 4)))
+    return float(np.linalg.norm(a, axis=1).max())
+
+
+def phase_13a(torch, card):
+    """13a: ``initialize_heuristic('owl-vit-calibrated')`` at B/32's full
+    width, calibrated in f32 on the card and on the host's CPU (the same
+    weights): each direction's cosine >= 0.9999 and each calibration
+    statistic within the tolerance derived below; then phase 5's search in
+    bf16 with the calibrated scorer.  Returns the search's launch counts."""
+    import numpy as np
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import (
+        CalibratedOwlVitHeuristic,
+        initialize_heuristic,
+    )
+
+    cfg = SearchConfig(cache_hw=(192, 384))
+    card32 = initialize_heuristic("owl-vit-calibrated", device="cuda", dtype=torch.float32, seed=0)
+    cpu32 = CalibratedOwlVitHeuristic(device="cpu", dtype=torch.float32, seed=0)
+    cpu32.model.load_state_dict({k: v.cpu() for k, v in card32.model.state_dict().items()})
+    seconds = {}
+    for label, h in (("cuda", card32), ("cpu", cpu32)):
+        t0 = time.perf_counter()
+        h.calibrate(cfg.cache_hw, STREAM_TARGETS, STREAM_CUES, cfg)
+        if label == "cuda":
+            torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+    (dirs_gpu,), (dirs_cpu,) = card32._dir_cache.values(), cpu32._dir_cache.values()
+    c_max = cal_canvas_scale(torch, card32, cfg.cache_hw)
+    # A statistic is a sigmoid score (slope <= 1/4) of one patch's logit
+    # A_p . q + b_p, |A_p| = c_p.  Card and CPU differ in the direction
+    # (|dq| moves a logit by at most c_p |dq|) and in the towers' f32
+    # summation order (an allowance of 1e-4 of c_p, ten times the 1e-5 the
+    # f32 towers agree to relatively in phase 4d's layer and the tests).
+    checks, rows = {}, {}
+    for name in STREAM_TARGETS + STREAM_CUES:
+        qg, qc = dirs_gpu[name].astype(np.float64), dirs_cpu[name].astype(np.float64)
+        cos = float(qg @ qc / (np.linalg.norm(qg) * np.linalg.norm(qc)))
+        dq = float(np.linalg.norm(qg - qc))
+        tol = 0.25 * c_max * (dq + 1e-4)
+        diffs = {k: abs(card32.calibration[name][k] - cpu32.calibration[name][k])
+                 for k in card32.calibration[name]}
+        ok = cos >= 0.9999 and max(diffs.values()) <= tol
+        checks[f"{name}: cosine and statistics"] = ok
+        rows[name] = {"cosine": cos, "max_stat_diff": max(diffs.values()), "tol": tol,
+                      **{f"cuda_{k}": v for k, v in card32.calibration[name].items()}}
+        log(f"[calibrated] 13a {name}: direction cosine cuda/cpu {cos:.7f} (want >= 0.9999), "
+            f"|dq| {dq:.3e}; statistics max |cuda - cpu| {max(diffs.values()):.3e} (tol 0.25 x "
+            f"c_max {c_max:.3f} x (|dq| + 1e-4) = {tol:.3e}); margins grid "
+            f"{card32.calibration[name]['grid_margin']:+.4f} verify "
+            f"{card32.calibration[name]['verify_margin']:+.4f} (cpu "
+            f"{cpu32.calibration[name]['grid_margin']:+.4f} / "
+            f"{cpu32.calibration[name]['verify_margin']:+.4f}) {'OK' if ok else 'FAIL'}")
+    log(f"[calibrated] 13a f32 calibration of 3 names at B/32 (1,024 probe queries, 28 canvases "
+        f"a name): cuda {seconds['cuda']:.2f} s, cpu {seconds['cpu']:.2f} s; suggested detector "
+        f"threshold {card32.suggested_detector_threshold:.4f} (cpu "
+        f"{cpu32.suggested_detector_threshold:.4f}), confidence "
+        f"{card32.suggested_confidence_threshold:.4f} ({cpu32.suggested_confidence_threshold:.4f})"
+        f"  ({card})")
+    del cpu32, card32
+    gc.collect()
+
+    heur = initialize_heuristic("owl-vit-calibrated", device="cuda", dtype=torch.bfloat16, seed=0)
+    per_forward = launches(fused_mha_from_qkv=12, patch_embed_matmul=1, fused_layernorm=27)
+    counts, _ = run_search(torch, card, heur, "calibrated", cfg, per_forward)
+    bf16 = heur.calibration
+    log("[calibrated] 13a bf16 calibration margins (grid / verify): " + ", ".join(
+        f"{n} {bf16[n]['grid_margin']:+.4f} / {bf16[n]['verify_margin']:+.4f}" for n in bf16)
+        + " (random weights at B/32's widths: not required to be positive)")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"13a checks failed: {failed}")
+    del heur
+    return counts, {"f32": rows, "bf16_margins": {n: (bf16[n]["grid_margin"],
+                                                      bf16[n]["verify_margin"]) for n in bf16}}
+
+
+def run_tool(args, timeout=900):
+    """A port tool in a process of its own -> its last stdout line as JSON."""
+    done = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                          timeout=timeout)
+    if done.returncode != 0:
+        raise SystemExit(f"{' '.join(args)} failed ({done.returncode}):\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def phase_13b(torch, card):
+    """13b: ``tools/ab_knob_recall.py --scenes 2 --seeds 2`` (its own
+    geometry, f32) in a process of its own: its JSON line and each knob's
+    launches (at this geometry K4 does not take the int8 tower's weights,
+    K = 64 / 128: the int8 knobs' route plan puts all 12 dense layers in
+    plain ops, and no knob launches K4); then the lottery's seed
+    calibrated on the card and on the CPU."""
+    t0 = time.perf_counter()
+    out = run_tool(["tstar_tpu_torch.tools.ab_knob_recall", "--scenes", "2", "--seeds", "2"])
+    wall = time.perf_counter() - t0
+    log("[knob a/b] " + json.dumps(out))
+    knobs = out["knobs"]
+    for knob, e in knobs.items():
+        log(f"[knob a/b] 13b {knob}: P {e['precision']:.4f} R {e['recall']:.4f} F1 {e['f1']:.4f}, "
+            f"mean iterations {e['mean_iterations']}, recall delta vs bf16 "
+            f"{e['recall_delta_vs_bf16']:+.4f}, keyframe overlap vs bf16 "
+            f"{e.get('keyframe_overlap_vs_bf16', 1.0):.4f}, {e['seconds']:.3f} s, launches "
+            f"{e['launches'] or 'none'}, int8 route plan {e.get('int8_routes', '-')}  ({card})")
+    checks = {
+        "the card's name": out["device"] == torch.cuda.get_device_name(0),
+        "six knobs": list(knobs) == ["bf16", "verify128", "verify96", "int8", "w8a16",
+                                     "int8_verify128"],
+        "a working detector": out["cal_min_margin"] > 0.02,
+        "recalls in [0, 1]": all(0.0 <= e["recall"] <= 1.0 for e in knobs.values()),
+        "no K4 launch at K = 64": all("w8a8_matmul" not in e["launches"] for e in knobs.values()),
+        "the int8 knobs' plan: 12 plain layers": all(
+            e.get("int8_routes") == ({"plain": 12} if k.startswith("int8") else None)
+            for k, e in knobs.items()),
+    }
+    log(f"[knob a/b] 13b wall {wall:.1f} s, calibration seed {out['cal_seed']} (min margin "
+        f"{out['cal_min_margin']:+.4f})")
+    # the lottery's detector calibrated here on the card and on the CPU: the
+    # same weights (seeded on the host), so the same directions and margins
+    from tstar_tpu_torch.tools.ab_knob_recall import calibrated_heuristic
+    from tstar_tpu_torch.utils.config import SearchConfig
+
+    base = SearchConfig(search_budget=1.0)
+    cals = {}
+    for dev in ("cuda", "cpu"):
+        h = calibrated_heuristic(out["cal_seed"], dev)
+        cal = h.calibrate(base.cache_hw, ["couch"], [], base)["couch"]
+        (dirs,) = h._dir_cache.values()
+        cals[dev] = (dirs["couch"].astype("float64"), cal)
+    (qg, cg), (qc, cc) = cals["cuda"], cals["cpu"]
+    cos = float(qg @ qc / ((qg @ qg) ** 0.5 * (qc @ qc) ** 0.5))
+    stat_diff = max(abs(cg[k] - cc[k]) for k in cg)
+    margin = min(cg["grid_margin"], cg["verify_margin"])
+    checks["the lottery's detector: cuda == cpu"] = cos >= 0.9999 and stat_diff <= 1e-4
+    checks["the tool's margin reproduced"] = abs(margin - out["cal_min_margin"]) <= 1e-4
+    log(f"[knob a/b] 13b seed {out['cal_seed']} calibrated here: direction cosine cuda/cpu "
+        f"{cos:.7f}, statistics max |cuda - cpu| {stat_diff:.3e} (tol 1e-4), min margin "
+        f"{margin:+.4f} (cpu {min(cc['grid_margin'], cc['verify_margin']):+.4f})")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"13b checks failed: {failed}")
+    return out
+
+
+def phase_13c(torch, card):
+    """13c: ``tools/verify_ab.py --videos 2`` (``owl-vit-random`` B/32, bf16):
+    the cache-row verification against the raw 285x600 chain."""
+    from tstar_tpu_torch.tools import verify_ab
+
+    t0 = time.perf_counter()
+    out = verify_ab.main(["--videos", "2"])
+    wall = time.perf_counter() - t0
+    log(f"[verify a/b] 13c removal agreement {out['removal_agreement']}, mean keyframe overlap "
+        f"{out['mean_keyframe_overlap']}, reference rescores "
+        f"{[r['reference_rescores'] for r in out['per_video']]}, wall {wall:.1f} s  ({card})")
+    if out["videos"] != 2 or out["device"] != torch.cuda.get_device_name(0):
+        raise SystemExit("13c: the verification A/B did not run on the card")
+    return out
+
+
+def tiny_qwen25(torch):
+    """13d's tiny Qwen2.5-VL, seeded: windows of 2x2 merge units at 56 px,
+    block 1 global; and the special token ids of its byte vocabulary."""
+    from tstar_tpu_torch.models.qwen25_vision import Qwen25VisionConfig
+    from tstar_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLModel, Qwen2VLTextConfig, init_random_,
+    )
+    from tstar_tpu_torch.models.qwen_tokenizer import SPECIAL_TOKENS
+
+    special = {t: 256 + i for i, t in enumerate(SPECIAL_TOKENS)}
+    model = Qwen2VLModel(Qwen2VLConfig(
+        vision=Qwen25VisionConfig(depth=2, embed_dim=16, num_heads=2, intermediate_size=32,
+                                  hidden_size=32, window_size=56, fullatt_block_indexes=(1,)),
+        text=Qwen2VLTextConfig(vocab_size=300, hidden_size=32, num_layers=2, num_heads=4,
+                               num_kv_heads=2, intermediate_size=64, rope_theta=10000.0,
+                               mrope_section=(1, 1, 2)),
+        image_token_id=special["<|image_pad|>"], video_token_id=special["<|video_pad|>"],
+        vision_start_token_id=special["<|vision_start|>"]))
+    init_random_(model, torch.Generator().manual_seed(3))
+    return {"qwen2.5": model}, special
+
+
+def qwen25_work(model, grid_hw, frames: int, prompt: int, new: int):
+    """(vision ops, prefill ops, decode bytes a token) of a Qwen2.5-VL
+    request: every product's multiply-adds (x2); a windowed block's
+    attention counted within its windows only, causal attention on its
+    lower triangle; a decode step reads the language model's weights (one
+    embedding row) and the cache so far, once."""
+    import numpy as np
+
+    from tstar_tpu_torch.models.qwen25_vision import window_partition
+
+    v, t = model.cfg.vision, model.cfg.text
+    p = grid_hw[0] * grid_hw[1]
+    rows = frames * p
+    d, i = v.embed_dim, v.intermediate_size
+    windows = np.bincount(window_partition(*grid_hw, v)[1])
+    attn_win, attn_full = 4 * frames * int((windows ** 2).sum()) * d, 4 * frames * p * p * d
+    n_full = len(v.fullatt_block_indexes)
+    vision = (2 * rows * v.patch_dim * d + v.depth * 2 * rows * (4 * d * d + 3 * d * i)
+              + n_full * attn_full + (v.depth - n_full) * attn_win
+              + 2 * (rows // 4) * (16 * d * d + 4 * d * v.hidden_size))
+    h, kv = t.hidden_size, t.num_kv_heads * t.head_dim
+    layer = 2 * prompt * (2 * h * h + 2 * h * kv + 3 * h * t.intermediate_size)
+    prefill = vision + t.num_layers * (layer + 2 * prompt * (prompt + 1) * h) + 2 * h * t.vocab_size
+    lm = sum(prm.numel() for name, prm in model.named_parameters()
+             if not name.startswith(("visual", "embed_tokens")))
+    es = model.dtype.itemsize
+    return vision, prefill, (lm + h) * es + t.num_layers * 2 * (prompt + new) * kv * es
+
+
+def phase_13e(torch, card):
+    """13e: one QA request at Qwen2.5-VL-7B-Instruct's published widths
+    (its config.json: vision depth 32, hidden 1280, 16 heads, intermediate
+    3420, window 112, full attention in blocks 7/15/23/31, out 3584; the
+    language model Qwen2-7B's), seeded on the card in bf16, byte tokenizer,
+    8 frames at the backend's 448^2 pixel cap, 30 new tokens, greedy, through
+    ``UniversalGrounder.inference_qa``: the first request captures the
+    decode graph, the second is timed.  No port kernel runs (RMSNorm, plain
+    attention)."""
+    import tempfile
+
+    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
+    from tstar_tpu_torch.grounding.universal import UniversalGrounder
+    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.generate import GenerateStats
+    from tstar_tpu_torch.models.qwen25_vision import Qwen25VisionConfig
+    from tstar_tpu_torch.models.qwen2vl import Qwen2VLConfig, Qwen2VLModel, random_model
+    from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
+
+    cfg = Qwen2VLConfig(vision=Qwen25VisionConfig(intermediate_size=3420))
+    t0 = time.perf_counter()
+    model = random_model(Qwen2VLModel, cfg, torch.bfloat16, "cuda", seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    v, t = cfg.vision, cfg.text
+    log(f"[qwen2.5] Qwen2.5-VL at 7B widths (vision {v.embed_dim} x {v.depth}, intermediate "
+        f"{v.intermediate_size}, window {v.window_size}, full attention "
+        f"{v.fullatt_block_indexes}; Qwen2 {t.hidden_size} x {t.num_layers}, vocab "
+        f"{t.vocab_size}): "
+        f"{n_params / 1e9:.3f} B parameters, {n_params * 2 / 1e9:.2f} GB bf16, seeded on the card "
+        f"in {time.perf_counter() - t0:.2f} s ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = byte_tokenizer(tmp)
+    backend = TorchVLMBackend.from_model(model, tok)
+    grounder = UniversalGrounder("qwen2.5-vl-7b", backend=backend)
+    frames = load_video_frames("mem://scene", 8, decoder=default_scene(600.0))
+    first = grounder.inference_qa(frames, QA_QUESTION, QA_OPTIONS, temperature=0.0)
+    frames2 = load_video_frames("mem://scene", 8, decoder=scene_variant(3))
+    backend.stats = GenerateStats(timed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answer = grounder.inference_qa(frames2, QA_QUESTION, QA_OPTIONS, temperature=0.0)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = backend.stats
+    inp = prepare_vlm_inputs(tok, build_qa_prompt(QA_QUESTION, QA_OPTIONS, 8), frames2, cfg.vision,
+                             max_pixels=backend.max_pixels, image_token_id=cfg.image_token_id)
+    s, grid = int(inp["prompt_lens"][0]), tuple(inp["image_grid_hw"])
+    vision_ops, prefill_ops, step_bytes = qwen25_work(model, grid, 8, s, 30)
+    prefill_ms, decode_ms, steps = st.prefill_ms[-1], st.decode_ms[-1], st.decode_steps
+    b_prefill = prefill_ops / PEAK_OPS_PER_S["bf16"] * 1e3
+    b_step = step_bytes / HBM_BYTES_PER_S * 1e3
+    per_token = decode_ms / max(steps, 1)
+    ok = (isinstance(answer, str) and isinstance(first, str) and st.captures == 0
+          and st.replays >= 1 and not any(counts.values()))
+    log(f"[qwen2.5] 13e QA request, 8 frames at grid {grid} patches ({grid[0] * grid[1] // 4} "
+        f"tokens a frame), prompt {s} tokens, answer {answer[:24]!r}: prefill {prefill_ms:.3f} ms "
+        f"(bound {b_prefill:.3f} ms: {prefill_ops / 1e12:.3f} TFLOP, vision "
+        f"{vision_ops / 1e12:.3f}), decode {decode_ms:.3f} ms for {steps} steps = "
+        f"{per_token:.3f} ms a token (bound {b_step:.3f} ms: {step_bytes / 1e9:.2f} GB a token), "
+        f"request {request_s:.4f} s, captures {st.captures} (the first request captured), "
+        f"replays {st.replays}; peak memory {peak / 1e9:.2f} GB (weights "
+        f"{n_params * 2 / 1e9:.2f} GB); port kernel launches {counts} "
+        f"{'OK' if ok else 'FAIL'}  ({card})")
+    if not ok:
+        raise SystemExit("13e: the Qwen2.5-VL request failed its checks")
+    del grounder, backend, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "prefill_bound_ms": b_prefill,
+            "decode_ms_per_token": per_token, "decode_bound_ms_per_token": b_step,
+            "request_s": request_s, "peak_gb": peak / 1e9, "prompt_tokens": s,
+            "params_b": n_params / 1e9}
+
+
+def phase_13f(torch, card):
+    """13f: ``encode_anyres_image`` at phase 9a's SigLIP widths (so400m/384,
+    1152 x 27, projector into 3584) on a 1080x1120 image that takes the
+    1152^2 pinpoint (3x3 tiles + the base, rows unpadded): bf16 with K3
+    against the f32 run with K3's plain version on the card.  The language
+    model is not on this path: one layer of it is built."""
+    import numpy as np
+
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.kernels.layernorm import fused_layernorm_plain
+    from tstar_tpu_torch.models import transformer
+    from tstar_tpu_torch.models.llava_onevision import (
+        LlavaOnevisionConfig, LlavaOnevisionModel, preprocess_anyres_image,
+    )
+    from tstar_tpu_torch.models.qwen2vl import random_model
+    from tstar_tpu_torch.video.synthetic import default_scene, render_frame
+
+    cfg = LlavaOnevisionConfig()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=1))
+    pinpoints = [[384 * i, 384 * j] for i in range(1, 7) for j in range(1, 7)]
+    image = render_frame(75.0, (1080, 1120), default_scene(600.0).objects)
+    t0 = time.perf_counter()
+    tiles, size, grid = preprocess_anyres_image(image, cfg, pinpoints)
+    host_s = time.perf_counter() - t0
+    model = random_model(LlavaOnevisionModel, cfg, torch.float32, "cuda", seed=2)
+    px = torch.from_numpy(tiles).to("cuda")
+    with patched(transformer, "fused_layernorm", fused_layernorm_plain):
+        reset_launch_counts()
+        want = model.encode_anyres_image(px, size, grid).float()
+        torch.cuda.synchronize()
+        plain_counts = launch_counts()
+    model = model.to(torch.bfloat16)
+    reset_launch_counts()
+    got = model.encode_anyres_image(px.to(torch.bfloat16), size, grid).float()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ms = cuda_ms(lambda: model.encode_anyres_image(px.to(torch.bfloat16), size, grid), iters=5,
+                 warmup=1)
+    rel = ((got - want).norm() / want.norm()).item()
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    side = cfg.vision.image_size // cfg.vision.patch_size
+    # bf16 keeps 8 significant bits (unit roundoff 2^-9).  From the pixels
+    # to the features a value is rounded at ~170 points in series (the patch
+    # embedding, 6 in each of the 27 layers, the projector's two); in
+    # quadrature that is ~sqrt(170) x 2^-9 ~ 2.5e-2 of the signal: the
+    # relative L2 error is held to twice that, 5e-2
+    tol = 5e-2
+    others = {k: v for k, v in counts.items() if k != "fused_layernorm" and v}
+    ok = (got.shape == want.shape and bool(got.isfinite().all()) and rel <= tol
+          and grid == (3, 3) and counts["fused_layernorm"] == 2 * cfg.vision.num_layers
+          and not others and not any(plain_counts.values()))
+    log(f"[anyres] 13f image {size} -> pinpoint grid {grid} ({len(tiles)} tiles of "
+        f"{cfg.vision.image_size}^2, host preprocess {host_s:.3f} s): {got.shape[0]} tokens "
+        f"({side * side} base + the unpadded grid with a newline a row); bf16 (K3) vs f32 (plain) "
+        f"relative L2 {rel:.3e} (tol {tol:.0e}), max |diff| {diff:.3e} of max |ref| {scale:.3e}; "
+        f"K3 launches {counts['fused_layernorm']} (want {2 * cfg.vision.num_layers}: two a "
+        f"layer), other kernels {others or 'none'}, plain run {sum(plain_counts.values())}; "
+        f"encode {ms:.3f} ms (bf16) {'OK' if ok else 'FAIL'}  ({card})")
+    if not ok:
+        raise SystemExit("13f: the anyres path on the card failed its checks")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "rel_l2": rel, "ms": ms, "tokens": got.shape[0]}
+
+
+def phase_13(torch, card):
+    """Phase 13 (module docstring).  Returns 13a's and 13f's launch counts and
+    each sub-phase's numbers."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cal_counts, cal = phase_13a(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        knob_ab = phase_13b(torch, card)
+        verify = phase_13c(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        models, special = tiny_qwen25(torch)
+        vlm_facade(torch, card, models, special)
+        qa = phase_13e(torch, card)
+        anyres = phase_13f(torch, card)
+    log(f"[phase 13] wall {time.perf_counter() - t0:.1f} s ({card})")
+    return {"counts": cal_counts, "calibration": cal, "knob_ab": knob_ab, "verify": verify,
+            "qwen25": qa, "anyres": anyres}
+
+
 def log_allocated(torch, phase):
     """What earlier phases left allocated, which each later phase's peak
     memory includes (phases 10b and 11 count theirs above it)."""
@@ -2885,6 +3323,12 @@ def main() -> int:
     log_allocated(torch, "phase 12")
     p12 = phase_12(torch, card)
     log("[streaming] " + json.dumps({k: p12[k] for k in ("long", "verify", "busy")}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_allocated(torch, "phase 13")
+    p13 = phase_13(torch, card)
+    log("[phase 13] " + json.dumps({k: p13[k] for k in ("calibration", "qwen25", "anyres")},
+                                   default=str))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -2942,6 +3386,13 @@ def main() -> int:
             "launches_pipeline_yolo": p11["counts"]["yolo"][name],
             # phase 12a: the streaming search of phase 5's video
             "launches_streaming": p12["counts"][name],
+            # phase 13a: phase 5's search with the calibrated B/32 scorer
+            "launches_calibrated": p13["counts"][name],
+            # phase 13f: LLaVA-OneVision's anyres image at SigLIP's widths
+            "launches_anyres": p13["anyres"]["counts"][name],
+            # phase 13b: the knob A/B at its own geometry, by knob
+            "launches_knob_ab": {knob: e["launches"].get(name, 0)
+                                 for knob, e in p13["knob_ab"]["knobs"].items()},
         })
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
@@ -2961,6 +3412,10 @@ def main() -> int:
         "launches_pipeline": p11["counts"]["owl"]["greedy_nms"],
         "launches_pipeline_yolo": p11["counts"]["yolo"]["greedy_nms"],
         "launches_streaming": p12["counts"]["greedy_nms"],
+        "launches_calibrated": p13["counts"]["greedy_nms"],
+        "launches_anyres": p13["anyres"]["counts"]["greedy_nms"],
+        "launches_knob_ab": {knob: e["launches"].get("greedy_nms", 0)
+                             for knob, e in p13["knob_ab"]["knobs"].items()},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from tstar_tpu_torch.models import owlvit as tow
 from tstar_tpu_torch.parallel.multi_video import VideoTask, search_videos
 from tstar_tpu_torch.search.engine import run_search, run_search_with_history
 from tstar_tpu_torch.search.searcher import KeyframeSearcher
+from tstar_tpu_torch.search.snapshot import load_state, save_state
 from tstar_tpu_torch.search.state import init_state
 from tstar_tpu_torch.search.step_graphs import StepStats
 from tstar_tpu_torch.utils.config import SearchConfig
@@ -56,6 +57,22 @@ def heur():
 def _state(cache, seed=0):
     return init_state(cache.n_valid, 2, CFG, torch.Generator(device="cuda").manual_seed(seed),
                       n_pad=cache.n_pad, device="cuda")
+
+
+@pytest.mark.cuda
+def test_snapshot_generator_round_trips_on_the_card(tmp_path):
+    """A card search's snapshot holds a CUDA generator's state: ``load_state``
+    (default device "cuda") puts the state and a CUDA generator in that
+    state back on the card, and its next draws are the saved generator's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = torch.Generator(device="cuda").manual_seed(7)
+    torch.rand(100, generator=rng, device="cuda")
+    state = init_state(200, 1, CFG, rng, n_pad=256, device="cuda")
+    loaded = load_state(save_state(state, str(tmp_path / "card.npz")))
+    assert loaded.rng.device.type == "cuda" and loaded.P.device.type == "cuda"
+    assert torch.equal(torch.rand(64, generator=loaded.rng, device="cuda"),
+                       torch.rand(64, generator=rng, device="cuda"))
 
 
 @pytest.mark.cuda

@@ -328,6 +328,19 @@ def test_search_videos_history_equals_plain():
         assert "P_history" not in p
 
 
+def test_snapshot_generator_round_trips_on_its_device(tmp_path):
+    """A state saved from the CPU loads on the CPU with its generator in the
+    saved state: the next draws are the ones the saved generator makes
+    (``tests/test_torch_cuda_framework.py`` holds the card's twin)."""
+    rng = torch.Generator().manual_seed(7)
+    torch.rand(100, generator=rng)                       # a generator part-way through
+    state = tinit(200, 1, TSearchConfig(), rng, n_pad=256, device="cpu")
+    path = save_state(state, str(tmp_path / "cpu.npz"))
+    loaded = load_state(path, device="cpu")
+    assert loaded.rng.device.type == "cpu" and loaded.P.device.type == "cpu"
+    assert torch.equal(torch.rand(64, generator=loaded.rng), torch.rand(64, generator=rng))
+
+
 def test_snapshot_resumes_the_trajectory(tmp_path):
     """A snapshot taken after two steps resumes to the uninterrupted
     search's keyframes, scores and iterations (the generator's state is in
@@ -348,7 +361,7 @@ def test_snapshot_resumes_the_trajectory(tmp_path):
     for _ in range(2):
         state, _ = teng.search_step(state, scorer, cfg)
     path = save_state(state, str(tmp_path / "snap" / "state.npz"))
-    resumed = load_state(path)
+    resumed = load_state(path, device="cpu")
     for name in ("scores", "visited", "P", "remaining"):
         assert torch.equal(getattr(resumed, name), getattr(state, name)), name
     assert (resumed.budget, resumed.n_valid, resumed.iteration) == (

@@ -187,10 +187,13 @@ def _leaves(tree, prefix=""):
 
 def test_quantize_vision_tower_bit_equal(models):
     """Every array of the reference's quantized tower, bit-equal; the port
-    adds only each dense layer's (N, K) copy ``wt`` (checked below)."""
+    adds only each dense layer's (N, K) copy ``wt`` and the route plan
+    ``routes`` (both checked below)."""
     _, variables, tmodel = models
     want = dict(_leaves(jq.quantize_vision_tower(variables, tiny_pair(jow))))
-    got = dict(_leaves(tq.quantize_vision_tower(tmodel)))
+    qp = tq.quantize_vision_tower(tmodel)
+    assert set(qp) - {"routes"} == set(jq.quantize_vision_tower(variables, tiny_pair(jow)))
+    got = dict(_leaves({k: v for k, v in qp.items() if k != "routes"}))
     transposed = {k + "t" for k in want if k.startswith("layers.") and k.endswith(".w")}
     assert len(transposed) == 4 * len(tmodel.vision.encoder.layers)
     assert set(got) == set(want) | transposed
@@ -212,6 +215,25 @@ def test_quantize_vision_tower_transposes_each_weight_once(models):
             assert wt.shape == (w.shape[1], w.shape[0]), name
             assert torch.equal(wt, w.T), name
             assert wt.data_ptr() != w.data_ptr(), name
+
+
+def test_quantize_vision_tower_plans_each_route(models):
+    """The plan names K4 for a dense layer exactly where K4 takes its (K, N)
+    weight: none of the tiny tower's (hidden 32), every one of B/32's (the
+    card's smoke run checks its real plan), all but fc2 of L/14 (K = 4096)."""
+    from tstar_tpu_torch.kernels.quant_matmul import supported_shape
+
+    _, _, tmodel = models
+    qp = tq.quantize_vision_tower(tmodel)
+    n = len(tmodel.vision.encoder.layers)
+    assert len(qp["routes"]) == n and tq.route_counts(qp) == {"plain": 4 * n}
+    for lyr, route in zip(qp["layers"], qp["routes"]):
+        assert route == {k: "plain" for k in tq.DENSE}
+        assert not any(supported_shape(*lyr[k]["w"].shape) for k in tq.DENSE)
+    b32 = {"qkv": (768, 2304), "o": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
+    l14 = {"qkv": (1024, 3072), "o": (1024, 1024), "fc1": (1024, 4096), "fc2": (4096, 1024)}
+    assert all(supported_shape(*kn) for kn in b32.values())
+    assert [k for k, kn in l14.items() if not supported_shape(*kn)] == ["fc2"]
 
 
 @pytest.mark.parametrize("weight_only,atol", [(False, 5e-2), (True, 2e-5)])

@@ -264,8 +264,67 @@ def test_hf_conversion_matches_reference(qwen, llava, family):
             assert torch.equal(v, state["vision_tower." + k]), k
 
 
-def test_qwen25_vision_raises_naming_the_roadmap():
-    from tstar_tpu_torch.models.loader import qwen2vl_config_from_hf_json
+def test_qwen25_config_loads_as_the_reference_reads_it():
+    """A Qwen2.5-VL ``config.json`` (here only its model type and window)
+    reads as the reference reads it: the Qwen2.5 tower's config with
+    Qwen2.5-VL-7B's defaults, and a ``Qwen2VLModel`` of it holds that tower
+    (``tests/test_torch_qwen25vl.py`` holds the tower and the loader)."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        qwen2vl_config_from_hf_json({"model_type": "qwen2_5_vl", "vision_config": {"window_size": 112}})
+    from tstar_tpu.models.loader import qwen2vl_config_from_hf_json as jread
+    from tstar_tpu_torch.models.loader import qwen2vl_config_from_hf_json
+    from tstar_tpu_torch.models.qwen25_vision import Qwen25VisionConfig, Qwen25VisionTower
+
+    hf = {"model_type": "qwen2_5_vl", "vision_config": {"window_size": 112}}
+    cfg = qwen2vl_config_from_hf_json(hf)
+    assert isinstance(cfg.vision, Qwen25VisionConfig) and cfg.vision.window_size == 112
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jread(hf))
+    with torch.device("meta"):
+        assert isinstance(tqwen.Qwen2VLModel(cfg).visual, Qwen25VisionTower)
+
+
+# ---------------------------------------------------------------------------
+# LLaVA-OneVision's anyres single-image path
+# ---------------------------------------------------------------------------
+
+PINPOINTS = [[8, 8], [8, 16], [16, 8], [16, 16], [8, 24], [24, 16]]
+
+
+def test_select_best_resolution_matches_reference():
+    rng = np.random.default_rng(11)
+    for _ in range(200):
+        hw = tuple(int(v) for v in rng.integers(1, 60, 2))
+        pins = [list(map(int, p)) for p in rng.integers(1, 8, (int(rng.integers(1, 6)), 2)) * 8]
+        assert tllava.select_best_resolution(hw, pins) == jllava.select_best_resolution(hw, pins)
+
+
+@pytest.mark.parametrize("hw", [(10, 30), (21, 10), (37, 50), (8, 8)])
+def test_preprocess_anyres_image_matches_reference(llava, hw):
+    """The same pinpoint, grid and image size; tiles within one uint8 step
+    before normalization (2 / 255 after it): ``resize_cubic`` is 1 off
+    cv2's bicubic on a few values (``tests/test_torch_vlm_preprocess.py``),
+    the zero padding lands in the same place."""
+    jcfg, _, _, tmodel = llava
+    img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), np.uint8)
+    got, got_size, got_grid = tllava.preprocess_anyres_image(img, tmodel.cfg, PINPOINTS)
+    want, want_size, want_grid = jllava.preprocess_anyres_image(img, jcfg, PINPOINTS)
+    assert (got_size, got_grid) == (want_size, want_grid) == (hw, got_grid)
+    assert got.shape == want.shape == (1 + got_grid[0] * got_grid[1], 8, 8, 3)
+    assert np.abs(got - want).max() <= 2 / 255 + 1e-6
+
+
+@pytest.mark.parametrize("hw, grid, max_patches", [
+    ((8, 16), (1, 2), 9),      # the canvas's own aspect: nothing to unpad
+    ((4, 16), (1, 2), 9),      # wider than the canvas: rows cropped
+    ((20, 9), (3, 1), 9),      # taller: columns cropped
+    ((16, 16), (2, 2), 1),     # above the token budget: downscaled
+])
+def test_encode_anyres_image_matches_reference(llava, hw, grid, max_patches):
+    jcfg, jmodel, variables, tmodel = llava
+    n = 1 + grid[0] * grid[1]
+    tiles = np.random.default_rng(n).normal(size=(n, 8, 8, 3)).astype(np.float32)
+    want = jmodel.apply(variables, jnp.asarray(tiles), hw, grid, max_patches,
+                        method=jllava.LlavaOnevisionModel.encode_anyres_image)
+    got = tmodel.encode_anyres_image(torch.from_numpy(tiles), hw, grid, max_patches)
+    assert_close(got, want)
+

@@ -9,6 +9,10 @@ A backend, given a device frame cache and the grounded objects, builds a
     the CLIP BPE tokenizer);
   * ``owl-vit-random`` — OWL-ViT B/32 at full width with seeded random
     weights and the ``HashTokenizer``;
+  * ``owl-vit-calibrated`` — the same random detector with its query
+    embeddings calibrated to the synthetic scenes' colored objects
+    (``CalibratedOwlVitHeuristic``): a working detector on those scenes,
+    the measurement backend of ``tools/ab_knob_recall.py``;
   * ``yolo-world`` / ``yolo-world-v2`` — YOLO-World v2 from a local
     checkpoint directory: an mmyolo ``.pth`` plus the CLIP tokenizer's
     files, or the reference's native ``.npz`` files
@@ -28,25 +32,35 @@ CPU) in ``dtype`` (bf16 unless asked otherwise).
 Both detector backends also carry the reference's detector surface
 (``reparameterize_object_list``, ``inference_detector``, the path-based
 ``inference`` and ``bbox_visualization``); PIL is imported by ``inference``
-only.  ``owl-vit-calibrated`` is ROADMAP queue 1 item 3 and raises.
+only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tstar_tpu_torch.kernels.image import build_detector_grid
 from tstar_tpu_torch.models.clip_tokenizer import HashTokenizer
-from tstar_tpu_torch.models.owlvit import OwlViTDetector, init_params, owlvit_base_patch32
+from tstar_tpu_torch.models.owlvit import (
+    OwlViTDetector,
+    init_params,
+    owlvit_base_patch32,
+    postprocess_detections,
+)
 from tstar_tpu_torch.search.detector_scorer import (
     _weight_views,
     build_prompt_batch,
     make_owlvit_scorer,
 )
 from tstar_tpu_torch.search.scorers import TableScorer
+from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.video.synthetic import PlantedObject, render_frame
 
 logger = logging.getLogger(__name__)
 
@@ -161,6 +175,312 @@ class OwlVitHeuristic(_DetectorCompatMixin):
                         "class_id": cls[0][keep]})
         self.detections_inbatch = out
         return out
+
+
+class CalibratedOwlVitHeuristic(OwlVitHeuristic):
+    """OWL-ViT with random frozen weights and CALIBRATED query embeddings:
+    the measurement backend for the knobs that change detections
+    (``detector_quant``, ``verify_image_size``), where no checkpoint can be
+    loaded and ``color-probe`` bypasses the detector.
+
+      1. calibration canvases are rendered through the search's own grid
+         preprocessing (``build_detector_grid``) with the object's color
+         square planted in known grid cells over background frames;
+      2. the class head's logit is ``(img_hat . q_hat + s_p) c_p`` with a
+         positive per-patch scale, so probing ``predict`` with the +/- basis
+         queries recovers each patch's logit as an exact affine map of the
+         normalized query, ``A_p . q_hat + b_p`` (``_probe_affine``);
+      3. the query for an object is the unit vector that best separates
+         object patches from background ones under that map: a weighted
+         ridge solved on the unit sphere (trust region, its multiplier
+         bisected), with two rounds of hard-negative reweighting;
+      4. the ' ' padding prompt is masked;
+      5. the object and background scores measured with the final query at
+         grid and verification scale give ``calibration`` and the suggested
+         thresholds (their midpoints).
+
+    The host solve is numpy float64, the reference's; the probes and the
+    measurement run the detector on its device in its dtype.  A random ViT
+    is a deterministic, color-sensitive feature extractor, so this is a real
+    detector in every architectural sense; only the features are arbitrary.
+    """
+
+    def __init__(
+        self,
+        color_map: Optional[Dict[str, Tuple[int, int, int]]] = None,
+        dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        object_position: Tuple[float, float] = (0.5, 0.45),
+        object_size: float = 0.4,
+        # canvas -> object cells: global attention makes every patch's logit
+        # depend on its context, so the object's cells and the surrounding
+        # cells' contents vary across the calibration canvases
+        cal_cells_per_canvas: Sequence[Sequence[int]] = ((5, 10), (0, 15), (3, 12), (6, 9)),
+        model_config=None,
+        device="cuda",
+    ):
+        super().__init__(checkpoint_dir=None, dtype=dtype, seed=seed,
+                         model_config=model_config, device=device)
+        self.name = "owl-vit-calibrated"
+        self.color_map = dict(DEFAULT_COLOR_MAP if color_map is None else color_map)
+        self.object_position = object_position
+        self.object_size = object_size
+        self.cal_cells_per_canvas = tuple(tuple(c) for c in cal_cells_per_canvas)
+        self.calibration: Dict[str, Dict[str, float]] = {}
+        self._dir_cache: Dict[Tuple, Dict[str, np.ndarray]] = {}
+
+    # -- calibration -------------------------------------------------------
+    def _render_cal_frame(self, hw, color=None, t: float = 0.0) -> np.ndarray:
+        objs = []
+        if color is not None:
+            objs = [PlantedObject("cal", (0.0, 1e9), color, self.object_position,
+                                  self.object_size)]
+        return render_frame(t, hw, objs)
+
+    def _patch_index(self, cell: int, config: SearchConfig) -> int:
+        """Row-major patch index of the object's center within grid cell."""
+        c = self.model.cfg.vision
+        rows, cols = config.grid_rows, config.grid_cols
+        cell_h, cell_w = c.image_size // rows, c.image_size // cols
+        r, col = divmod(cell, cols)
+        y = int((r + self.object_position[0]) * cell_h)
+        x = int((col + self.object_position[1]) * cell_w)
+        n = c.num_patches_side
+        return (y // c.patch_size) * n + (x // c.patch_size)
+
+    def _object_patch_span(self, cell, rows, cols, cache_hw):
+        """-> (fully covered patch indices, touched patch indices) of the
+        object square rendered in grid cell ``cell``."""
+        c = self.model.cfg.vision
+        ch, cw = cache_hw
+        cell_h, cell_w = c.image_size // rows, c.image_size // cols
+        half = max(2, int(self.object_size * min(ch, cw) / 2))
+        hy, hx = half * cell_h / ch, half * cell_w / cw
+        r, col = divmod(cell, cols)
+        cy = (r + self.object_position[0]) * cell_h
+        cx = (col + self.object_position[1]) * cell_w
+        ps, n = c.patch_size, c.num_patches_side
+
+        def span(lo, hi):
+            return (range(math.ceil(lo / ps), math.floor(hi / ps)),
+                    range(math.floor(lo / ps), math.ceil(hi / ps)))
+
+        (fy, ty), (fx, tx) = span(cy - hy, cy + hy), span(cx - hx, cx + hx)
+        full = [py * n + px for py in fy for px in fx]
+        touched = [py * n + px for py in ty for px in tx]
+        if not full:
+            # an object smaller than a patch: its center patch, the one it
+            # covers most
+            full = [int(cy // ps) * n + int(cx // ps)]
+        return full, touched
+
+    def _cell_patches(self, cell, rows, cols):
+        c = self.model.cfg.vision
+        ps, n = c.patch_size, c.num_patches_side
+        ph, pw = (c.image_size // rows) // ps, (c.image_size // cols) // ps
+        r, col = divmod(cell, cols)
+        return [(r * ph + py) * n + (col * pw + px) for py in range(ph) for px in range(pw)]
+
+    @torch.no_grad()
+    def _probe_affine(self, pixels: torch.Tensor):
+        """(1, S, S, 3) canvas -> the per-patch affine logit map (A, b),
+        float64 numpy.  With the +/- basis queries e_i, logit(+e_i) +
+        logit(-e_i) = 2 s_p c_p and logit(+e_i) - logit(-e_i) = 2 img_i c_p,
+        so the patch's logit for any normalized query is exactly
+        ``A_p . q_hat + b_p`` with A_p = img_hat_p c_p and b_p = s_p c_p."""
+        dq = self.model.cfg.text.hidden_size
+        feats = self.model.encode_image(pixels)
+        eye = torch.eye(dq, dtype=torch.float32, device=pixels.device)
+        logits, _ = self.model.predict(feats, torch.cat([eye, -eye]), None)
+        lp = logits[0].double().cpu().numpy()
+        a = (lp[:, :dq] - lp[:, dq:]) / 2
+        b = (lp[:, :dq] + lp[:, dq:]).mean(-1) / 2
+        return a, b
+
+    def _canvas(self, cal_cache: torch.Tensor, secs: np.ndarray, grid) -> torch.Tensor:
+        return build_detector_grid(
+            cal_cache, torch.from_numpy(secs).to(cal_cache.device), grid,
+            self.model.cfg.vision.image_size, dtype=self.model.dtype,
+        )
+
+    @torch.no_grad()
+    def _calibrate(self, cache_hw, names, config) -> Dict[str, np.ndarray]:
+        key = (cache_hw, config.grid_rows, config.grid_cols, tuple(sorted(names)))
+        if key in self._dir_cache:
+            return self._dir_cache[key]
+
+        rows, cols = config.grid_rows, config.grid_cols
+        k = rows * cols
+        size = self.model.cfg.vision.image_size
+        dirs_by_name: Dict[str, np.ndarray] = {}
+        for name in names:
+            color = self.color_map.get(name)
+            if color is None:
+                logger.warning("owl-vit-calibrated: no color for %r", name)
+                continue
+            # one full cycle of background codes (second_intensity's period
+            # is ceil(200 / 7) = 29 s), then the object over each of them
+            npool = 29
+            frames = [self._render_cal_frame(cache_hw, None, t) for t in range(npool)]
+            frames += [self._render_cal_frame(cache_hw, color, t) for t in range(npool)]
+            cal_cache = torch.from_numpy(np.stack(frames)).to(self.device)
+
+            # training canvases as diverse as a search's grids (16 other
+            # backgrounds a canvas, the object's cells rotating), and at
+            # verification scale one frame filling the canvas (grid 1x1)
+            rng_cal = np.random.default_rng(11)
+            canvases = []      # (secs, cells with the object, grid rows, grid cols)
+            for cells in self.cal_cells_per_canvas:
+                secs_bg = rng_cal.choice(npool, size=k, replace=k > npool).astype(np.int64)
+                secs_obj = secs_bg.copy()
+                for cell in cells:
+                    secs_obj[cell] = npool + secs_bg[cell]   # the object, same background
+                canvases.append((secs_bg, (), rows, cols))
+                canvases.append((secs_obj, tuple(cells), rows, cols))
+            for t in (0, 10, 20):
+                canvases.append((np.asarray([t]), (), 1, 1))
+                canvases.append((np.asarray([npool + t]), (0,), 1, 1))
+
+            rows_x, rows_y, rows_b = [], [], []
+            for secs, obj_cells, gr, gc in canvases:
+                a, b = self._probe_affine(self._canvas(cal_cache, secs, (gr, gc)))
+                label = np.full(a.shape[0], -1.0)
+                drop = np.zeros(a.shape[0], bool)
+                for cell in obj_cells:
+                    full, touched = self._object_patch_span(cell, gr, gc, cache_hw)
+                    drop[touched] = True
+                    label[full] = 1.0
+                    drop[full] = False
+                keep = ~drop
+                rows_x.append(a[keep])
+                rows_y.append(label[keep])
+                rows_b.append(b[keep])
+            a, y, b = np.concatenate(rows_x), np.concatenate(rows_y), np.concatenate(rows_b)
+            q = _separating_query(a, y, b)
+            dirs_by_name[name] = q.astype(np.float32)
+
+            # the margins with the final query, scored as the splat sees them
+            # (the max over a cell's patches)
+            qt = torch.from_numpy(dirs_by_name[name])[None].to(self.device)
+            stats = {"grid": {"obj": [], "bg": []}, "verify": {"obj": [], "bg": []}}
+            for secs, obj_cells, gr, gc in canvases:
+                feats = self.model.encode_image(self._canvas(cal_cache, secs, (gr, gc)))
+                logits, boxes = self.model.predict(feats, qt, None)
+                scores, _, _ = postprocess_detections(logits, boxes, (size, size))
+                sc = scores[0].float().cpu().numpy()
+                scale = "grid" if gr > 1 else "verify"
+                for cell in range(gr * gc):
+                    cell_max = float(sc[self._cell_patches(cell, gr, gc)].max())
+                    stats[scale]["obj" if cell in obj_cells else "bg"].append(cell_max)
+            cal = {
+                "grid_obj_min": min(stats["grid"]["obj"]),
+                "grid_bg_max": max(stats["grid"]["bg"]),
+                "verify_obj_min": min(stats["verify"]["obj"]),
+                "verify_bg_max": max(stats["verify"]["bg"]),
+            }
+            cal["grid_margin"] = cal["grid_obj_min"] - cal["grid_bg_max"]
+            cal["verify_margin"] = cal["verify_obj_min"] - cal["verify_bg_max"]
+            self.calibration[name] = cal
+        self._dir_cache[key] = dirs_by_name
+        return dirs_by_name
+
+    def calibrate(self, cache_hw, target_objects, cue_objects, config):
+        """Calibrate before the searcher is built, so that the suggested
+        thresholds can seed its ``SearchConfig`` (``build_scorer`` reuses the
+        result).  Returns the measured per-object statistics."""
+        names = list(target_objects) + list(cue_objects)
+        self._calibrate(tuple(int(d) for d in cache_hw), names, config)
+        return self.calibration
+
+    def _suggest(self, scale: str) -> float:
+        stats = list(self.calibration.values())
+        if not stats:
+            raise RuntimeError("calibrate first (build_scorer)")
+        lo = min(s[f"{scale}_obj_min"] for s in stats)
+        hi = max(s[f"{scale}_bg_max"] for s in stats)
+        return float((lo + hi) / 2)
+
+    @property
+    def suggested_confidence_threshold(self) -> float:
+        """Midpoint of the measured verification-scale score gap (it gates
+        ``verify_and_remove_target``)."""
+        return self._suggest("verify")
+
+    @property
+    def suggested_detector_threshold(self) -> float:
+        """Midpoint of the measured grid-scale score gap (it gates which
+        detections splat and trigger verification)."""
+        return self._suggest("grid")
+
+    def build_scorer(self, cache, target_objects, cue_objects, config):
+        base = super().build_scorer(cache, target_objects, cue_objects, config)
+        names = list(target_objects) + list(cue_objects)
+        dirs = self._calibrate(tuple(int(d) for d in cache.shape[1:3]), names, config)
+        q = np.zeros(tuple(base.query_embeds.shape), np.float32)
+        mask = np.zeros(tuple(base.query_mask.shape), bool)
+        for i, n in enumerate(names):
+            if n in dirs:
+                q[i] = dirs[n]
+                mask[i] = True
+        return dataclasses.replace(
+            base,
+            query_embeds=torch.from_numpy(q).to(base.query_embeds.device, base.query_embeds.dtype),
+            query_mask=torch.from_numpy(mask).to(base.query_mask.device),
+        )
+
+
+def _separating_query(a: np.ndarray, y: np.ndarray, b: np.ndarray,
+                      gamma: float = 1.5, rounds: int = 2) -> np.ndarray:
+    """The unit query that separates object rows (y = 1) from background
+    rows (y = -1) of the affine logit map ``a . q + b`` (float64).
+
+    A ridge in logit space aims each row at ``median(b) - b + gamma y``: the
+    object's own shift of b adds to the margin instead of being cancelled,
+    and rare hot background patches are compensated.  Object rows are
+    weighted up to balance the classes.  The class head normalizes the
+    query, so the weighted least squares is solved on |q| = 1 (a trust
+    region: |q(lam)| falls with the ridge multiplier lam, bisected in 60
+    steps on a log scale).  The splat and the verification take the max over
+    a cell's patches, so a misordered row costs a whole cell: ``rounds``
+    times the misordered rows' weights grow 8x and the solve repeats."""
+    b_med = float(np.median(b))
+    w = np.where(y > 0, (y <= 0).sum() / max((y > 0).sum(), 1), 1.0)
+
+    def solve(w):
+        aw = a * w[:, None]
+        m = aw.T @ a
+        r = aw.T @ (b_med - b + gamma * y)
+        evals, vecs = np.linalg.eigh(m)
+        rv = vecs.T @ r
+
+        def qnorm(lam):
+            return float(np.sqrt(((rv / (evals + lam)) ** 2).sum()))
+
+        lo = 1e-9 * max(float(evals.max()), 1.0)
+        if qnorm(lo) <= 1.0:
+            lam = lo
+        else:
+            hi = 1e6 * max(float(evals.max()), 1.0)
+            for _ in range(60):
+                mid = np.sqrt(lo * hi)
+                if qnorm(mid) > 1.0:
+                    lo = mid
+                else:
+                    hi = mid
+            lam = np.sqrt(lo * hi)
+        q = vecs @ (rv / (evals + lam))
+        return q / (np.linalg.norm(q) + 1e-9)
+
+    q = solve(w)
+    for _ in range(rounds):
+        logit = a @ q + b
+        tau = (logit[y > 0].min() + logit[y < 0].max()) / 2
+        viol = ((y < 0) & (logit > tau)) | ((y > 0) & (logit < tau))
+        if not viol.any():
+            break
+        w = np.where(viol, w * 8.0, w)
+        q = solve(w)
+    return q
 
 
 class YoloWorldHeuristic(_DetectorCompatMixin):
@@ -313,7 +633,7 @@ def initialize_heuristic(heuristic_type: str = "owl-vit", **kwargs):
     backend takes ``device`` (default "cuda"), the detectors ``dtype``
     (default bf16); the checkpoint ones ``checkpoint_dir``, the random ones
     ``seed``; ``owl-vit-random`` also ``model_config``, the YOLO ones
-    ``size``, ``color-probe`` ``color_map``."""
+    ``size``, ``color-probe`` and ``owl-vit-calibrated`` ``color_map``."""
     name = heuristic_type.lower()
     common = {"device": kwargs.get("device", "cuda"), "dtype": kwargs.get("dtype")}
     if name in ("owl-vit", "owlv2", "owl-v2"):
@@ -343,7 +663,7 @@ def initialize_heuristic(heuristic_type: str = "owl-vit", **kwargs):
     if name in ("color-probe", "fake"):
         return ColorProbeHeuristic(color_map=kwargs.get("color_map"), device=common["device"])
     if name == "owl-vit-calibrated":
-        raise NotImplementedError(
-            "initialize_heuristic('owl-vit-calibrated') is not ported yet (ROADMAP queue 1 item 3)"
-        )
+        # the working random-weight detector of tools/ab_knob_recall.py
+        return CalibratedOwlVitHeuristic(color_map=kwargs.get("color_map"),
+                                         seed=kwargs.get("seed", 0), **common)
     raise NotImplementedError(f"Heuristic type '{heuristic_type}' is not implemented.")

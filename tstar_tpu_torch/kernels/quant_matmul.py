@@ -65,6 +65,14 @@ _K_STEP, _N_STEP = 256, 128
 MAX_K = 3072
 
 
+def supported_shape(k: int, n: int) -> bool:
+    """Whether K4 takes a (K, N) weight.  Not the reference's gate (K and N
+    multiples of 128, K * N <= 768 * 3072, 128 rows or more): this one is
+    K4's own tiling and shared-memory limit.  The int8 tower's route plan
+    (``models/owlvit_quant.quantize_vision_tower``) reads it."""
+    return k % _K_STEP == 0 and n % _N_STEP == 0 and k <= MAX_K
+
+
 def _check_transposed(w_i8: torch.Tensor, w_t: torch.Tensor) -> None:
     k, n = w_i8.shape
     if w_t.shape != (n, k):
@@ -75,7 +83,7 @@ def _launch(x, w_i8, w_t, w_scale, bias, out_dtype):
     k, n = w_i8.shape
     if x.shape[-1] != k:
         raise ValueError(f"x has K={x.shape[-1]}, the int8 kernel has K={k}")
-    if k % _K_STEP or n % _N_STEP or k > MAX_K:
+    if not supported_shape(k, n):
         raise ValueError(f"w8a8 kernel needs K a multiple of {_K_STEP} up to {MAX_K} and N a "
                          f"multiple of {_N_STEP}, got K={k}, N={n}")
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:

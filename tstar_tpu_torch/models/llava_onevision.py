@@ -1,5 +1,6 @@
-"""LLaVA-OneVision's video path (port of ``tstar_tpu/models/llava_onevision.py``):
-SigLIP tower + projector + Qwen2 LM, the path T*'s grounding and QA take.
+"""LLaVA-OneVision (port of ``tstar_tpu/models/llava_onevision.py``): SigLIP
+tower + projector + Qwen2 LM.  The video path is the one T*'s grounding and
+QA take:
 
   * SigLIP per frame (``models/siglip.py``; its LayerNorms run K3);
   * a 2-layer GELU projector;
@@ -11,15 +12,23 @@ SigLIP tower + projector + Qwen2 LM, the path T*'s grounding and QA take.
   * the Qwen2 decoder of ``models/qwen2vl.py`` under plain 1-D RoPE (M-RoPE
     with one full-width section).
 
-The single-image anyres path (``encode_anyres_image``,
-``preprocess_anyres_image``) is not ported (ROADMAP queue 1 item 8): no
-grounding or QA call reaches it.
+The single-image anyres path (HF ``pack_image_features`` and
+``get_image_patches``): ``preprocess_anyres_image`` picks the grid pinpoint
+canvas (``select_best_resolution``), resizes the image into it (aspect
+kept, centered on zero padding) and cuts it into vision-size tiles after a
+squashed base tile, the bicubic resizes by ``qwen2vl_processor.resize_cubic``
+(OpenCV's, as the reference's ``cv2.resize``); ``encode_anyres_image``
+encodes the tiles in one batch, reassembles the tile grid, unpads it to the
+image's aspect, downscales it above the token budget with the same
+interpolation matrices as the video pooling, and appends an
+``image_newline`` to every row.  No grounding or QA call reaches it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,12 +88,51 @@ class LlavaOnevisionModel(Qwen2LM):
         """(F, S, S, 3) normalized frames -> (1, F * pooled + 1, hidden): the
         video-token stream with its trailing ``image_newline``."""
         del grid_hw
-        feats = self.vision_tower(frames, self.cfg.vision_feature_layer)
-        if self.cfg.vision_feature_select_strategy == "default":
-            feats = feats[:, 1:]
-        feats = self.projector_linear_2(F.gelu(self.projector_linear_1(feats), approximate="none"))
+        feats = self._project(frames)
         flat = self._pool_tokens(feats).reshape(-1, feats.shape[-1])
         return torch.cat([flat, self.image_newline.to(flat.dtype)[None]], dim=0)[None]
+
+    def _project(self, pixels: torch.Tensor) -> torch.Tensor:
+        feats = self.vision_tower(pixels, self.cfg.vision_feature_layer)
+        if self.cfg.vision_feature_select_strategy == "default":
+            feats = feats[:, 1:]
+        return self.projector_linear_2(F.gelu(self.projector_linear_1(feats), approximate="none"))
+
+    def encode_anyres_image(
+        self,
+        tiles: torch.Tensor,              # (1 + n_tiles, S, S, 3): the base tile FIRST
+        image_size: Tuple[int, int],      # the image's (H, W)
+        grid_shape: Tuple[int, int],      # (tiles down, tiles across)
+        max_num_patches: int = 9,         # "anyres_max_9"
+    ) -> torch.Tensor:
+        """The anyres single-image path -> (tokens, hidden): the base tile's
+        features, then the tile grid reassembled, unpadded to the image's
+        aspect, downscaled (bilinear, in f32, rounded back) when above
+        ``max_num_patches`` tiles' worth of tokens, with an ``image_newline``
+        after every row."""
+        feats = self._project(tiles)
+        base = feats[0]
+        side = self.cfg.vision.image_size // self.cfg.vision.patch_size
+        nph, npw = grid_shape
+        d = feats.shape[-1]
+        grid = (feats[1:].reshape(nph, npw, side, side, d).permute(0, 2, 1, 3, 4)
+                .reshape(nph * side, npw * side, d))
+        # unpad to the image's aspect (HF unpad_image)
+        oh, ow = image_size
+        ch, cw = grid.shape[:2]
+        if ow / oh > cw / ch:
+            pad = (ch - int(oh * (cw / ow))) // 2
+            grid = grid[pad:ch - pad]
+        else:
+            pad = (cw - int(ow * (ch / oh))) // 2
+            grid = grid[:, pad:cw - pad]
+        ch, cw = grid.shape[:2]
+        ratio = math.sqrt(ch * cw / (max_num_patches * side ** 2))
+        if ratio > 1.1:
+            grid = bilinear_resize(grid, (int(ch // ratio), int(cw // ratio))).to(feats.dtype)
+        newline = self.image_newline.to(grid.dtype).expand(grid.shape[0], 1, d)
+        grid = torch.cat([grid, newline], dim=1)
+        return torch.cat([base, grid.reshape(-1, d)], dim=0)
 
     def embed(self, input_ids: torch.Tensor, image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         return self._scatter(input_ids, image_embeds, self.cfg.video_token_id)
@@ -118,6 +166,52 @@ def preprocess_frames_llava(frames: Sequence[np.ndarray], cfg: LlavaOnevisionCon
         r = resize_cubic(np.asarray(f), (s, s))
         out.append((r.astype(np.float32) / 255.0 - SIGLIP_MEAN) / SIGLIP_STD)
     return np.stack(out)
+
+
+def select_best_resolution(original_hw, possible_resolutions) -> Tuple[int, int]:
+    """The (h, w) pinpoint that keeps the most of the image's resolution,
+    then wastes the least canvas (HF ``select_best_resolution``)."""
+    oh, ow = original_hw
+    best, best_eff, best_waste = None, 0, float("inf")
+    for h, w in possible_resolutions:
+        scale = min(w / ow, h / oh)
+        eff = min(int(ow * scale) * int(oh * scale), ow * oh)
+        waste = w * h - eff
+        if eff > best_eff or (eff == best_eff and waste < best_waste):
+            best, best_eff, best_waste = (h, w), eff, waste
+    return best
+
+
+def preprocess_anyres_image(image: np.ndarray, cfg: LlavaOnevisionConfig, grid_pinpoints):
+    """(H, W, 3) uint8 RGB -> (tiles (1 + n, S, S, 3) SigLIP-normalized f32,
+    the image's (H, W), the grid (tiles down, across)) for
+    ``encode_anyres_image`` (HF ``get_image_patches``): the best pinpoint
+    canvas, the image resized into it with its aspect kept and centered on
+    zero padding, cut into S x S tiles after the whole image squashed to
+    S x S (the base tile)."""
+    from tstar_tpu_torch.models.qwen2vl_processor import resize_cubic
+
+    s = cfg.vision.image_size
+    oh, ow = image.shape[:2]
+    th, tw = select_best_resolution((oh, ow), grid_pinpoints)
+    # HF get_patch_output_size: the tighter axis meets the canvas exactly
+    if tw / ow < th / oh:
+        nw, nh = tw, min(int(np.ceil(oh * (tw / ow))), th)
+    else:
+        nh, nw = th, min(int(np.ceil(ow * (th / oh))), tw)
+    canvas = np.zeros((th, tw, 3), image.dtype)
+    top, left = (th - nh) // 2, (tw - nw) // 2
+    canvas[top:top + nh, left:left + nw] = resize_cubic(image, (nh, nw))
+
+    def norm(img):
+        return (img.astype(np.float32) / 255.0 - SIGLIP_MEAN) / SIGLIP_STD
+
+    nph, npw = th // s, tw // s
+    tiles = [norm(resize_cubic(image, (s, s)))]
+    for r in range(nph):
+        for c in range(npw):
+            tiles.append(norm(canvas[r * s:(r + 1) * s, c * s:(c + 1) * s]))
+    return np.stack(tiles), (oh, ow), (nph, npw)
 
 
 def prepare_llava_inputs(tokenizer, query: str, frames, cfg: LlavaOnevisionConfig) -> Dict:

@@ -190,17 +190,31 @@ def save_owlvit_checkpoint(model, checkpoint_dir: str) -> None:
 
 
 def qwen2vl_config_from_hf_json(cfg: Dict[str, Any]):
-    from tstar_tpu_torch.models.qwen2vl import (
-        QWEN25_VISION_TODO, Qwen2VLConfig, Qwen2VLTextConfig, Qwen2VLVisionConfig,
-    )
+    """An HF Qwen2-VL or Qwen2.5-VL ``config.json`` -> ``Qwen2VLConfig``
+    (with a ``Qwen25VisionConfig`` for Qwen2.5-VL: a vision ``window_size``
+    or ``out_hidden_size``, or a ``qwen2_5`` model type)."""
+    from tstar_tpu_torch.models.qwen2vl import Qwen2VLConfig, Qwen2VLTextConfig, Qwen2VLVisionConfig
 
     t = cfg.get("text_config", cfg)
     v = cfg["vision_config"]
     rope_scaling = t.get("rope_scaling") or cfg.get("rope_scaling") or {}
     if "window_size" in v or "out_hidden_size" in v or cfg.get("model_type", "").startswith("qwen2_5"):
-        raise NotImplementedError(QWEN25_VISION_TODO)
-    return Qwen2VLConfig(
-        vision=Qwen2VLVisionConfig(
+        from tstar_tpu_torch.models.qwen25_vision import Qwen25VisionConfig
+
+        vision = Qwen25VisionConfig(
+            depth=v.get("depth", 32),
+            embed_dim=v.get("hidden_size", v.get("embed_dim", 1280)),
+            num_heads=v.get("num_heads", 16),
+            intermediate_size=v.get("intermediate_size", 3456),
+            patch_size=v.get("patch_size", 14),
+            temporal_patch_size=v.get("temporal_patch_size", 2),
+            spatial_merge_size=v.get("spatial_merge_size", 2),
+            hidden_size=v.get("out_hidden_size", t.get("hidden_size", 3584)),
+            window_size=v.get("window_size", 112),
+            fullatt_block_indexes=tuple(v.get("fullatt_block_indexes", (7, 15, 23, 31))),
+        )
+    else:
+        vision = Qwen2VLVisionConfig(
             depth=v.get("depth", 32),
             embed_dim=v.get("embed_dim", 1280),
             num_heads=v.get("num_heads", 16),
@@ -209,7 +223,9 @@ def qwen2vl_config_from_hf_json(cfg: Dict[str, Any]):
             temporal_patch_size=v.get("temporal_patch_size", 2),
             spatial_merge_size=v.get("spatial_merge_size", 2),
             hidden_size=v.get("hidden_size", t.get("hidden_size", 3584)),
-        ),
+        )
+    return Qwen2VLConfig(
+        vision=vision,
         text=Qwen2VLTextConfig(
             vocab_size=t.get("vocab_size", 152064),
             hidden_size=t.get("hidden_size", 3584),
@@ -336,14 +352,25 @@ def _hf_config(cfg) -> Dict[str, Any]:
             "vision_feature_select_strategy": cfg.vision_feature_select_strategy,
             "multimodal_projector_bias": cfg.projector_bias,
         }
+    if hasattr(v, "window_size"):      # Qwen2.5-VL: HF's vision names
+        model_type = "qwen2_5_vl"
+        vision = {"depth": v.depth, "hidden_size": v.embed_dim, "num_heads": v.num_heads,
+                  "intermediate_size": v.intermediate_size, "patch_size": v.patch_size,
+                  "temporal_patch_size": v.temporal_patch_size,
+                  "spatial_merge_size": v.spatial_merge_size, "out_hidden_size": v.hidden_size,
+                  "window_size": v.window_size,
+                  "fullatt_block_indexes": list(v.fullatt_block_indexes)}
+    else:
+        model_type = "qwen2_vl"
+        vision = {"depth": v.depth, "embed_dim": v.embed_dim, "num_heads": v.num_heads,
+                  "mlp_ratio": v.mlp_ratio, "patch_size": v.patch_size,
+                  "temporal_patch_size": v.temporal_patch_size,
+                  "spatial_merge_size": v.spatial_merge_size, "hidden_size": v.hidden_size}
     return {
-        "model_type": "qwen2_vl",
+        "model_type": model_type,
         "text_config": dict(text, rope_scaling={"type": "mrope",
                                                 "mrope_section": list(t.mrope_section)}),
-        "vision_config": {"depth": v.depth, "embed_dim": v.embed_dim, "num_heads": v.num_heads,
-                          "mlp_ratio": v.mlp_ratio, "patch_size": v.patch_size,
-                          "temporal_patch_size": v.temporal_patch_size,
-                          "spatial_merge_size": v.spatial_merge_size, "hidden_size": v.hidden_size},
+        "vision_config": vision,
         "image_token_id": cfg.image_token_id, "video_token_id": cfg.video_token_id,
         "vision_start_token_id": cfg.vision_start_token_id,
     }

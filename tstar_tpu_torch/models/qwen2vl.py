@@ -100,11 +100,6 @@ class Qwen2VLConfig:
     vision_start_token_id: int = 151652
 
 
-QWEN25_VISION_TODO = (
-    "Qwen2.5-VL's vision tower is not ported yet (ROADMAP queue 1 item 8)"
-)
-
-
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------
@@ -399,10 +394,14 @@ class Qwen2VLModel(Qwen2LM):
 
     def __init__(self, cfg: Qwen2VLConfig):
         super().__init__()
-        if hasattr(cfg.vision, "window_size"):
-            raise NotImplementedError(QWEN25_VISION_TODO)
         self.cfg = cfg
-        self.visual = Qwen2VLVisionTower(cfg.vision)
+        if hasattr(cfg.vision, "window_size"):
+            # Qwen2.5-VL: RMSNorm, SwiGLU and windowed attention
+            from tstar_tpu_torch.models.qwen25_vision import Qwen25VisionTower
+
+            self.visual = Qwen25VisionTower(cfg.vision)
+        else:
+            self.visual = Qwen2VLVisionTower(cfg.vision)
         self._init_lm(cfg.text)
 
     def encode_images(self, patches: torch.Tensor, grid_hw: Tuple[int, int]) -> torch.Tensor:
@@ -500,7 +499,9 @@ def lm_rules(t: Qwen2VLTextConfig, prefixes: Sequence[str] = _LM_PREFIXES) -> Li
 def qwen2vl_rules(cfg: Qwen2VLConfig) -> List[Rule]:
     v = cfg.vision
     if hasattr(v, "window_size"):
-        raise NotImplementedError(QWEN25_VISION_TODO)
+        from tstar_tpu_torch.models.qwen25_vision import qwen25_vision_rules
+
+        return qwen25_vision_rules(v) + lm_rules(cfg.text)
 
     def vp(name):
         return (f"visual.{name}", f"model.visual.{name}")
@@ -529,16 +530,20 @@ def qwen2vl_rules(cfg: Qwen2VLConfig) -> List[Rule]:
 
 
 def convert_hf_qwen2vl_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2VLConfig) -> Dict[str, torch.Tensor]:
-    """HF ``Qwen2VLForConditionalGeneration`` state dict -> a state dict for
-    ``Qwen2VLModel`` (tensors keep their dtype and device)."""
+    """HF ``Qwen2VLForConditionalGeneration`` (or Qwen2.5-VL's, whose
+    config's vision part has a ``window_size``) state dict -> a state dict
+    for ``Qwen2VLModel`` (tensors keep their dtype and device)."""
     return convert_state_dict(sd, qwen2vl_rules(cfg))
 
 
 def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's flax variables of a Qwen2-VL or LLaVA-OneVision model
-    -> a state dict for the port's model: names map one to one
-    (``layers_3`` -> ``layers.3``, ``blocks_3`` -> ``blocks.3``); SigLIP's
-    separate q/k/v projections fuse into ``qkv_kernel`` / ``qkv_bias``."""
+    """The reference's flax variables of a Qwen2-VL, Qwen2.5-VL or
+    LLaVA-OneVision model -> a state dict for the port's model: names map
+    one to one (``layers_3`` -> ``layers.3``, ``blocks_3`` -> ``blocks.3``;
+    the Qwen2.5 tower's ``norm1.scale``, ``qkv``, ``gate_proj`` /
+    ``up_proj`` / ``down_proj`` and ``merger_ln.scale`` keep their names);
+    SigLIP's separate q/k/v projections fuse into ``qkv_kernel`` /
+    ``qkv_bias``."""
     from tstar_tpu_torch.models.owlvit import params_from_jax as owlvit_params
 
     state = owlvit_params(variables)

@@ -40,9 +40,11 @@ def save_state(state: SearchState, path: str) -> str:
     return path
 
 
-def load_state(path: str, device="cpu") -> SearchState:
-    """A snapshot as a state on ``device``, with a new generator on that
-    device in the saved generator's state."""
+def load_state(path: str, device="cuda") -> SearchState:
+    """A snapshot as a state on ``device`` (the card unless the caller asks
+    for the CPU), with a new generator on that device in the saved
+    generator's state: a generator's state loads only on the kind of device
+    it was saved from."""
     device = torch.device(device)
     with np.load(path) as data:
         rng = torch.Generator(device=device)
