@@ -175,14 +175,39 @@ Phases (any failed check exits non-zero and prints no result line):
      memory, no port kernel; (f) ``encode_anyres_image`` at phase 9a's
      SigLIP widths on a 3x3-tile image: bf16 with K3 (54 launches) against
      the f32 run with K3's plain version on the card.
+  14. the multi-device layer (``parallel/mesh.py``, ``parallel/shardings.py``):
+     (a) a one-rank NCCL mesh: phase 8's bucket of 8 (B/32, bf16) through
+     ``search_videos`` without a mesh, with ``mesh=make_mesh(1, 1)`` and with
+     the detector ``shard_module``d at model = 1 (its row-parallel layers
+     all-reduce inside the captured step graphs): equal keyframes and
+     iterations, the same graph replays and host reads a step, the same
+     launches; then two ranks spawned on cuda:0 over gloo (NCCL refuses two
+     ranks on one device), each against one-process runs made first: (b) data
+     = 2, model = 1: the 8 videos, 4 a rank, in f32 with TF32 off, equal to
+     the one-process bucket, steps still graphed (no collective in a step);
+     the bf16 agreement with phase 8's bucket and the first grid forward's
+     difference between a bucket of 4 and of 8 in bf16 and f32 (the cause of
+     a difference); (c) data = 1, model = 2: B/32's grid forward at full
+     width, 6 heads a rank (K1 12 times a forward), within phase 4's 2e-2 of
+     the whole model; searches of 2 videos in f32 (keyframes equal to one
+     rank's) and bf16 (counted launches: K1 12 and K3 27 a forward), eager
+     (a gloo model group cannot be captured), their walls; (d) model = 2:
+     LLaVA-OneVision at 7B widths, the LM cut to ``TP_LM_LAYERS`` = 4 of 28
+     layers: phase 9a's request, greedy f32 tokens equal to one rank's, bf16
+     next-token logits within 2e-2 relative L2, a sampled request
+     (temperature 0.7, seed 5) the same on both ranks, prefill and decode
+     times under gloo (staged through the host), each rank's peak memory.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
-The second-to-last line is a JSON object of per-kernel results (K1-K8 with
-their launches in phase 10b's YOLO search, in phase 11's pipelines, in
+Phase 3 also runs K1 at a tensor-parallel rank's local heads of B/32 (6 and 3
+heads, B = 1 and 8) and K5 at the local widths it takes (N = 1152, 1536,
+768).  The second-to-last line is a JSON object of per-kernel results (K1-K8
+with their launches in phase 10b's YOLO search, in phase 11's pipelines, in
 phase 12a's streaming search, in phase 13a's calibrated search, 13f's
-anyres encode and 13b's knob A/B, and the NMS kernel); the last is
+anyres encode and 13b's knob A/B, in 14a's sharded search and 14c's TP
+search, K1's and K5's local-width rows, and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -524,6 +549,51 @@ def kernel_cases(torch):
                 library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
             ))
+
+    # Tensor parallelism (phase 14): K1 at a rank's local heads of B/32, T = 2
+    # (6 heads, q|k|v 3 x 384) and T = 4 (3 heads, 3 x 192), and K5 at the
+    # local widths of ln1 -> qkv and ln2 -> fc1 that it takes (N a multiple
+    # of 128: 1152 and 1536 at T = 2, fc1's 768 at T = 4; qkv's 576 at T = 4
+    # is not).  Their own generator keeps the other cases' inputs as they were.
+    gtp = torch.Generator(device=dev).manual_seed(14)
+    for heads in (6, 3):
+        d = heads * 64
+        for b in (1, 8):
+            qkv = torch.randn(b, 577, 3 * d, generator=gtp, device=dev).to(bf16)
+            q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, 577, heads, 64).transpose(1, 2)
+                       for i in range(3))
+            cases.append(Case(
+                "K1", f"B={b} S=577 {heads}x64 (TP {12 // heads})", "bf16",
+                run=lambda qkv=qkv, h=heads: attention.fused_mha_from_qkv(qkv, h),
+                plain=lambda qkv=qkv, h=heads: attention.fused_mha_from_qkv_plain(qkv, h),
+                check=_close(*tols["K1"][bf16]),
+                n_bytes=qkv.numel() * 2 + b * 577 * d * 2, n_ops=4 * b * heads * 577 * 577 * 64,
+                kind="bf16",
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            ))
+    for name, n in (("ln1->qkv TP 2", 1152), ("ln2->fc1 TP 2", 1536), ("ln2->fc1 TP 4", 768)):
+        x = (torch.randn(1, 577, 768, generator=gtp, device=dev) * 3 + 1).to(bf16)
+        scale = (1 + 0.1 * torch.randn(768, generator=gtp, device=dev)).to(bf16)
+        lbias = (0.1 * torch.randn(768, generator=gtp, device=dev)).to(bf16)
+        w = (torch.randn(768, n, generator=gtp, device=dev) * 0.036).to(bf16)
+        b = (0.1 * torch.randn(n, generator=gtp, device=dev)).to(bf16)
+
+        def within_bound(got, want, x=x, scale=scale, lbias=lbias, w=w, b=b):
+            bound = ln_matmul.bf16_error_bound(x, scale, lbias, w, b, 1e-5, want)
+            diff = (got.float() - want.float()).abs()
+            ok = bool((diff <= bound).all()) and bool(got.float().isfinite().all())
+            return diff.max().item(), ok, "bf16_error_bound (2 flips of h, 2 ulps)"
+
+        cases.append(Case(
+            "K5", f"{name} R=577 768->{n}", "bf16",
+            run=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul(x, scale, lbias, w, b, 1e-5),
+            plain=lambda x=x, scale=scale, lbias=lbias, w=w, b=b: ln_matmul.ln_matmul_plain(x, scale, lbias, w, b, 1e-5),
+            check=within_bound,
+            n_bytes=577 * 768 * 2 + 768 * n * 2 + 2 * 768 * 2 + n * 2 + 577 * n * 2,
+            n_ops=2 * 577 * 768 * n, kind="bf16",
+            yardsticks={"layer_norm + addmm (two calls)": lambda x=x[0], w=w, b=b, s_b=scale, lb_b=lbias: torch.addmm(
+                b, F.layer_norm(x, (768,), s_b, lb_b, 1e-5), w)},
+        ))
     return cases
 
 
@@ -3267,6 +3337,436 @@ def phase_13(torch, card):
             "qwen25": qa, "anyres": anyres}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-device layer
+# ---------------------------------------------------------------------------
+
+TP_LM_LAYERS = 4      # phase 14d cuts LLaVA-OneVision's 28 decoder layers to this
+
+
+def _rows_key(rows):
+    return [(r["keyframe_secs"], r["iterations"]) for r in rows]
+
+
+def _search(torch, heur, cfg, tasks, **kw):
+    """``search_videos`` with fresh stats and launch counts -> (rows, stats,
+    counts, wall)."""
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.parallel import search_videos
+    from tstar_tpu_torch.search.step_graphs import StepStats
+
+    stats = StepStats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = search_videos(tasks, heur, cfg, stats=stats, **kw)
+    torch.cuda.synchronize()
+    return rows, stats, launch_counts(), time.perf_counter() - t0
+
+
+def phase_14a(torch, card):
+    """Phase 14a: a one-rank NCCL mesh.  Phase 8's bucket of 8 (B/32, bf16)
+    through ``search_videos`` without a mesh, with ``mesh=make_mesh(1, 1)``,
+    and with the detector ``shard_module``d at model = 1 (every row-parallel
+    layer all-reduces over the one-rank NCCL group, inside the captured
+    graphs): the same keyframes, iterations, graph replays and host reads a
+    step.  Returns the sharded run's launch counts and the unsharded rows."""
+    import torch.distributed as dist
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.parallel import make_mesh, shard_module
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    mesh = make_mesh(1, 1)
+    try:
+        runs = {"no mesh": _search(torch, heur, cfg, _batched_tasks()),
+                "mesh 1x1": _search(torch, heur, cfg, _batched_tasks(), mesh=mesh)}
+        shard_module(heur.model, mesh)
+        runs["shard_module 1x1"] = _search(torch, heur, cfg, _batched_tasks(), mesh=mesh)
+        base_rows, base, base_counts, _ = runs["no mesh"]
+        for label, (rows, stats, counts, wall) in runs.items():
+            ok = (_rows_key(rows) == _rows_key(base_rows) and stats.replays > 0
+                  and stats.replays * base.steps == base.replays * stats.steps
+                  and stats.host_reads == 2 * stats.steps and not stats.eager_reason
+                  and counts == base_counts)
+            log(f"[mesh 1x1] {label} ({mesh.backend}): {stats.steps} steps, iterations "
+                f"{[r['iterations'] for r in rows]}, keyframes and iterations equal to the "
+                f"unmeshed search: {_rows_key(rows) == _rows_key(base_rows)}; "
+                f"{stats.replays / stats.steps:.2f} graph replays and "
+                f"{stats.host_reads / stats.steps:.2f} host reads a step ({stats.captures} "
+                f"captures), launches {counts == base_counts and 'equal' or counts}; "
+                f"wall {wall:.3f} s ({card}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase 14a: {label} differs from the search without a mesh")
+        row_parallel = sum(1 for m in heur.model.modules() if getattr(m, "reduce", None))
+        log(f"[mesh 1x1] the sharded detector holds {row_parallel} row-parallel layers, each "
+            "all-reducing over the one-rank NCCL group inside the step graphs")
+        return runs["shard_module 1x1"][2], base_rows
+    finally:
+        dist.destroy_process_group()
+
+
+def llava_tp_config():
+    """Phase 9a's LLaVA-OneVision at 7B widths, the LM cut to TP_LM_LAYERS."""
+    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionConfig
+
+    cfg = LlavaOnevisionConfig()
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=TP_LM_LAYERS))
+
+
+def llava_runs(torch, dev, mesh=None):
+    """Phase 9a's QA request (8 frames of the 600 s scene) through the cut
+    LLaVA-OneVision, whole or sharded over ``mesh``: greedy tokens in f32,
+    the prefill's next-token logits in bf16, a sampled request (temperature
+    0.7, generator seed 5) in bf16; the decode's ms a token and the peak
+    memory."""
+    import tempfile
+
+    from tstar_tpu_torch.grounding.prompts import build_qa_prompt
+    from tstar_tpu_torch.models.generate import GenerateStats, bucket_len, generate, prefill
+    from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionModel, prepare_llava_inputs
+    from tstar_tpu_torch.models.qwen2vl import random_model
+    from tstar_tpu_torch.parallel import shard_module
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    cfg = llava_tp_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = byte_tokenizer(tmp)
+    frames = load_video_frames("mem://scene", 8, decoder=default_scene(600.0))
+    inp = prepare_llava_inputs(tok, build_qa_prompt(QA_QUESTION, QA_OPTIONS, 8), frames, cfg)
+    eos = [tok.eos_id, tok.pad_id]
+    args = (inp["input_ids"], inp["prompt_lens"], inp["position_ids"])
+    out = {"prompt_tokens": int(inp["prompt_lens"][0])}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def model(dtype):
+        m = random_model(LlavaOnevisionModel, cfg, dtype, dev, seed=0)
+        return shard_module(m, mesh) if mesh is not None else m
+
+    m = model(torch.float32)
+    stats = GenerateStats(timed=True)
+    out["greedy"] = generate(m, *args, max_new_tokens=30, eos_token_ids=eos, temperature=0.0,
+                             image_patches=inp["image_patches"], stats=stats).tolist()
+    out["eager_reason"] = stats.eager_reason
+    del m
+    torch.cuda.empty_cache()
+    m = model(torch.bfloat16)
+    d = to_device(torch, inp, dev)
+    s = d["input_ids"].shape[1]
+    out["logits"], _ = prefill(m, d["input_ids"], d["prompt_lens"], d["position_ids"],
+                               d["image_patches"], None, bucket_len(s + 1))
+    out["logits"] = out["logits"].float().cpu()
+    stats = GenerateStats(timed=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out["sampled"] = generate(m, *args, max_new_tokens=30, eos_token_ids=eos, temperature=0.7,
+                              generator=gen, image_patches=inp["image_patches"],
+                              stats=stats).tolist()
+    out["prefill_ms"] = stats.prefill_ms[-1]
+    out["decode_ms_per_token"] = stats.decode_ms[-1] / max(1, stats.decode_steps)
+    out["captures"] = stats.captures
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["params"] = sum(p.numel() for p in m.parameters())
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 14's two ranks on cuda:0 over gloo: (b) data = 2, (c)
+    model = 2 on B/32, (d) model = 2 on the cut LLaVA-OneVision."""
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _phase14_rank_body(torch)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _phase14_rank_body(torch):
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.kernels import attention, launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.owlvit import (
+        OwlViTDetector, init_params, owlvit_base_patch32, postprocess_detections,
+    )
+    from tstar_tpu_torch.parallel import make_mesh, shard_module
+
+    dev = torch.device("cuda", 0)
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    out = {}
+
+    # (b) data = 2: each rank searches 4 of the 8 videos, f32 and bf16
+    dp = make_mesh(data=2, model=1, backend="gloo", device=dev)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        heur = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
+        rows, stats, _, wall = _search(torch, heur, cfg, _batched_tasks(), mesh=dp)
+        out[f"dp_{name}"] = {"rows": rows, "steps": stats.steps, "replays": stats.replays,
+                             "host_reads": stats.host_reads, "eager": stats.eager_reason,
+                             "wall": wall}
+        del heur
+
+    # (c) model = 2: B/32's forward at 6 heads a rank, then TP searches
+    tp = make_mesh(data=1, model=2, backend="gloo", device=dev)
+    whole = init_params(OwlViTDetector(owlvit_base_patch32()), 0).to(dev, torch.bfloat16)
+    sharded = init_params(OwlViTDetector(owlvit_base_patch32()), 0).to(dev, torch.bfloat16)
+    shard_module(sharded, tp)
+    g = torch.Generator(device=dev).manual_seed(4)
+    px = torch.randn(1, 768, 768, 3, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.nn.functional.normalize(
+        torch.randn(3, whole.cfg.text.hidden_size, generator=g, device=dev), dim=-1)
+    with torch.no_grad():
+        want = postprocess_detections(*whole.predict(whole.encode_image(px), q.to(torch.bfloat16)),
+                                      (768, 768))
+        reset_launch_counts()
+        got = postprocess_detections(*sharded.predict(sharded.encode_image(px),
+                                                      q.to(torch.bfloat16)), (768, 768))
+        k1 = attention.fused_mha_from_qkv.launches
+    attn = sharded.vision.encoder.layers[0].self_attn
+    out["forward"] = {"score_err": (got[0].float() - want[0].float()).abs().max().item(),
+                      "box_err": (got[2].float() - want[2].float()).abs().max().item(),
+                      "agree": (got[1] == want[1]).float().mean().item(),
+                      "finite": bool(torch.isfinite(got[0]).all()), "k1": k1,
+                      "heads": attn.num_heads, "qkv_width": attn.qkv_kernel.shape[1]}
+    del whole, sharded
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        heur = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
+        shard_module(heur.model, tp)
+        rows, stats, counts, wall = _search(torch, heur, cfg, _batched_tasks(2), mesh=tp)
+        out[f"tp_{name}"] = {"rows": rows, "steps": stats.steps, "replays": stats.replays,
+                             "verify": len(stats.verify_widths), "eager": stats.eager_reason,
+                             "counts": counts, "wall": wall, "host_reads": stats.host_reads}
+        del heur
+    out["tp_grid"] = tp_grid_difference(torch, tp, dev)
+    torch.cuda.empty_cache()
+
+    # (d) model = 2: the cut LLaVA-OneVision at 7B widths
+    out["llava"] = llava_runs(torch, dev, tp)
+    return out
+
+
+def phase_14_references(torch, card):
+    """The one-process runs phase 14b-d compare with: the f32 bucket of 8 and
+    the f32 and bf16 buckets of 2 (B/32), and the cut LLaVA-OneVision's
+    request."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    refs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=dtype, seed=0)
+        if name == "f32":
+            refs["b8_f32"] = _search(torch, heur, cfg, _batched_tasks())[0]
+        rows, stats, counts, wall = _search(torch, heur, cfg, _batched_tasks(2))
+        refs[f"b2_{name}"] = {"rows": rows, "wall": wall, "steps": stats.steps}
+        del heur
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs["llava"] = llava_runs(torch, torch.device("cuda", 0))
+    log(f"[tp refs] one-process LLaVA-OneVision (7B widths, LM cut to {TP_LM_LAYERS} of 28 "
+        f"layers, {refs['llava']['params'] / 1e9:.3f} B parameters): prompt "
+        f"{refs['llava']['prompt_tokens']} tokens, bf16 decode "
+        f"{refs['llava']['decode_ms_per_token']:.3f} ms a token (graphs), peak "
+        f"{refs['llava']['peak_gb']:.2f} GB, {time.perf_counter() - t0:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def batch_dependence(torch, n=8):
+    """Why a bf16 bucket of 4 may part from the bucket of 8: the first grid
+    forward of videos 0-3 in each, the largest confidence difference in
+    bf16 and in f32 (TF32 off)."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.ops.sampling import uniform_stride_indices
+    from tstar_tpu_torch.parallel.batched import stack_scorers
+    from tstar_tpu_torch.video.cache import build_frame_cache
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    tasks = _batched_tasks(n)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=dtype, seed=0)
+        caches = [build_frame_cache(t.video_path, cfg, device="cuda", decoder=t.decoder)
+                  for t in tasks]
+        scorers = [heur.build_scorer(c.frames, t.target_objects, t.cue_objects, cfg)
+                   for c, t in zip(caches, tasks)]
+        secs = uniform_stride_indices(caches[0].n_valid, 16, device="cuda")[None].expand(n, -1)
+        with torch.no_grad():
+            full = stack_scorers(scorers, cfg).score_grid_batch(secs)[0].float()
+            half = stack_scorers(scorers[:n // 2], cfg).score_grid_batch(secs[:n // 2])[0].float()
+        out[name] = (full[:n // 2] - half).abs().max().item()
+        del heur, caches, scorers
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_grid_difference(torch, mesh, dev, n=2):
+    """Why a bf16 TP search may part from one rank's: the first grid forward
+    of the bucket of ``n`` through the detector sharded over ``mesh``
+    against the whole detector on this rank, the largest confidence
+    difference in bf16 and in f32 (TF32 off)."""
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.ops.sampling import uniform_stride_indices
+    from tstar_tpu_torch.parallel import shard_module
+    from tstar_tpu_torch.parallel.batched import stack_scorers
+    from tstar_tpu_torch.video.cache import build_frame_cache
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    tasks = _batched_tasks(n)
+    caches = [build_frame_cache(t.video_path, cfg, device=dev, decoder=t.decoder) for t in tasks]
+    secs = uniform_stride_indices(caches[0].n_valid, 16, device=dev)[None].expand(n, -1)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        confs = []
+        for sharded in (False, True):
+            heur = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
+            if sharded:
+                shard_module(heur.model, mesh)
+            scorers = [heur.build_scorer(c.frames, t.target_objects, t.cue_objects, cfg)
+                       for c, t in zip(caches, tasks)]
+            with torch.no_grad():
+                confs.append(stack_scorers(scorers, cfg).score_grid_batch(secs)[0].float())
+            del heur, scorers
+        out[name] = (confs[0] - confs[1]).abs().max().item()
+    del caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_14(torch, card):
+    """Phase 14: the multi-device layer (module docstring).  Returns the
+    launch counts of 14a's sharded search and of 14c's bf16 TP search."""
+    import os
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    counts_1x1, base_rows = phase_14a(torch, card)
+    refs = phase_14_references(torch, card)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(phase14_rank, args=(2, port, out_dir), nprocs=2,
+                           start_method="spawn")
+        import pickle
+
+        outs = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+    spawn_s = time.perf_counter() - t0
+    failed = []
+
+    # (b) data = 2 over gloo: f32 equal to the one-process bucket of 8
+    for r, out in enumerate(outs):
+        dp = out["dp_f32"]
+        ok = (_rows_key(dp["rows"]) == _rows_key(refs["b8_f32"]) and dp["replays"] > 0
+              and not dp["eager"] and dp["host_reads"] == 2 * dp["steps"])
+        log(f"[mesh 2x1 gloo] rank {r}: 4 of the 8 videos a rank in f32 (TF32 off), every row "
+            f"back on every rank: keyframes and iterations equal to the one-process bucket of "
+            f"8: {_rows_key(dp['rows']) == _rows_key(refs['b8_f32'])}; {dp['steps']} steps, "
+            f"{dp['replays'] / dp['steps']:.2f} graph replays a step (no collective in a step: "
+            f"graphs kept); wall {dp['wall']:.3f} s ({card}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"14b rank {r}")
+    bf = outs[0]["dp_bf16"]["rows"]
+    same = sum(a == b for a, b in zip(_rows_key(bf), _rows_key(base_rows)))
+    dep = batch_dependence(torch)
+    log(f"[mesh 2x1 gloo] bf16: {same} of 8 videos' keyframes and iterations equal to phase "
+        f"8's bucket of 8 (phase 14a's unmeshed run); the cause of a difference: the first grid "
+        f"forward of videos 0-3 in a bucket of 4 against the same videos in the bucket of 8 "
+        f"differs by {dep['bf16']:.3e} in bf16 and {dep['f32']:.3e} in f32 (the GEMMs' "
+        f"algorithms depend on the batch; phase 10c's finding for cuDNN)")
+
+    # (c) model = 2 over gloo: B/32's forward at 6 heads a rank, TP searches
+    for r, out in enumerate(outs):
+        f = out["forward"]
+        ok = (f["score_err"] <= 2e-2 and f["finite"] and f["k1"] == 12 and f["heads"] == 6
+              and f["qkv_width"] == 3 * 384)
+        log(f"[mesh 1x2 gloo] rank {r}: B/32 grid forward at full width, bf16, 6 heads a rank "
+            f"(q|k|v 3 x 384): max |score TP - one rank| {f['score_err']:.3e} (tol 2e-2, phase "
+            f"4's), boxes {f['box_err']:.3e} px, class agreement {f['agree']:.4f}; K1 launched "
+            f"{f['k1']} times (want 12) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"14c forward rank {r}")
+        for name in ("f32", "bf16"):
+            t = out[f"tp_{name}"]
+            ref = refs[f"b2_{name}"]
+            equal = _rows_key(t["rows"]) == _rows_key(ref["rows"])
+            forwards = t["steps"] + t["verify"]
+            per_scorer = 2 * 12 + 1         # the prompts' text encode: K3, no K1
+            k = t["counts"]
+            launched = (k["fused_mha_from_qkv"] == 12 * forwards
+                        and k["fused_layernorm"] == 27 * forwards + 2 * per_scorer)
+            ok = (equal or name == "bf16") and t["eager"] and t["replays"] == 0 and launched
+            why = "" if equal or name == "f32" else " (bf16; the cause below)"
+            log(f"[mesh 1x2 gloo] rank {r}: {name} TP search of 2 videos: keyframes and "
+                f"iterations equal to one rank's: {equal}{why}; {t['steps']} steps, {forwards} "
+                f"forwards, eager steps (graphs: none; {t['eager']}); K1 "
+                f"{k['fused_mha_from_qkv']} (12 a forward), K3 {k['fused_layernorm']}; wall "
+                f"{t['wall']:.3f} s against one rank's {ref['wall']:.3f} s with graphs "
+                f"({card}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"14c {name} search rank {r}")
+        g = out["tp_grid"]
+        ok = g["f32"] <= 1e-4
+        log(f"[mesh 1x2 gloo] rank {r}: the cause of a bf16 difference: the first grid forward "
+            f"of the 2 videos through the TP detector against the whole one on this rank "
+            f"differs by {g['bf16']:.3e} in bf16 and {g['f32']:.3e} in f32 (tol 1e-4; each "
+            f"row-parallel product is summed from two partial products, rounded to the "
+            f"compute dtype before the all-reduce) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"14c grid difference rank {r}")
+
+    # (d) model = 2: the cut LLaVA-OneVision at 7B widths
+    ref = refs["llava"]
+    for r, out in enumerate(outs):
+        lv = out["llava"]
+        err = (lv["logits"] - ref["logits"]).norm() / ref["logits"].norm()
+        ok = (lv["greedy"] == ref["greedy"] and err.item() <= 2e-2 and lv["eager_reason"]
+              and lv["sampled"] == outs[0]["llava"]["sampled"] and lv["captures"] == 0)
+        log(f"[mesh 1x2 gloo] rank {r}: LLaVA-OneVision at 7B widths (SigLIP 1152 x 27, "
+            f"Qwen2 3584 x {TP_LM_LAYERS} of 28 layers (cut), vocab 152064; 14 heads, 2 kv "
+            f"heads, 76032 vocabulary rows a rank): f32 greedy tokens equal to one rank's: "
+            f"{lv['greedy'] == ref['greedy']}; bf16 next-token logits relative L2 "
+            f"{err.item():.3e} (tol 2e-2); sampled (temperature 0.7, seed 5) tokens equal on "
+            f"both ranks: {lv['sampled'] == outs[0]['llava']['sampled']}; prefill "
+            f"{lv['prefill_ms']:.3f} ms, decode {lv['decode_ms_per_token']:.3f} ms a token "
+            f"(eager, every collective staged through the host by gloo; one rank with graphs: "
+            f"{ref['decode_ms_per_token']:.3f}); peak {lv['peak_gb']:.2f} GB on this rank "
+            f"({card}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"14d rank {r}")
+    log(f"[phase 14] two ranks' spawn and run {spawn_s:.1f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"phase 14 failed: {failed}")
+    return {"counts_1x1": counts_1x1, "counts_tp": outs[0]["tp_bf16"]["counts"],
+            "llava": {k: outs[0]["llava"][k] for k in ("prefill_ms", "decode_ms_per_token",
+                                                       "peak_gb")}}
+
+
 def log_allocated(torch, phase):
     """What earlier phases left allocated, which each later phase's peak
     memory includes (phases 10b and 11 count theirs above it)."""
@@ -3329,6 +3829,11 @@ def main() -> int:
     p13 = phase_13(torch, card)
     log("[phase 13] " + json.dumps({k: p13[k] for k in ("calibration", "qwen25", "anyres")},
                                    default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_allocated(torch, "phase 14")
+    p14 = phase_14(torch, card)
+    log("[phase 14] " + json.dumps(p14["llava"]))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -3393,7 +3898,16 @@ def main() -> int:
             # phase 13b: the knob A/B at its own geometry, by knob
             "launches_knob_ab": {knob: e["launches"].get(name, 0)
                                  for knob, e in p13["knob_ab"]["knobs"].items()},
+            # phase 14a: phase 8's bucket, detector sharded over a one-rank
+            # NCCL mesh; 14c: rank 0's bf16 search of 2 videos at model = 2
+            "launches_mesh_1x1": p14["counts_1x1"][name],
+            "launches_tp_search": p14["counts_tp"][name],
         })
+        if k in ("K1", "K5"):
+            kernels[-1]["tp_rows"] = [
+                {key: r[key] for key in ("shape", "dtype", "ms", "plain_ms", "library_ms",
+                                         "yardsticks", "bound_ms", "bound_by", "err")}
+                for r in mine if "TP" in r["shape"]]
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
             kernels[-1]["vlm_row"] = {key: sig[key] for key in (
@@ -3416,6 +3930,8 @@ def main() -> int:
         "launches_anyres": p13["anyres"]["counts"]["greedy_nms"],
         "launches_knob_ab": {knob: e["launches"].get("greedy_nms", 0)
                              for knob, e in p13["knob_ab"]["knobs"].items()},
+        "launches_mesh_1x1": p14["counts_1x1"]["greedy_nms"],
+        "launches_tp_search": p14["counts_tp"]["greedy_nms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,18 @@ from tstar_tpu_torch.models.clip_tokenizer import HashTokenizer as THash
 from tstar_tpu_torch.search import searcher as tsearcher
 from tstar_tpu_torch.utils.config import SearchConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 cv2 = pytest.importorskip("cv2")
 
 TOL = 1e-5

@@ -30,6 +30,18 @@ from tstar_tpu_torch.search.scorers import TableScorer as TTable
 from tstar_tpu_torch.search.state import init_state as tinit
 from tstar_tpu_torch.utils.config import SearchConfig as TSearchConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = SearchConfig(search_budget=1.0, confidence_threshold=0.6)
 
 

@@ -44,6 +44,18 @@ from tstar_tpu_torch.utils.config import FrameworkConfig, SearchConfig, dataset_
 from tstar_tpu_torch.utils.profiling import MetricsLogger, StageTimer
 from tstar_tpu_torch.video import cache as tcache
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 cv2 = pytest.importorskip("cv2")
 
 QUESTION = "What is the color of the couch?"

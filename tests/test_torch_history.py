@@ -63,6 +63,18 @@ from tstar_tpu_torch.video import cache as tcache
 from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
 from tstar_tpu_torch.viz import artifacts as tart
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = dict(search_budget=0.5, cache_hw=(32, 64))
 TARGETS, CUES = ["couch", "lamp"], ["tv"]
 TOL = 1e-5          # P, scores, grid confidences, detection scores

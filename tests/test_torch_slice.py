@@ -45,6 +45,18 @@ from tstar_tpu_torch.utils.config import SearchConfig as TSearchConfig
 from tstar_tpu_torch.video import cache as tcache
 from tstar_tpu_torch.video.synthetic import default_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = dict(search_budget=1.0, cache_hw=(32, 64))
 CFG = TSearchConfig(**BASE)
 TARGETS, CUES = ["couch", "lamp"], ["tv"]

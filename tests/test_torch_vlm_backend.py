@@ -31,6 +31,18 @@ from tstar_tpu_torch.models import loader as tloader
 from tstar_tpu_torch.models.qwen2vl import params_from_jax
 from tstar_tpu_torch.video.synthetic import default_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 transformers = pytest.importorskip("transformers")
 safetensors = pytest.importorskip("safetensors")
 

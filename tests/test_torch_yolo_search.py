@@ -43,6 +43,18 @@ from tstar_tpu_torch.utils.config import SearchConfig as TSearchConfig
 from tstar_tpu_torch.video import cache as tcache
 from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- the search, against the reference's, on replayed noise -------------------
 
 # confidence_threshold 2.0 (the reference bench's worst case): no target is

@@ -31,6 +31,18 @@ from tstar_tpu_torch.models import owlvit as tow
 from tstar_tpu_torch.models import yoloworld as ty
 from tstar_tpu_torch.models.owlvit import TextConfig as TTextConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores, and torch's thread pool spinning beside them slows this file
+    several-fold; its tiny shapes gain nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 1e-5, 1e-4
 BOX_ATOL = 1e-4
 TEXT = dict(vocab_size=100, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,

@@ -7,9 +7,11 @@ torch ``QwenInterface``, ``TStar/interface_grounding.py:52-150``).  The
 model loads onto ``device`` ("cuda" unless the caller asks for another) in
 ``dtype`` (bf16 by default); the KV cache takes the model's dtype (the
 reference's is bf16 whatever the model's, and fails on an f32 model: ROADMAP
-queue 3 item 8).
-Tensor-parallel sharding (the reference's ``mesh=``) is ROADMAP queue 1
-item 10.
+queue 3 item 8).  With ``mesh=`` (``parallel/mesh.make_mesh``) the model
+loads onto the mesh rank's device (a ``device`` other than that raises)
+and is sharded over its model group (``parallel/shardings.shard_module``),
+as the reference's ``mesh=``: every rank of the group runs the same
+requests and returns the same text.
 """
 
 from __future__ import annotations
@@ -23,18 +25,26 @@ from tstar_tpu_torch.models.generate import GenerateStats, generate
 from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionModel, prepare_llava_inputs
 from tstar_tpu_torch.models.loader import load_vlm_checkpoint
 from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
+from tstar_tpu_torch.parallel.shardings import shard_module
 
 
 class TorchVLMBackend:
     def __init__(
         self,
         model_path: str,
-        device="cuda",
+        device=None,
         dtype: torch.dtype = torch.bfloat16,
         max_pixels: int = 448 * 448,
         seed: int = 0,
+        mesh=None,
     ):
-        model, tokenizer = load_vlm_checkpoint(model_path, device, dtype)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
+            device = mesh.device
+        model, tokenizer = load_vlm_checkpoint(model_path, device or "cuda", dtype)
+        if mesh is not None:
+            shard_module(model, mesh)
         self._adopt(model, tokenizer, max_pixels, seed)
 
     @classmethod

@@ -24,6 +24,14 @@ exact zeros.  A model keeps its ``MAX_BUCKETS`` most recently used buckets
 (each holds a KV cache and a graph) and frees the others.
 A capture that fails raises ``GraphCaptureError``: there is no fallback.
 
+Under tensor parallelism (``parallel/shardings.shard_module``) the KV cache
+holds this rank's kv heads, and a sampled token is broadcast from the
+model group's first rank, so every rank of the group emits the same tokens
+(the logits are all-gathered, so a greedy pick agrees by itself).  NCCL's
+collectives are captured with the step; a model sharded over a gloo group
+of several ranks decodes eagerly (``GenerateStats.eager_reason`` says why,
+and ``graphs=True`` raises there).
+
 The KV cache takes the model's dtype unless ``cache_dtype`` says otherwise.
 The reference's defaults to bf16 whatever the model's dtype, which is the
 same for its bf16 default and fails on an f32 model (its cache write
@@ -42,12 +50,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
+
+logger = logging.getLogger(__name__)
 
 BUCKET = 128
 MAX_BUCKETS = 4
@@ -66,11 +78,14 @@ class GenerateStats:
     flag_reads: int = 0         # host reads in the loop (one a step)
     prefill_ms: List[float] = dataclasses.field(default_factory=list)
     decode_ms: List[float] = dataclasses.field(default_factory=list)
+    eager_reason: str = ""      # why a CUDA device decoded without graphs
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    t = cfg.text
-    shape = (batch, max_len, t.num_kv_heads, t.head_dim)
+def init_kv_cache(model, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Zero (K, V) caches of every layer of ``model``, at the kv heads its
+    layers hold (this rank's under tensor parallelism)."""
+    t = model.cfg.text
+    shape = (batch, max_len, model.layers[0].num_kv_heads, t.head_dim)
     return [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(t.num_layers)
@@ -90,7 +105,7 @@ def prefill(model, input_ids, prompt_lens, position_ids, image_patches, image_gr
     b, s = input_ids.shape
     dev = input_ids.device
     if caches is None:
-        caches = init_kv_cache(model.cfg, b, max_len, cache_dtype or model.dtype, dev)
+        caches = init_kv_cache(model, b, max_len, cache_dtype or model.dtype, dev)
     image_embeds = None
     if image_patches is not None:
         enc = model.encode_images(image_patches, image_grid_hw)
@@ -107,12 +122,14 @@ def prefill(model, input_ids, prompt_lens, position_ids, image_patches, image_gr
     return model.logits(last[:, None])[:, 0], caches
 
 
-def _sample(logits: torch.Tensor, greedy: bool, temperature, generator) -> torch.Tensor:
+def _sample(logits: torch.Tensor, greedy: bool, temperature, generator, tp=None) -> torch.Tensor:
+    """The next tokens; a sampled pick is the model group's first rank's
+    (``tp``: the model's ``TensorParallel``)."""
     if greedy:
         return logits.argmax(dim=-1)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return (logits / temperature + gumbel).argmax(dim=-1)
+    return broadcast_first_((logits / temperature + gumbel).argmax(dim=-1), tp)
 
 
 def decode_step(model, token, index, next_pos, key_valid, caches):
@@ -137,7 +154,8 @@ class DecodeBucket:
         self.model = model
         self.greedy, self.graphs = greedy, graphs
         self.generator = None if greedy else torch.Generator(device=dev)
-        self.caches = init_kv_cache(model.cfg, b, max_len, cache_dtype, dev)
+        self.tp = tensor_parallel(model)
+        self.caches = init_kv_cache(model, b, max_len, cache_dtype, dev)
         i64 = dict(dtype=torch.int64, device=dev)
         self.token = torch.zeros(b, **i64)
         self.next_pos = torch.zeros(b, **i64)
@@ -161,7 +179,7 @@ class DecodeBucket:
         index = self.start + self.step - 1
         logits = decode_step(self.model, self.token, index, self.next_pos, self.key_valid,
                              self.caches)
-        new = _sample(logits, self.greedy, self.temperature, self.generator)
+        new = _sample(logits, self.greedy, self.temperature, self.generator, self.tp)
         new = torch.where(self.done, self.eos[0], new)
         self.done |= (new[:, None] == self.eos[None]).any(dim=-1)
         self.out.index_copy_(1, self.step.view(1), new[:, None])
@@ -297,11 +315,15 @@ def generate(
     model's dtype."""
     dev = model.device
     stats = stats if stats is not None else GenerateStats()
-    input_ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64).to(dev)
-    prompt_lens = torch.as_tensor(np.asarray(prompt_lens), dtype=torch.int64).to(dev)
-    position_ids = torch.as_tensor(np.asarray(position_ids), dtype=torch.int64).to(dev)
+    def upload(x, dtype=None):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        return t.to(dev, dtype)
+
+    input_ids = upload(input_ids, torch.int64)
+    prompt_lens = upload(prompt_lens, torch.int64)
+    position_ids = upload(position_ids, torch.int64)
     if image_patches is not None:
-        image_patches = torch.as_tensor(np.asarray(image_patches)).to(dev)
+        image_patches = upload(image_patches)
     b, s_pad = input_ids.shape
     max_len = bucket_len(s_pad + max_new_tokens)
     greedy = temperature <= 0.0
@@ -310,6 +332,14 @@ def generate(
     eos = torch.as_tensor(list(eos_token_ids), dtype=torch.int64).to(dev)
     cache_dtype = cache_dtype or model.dtype
     use_graphs = _use_graphs(graphs, dev)
+    blocker = graph_blocker(model)
+    if use_graphs and blocker:
+        if graphs:
+            raise ValueError(f"graphs=True, but {blocker}")
+        use_graphs = False
+        if stats.eager_reason != blocker:
+            logger.info("generate decodes eagerly: %s", blocker)
+        stats.eager_reason = blocker
 
     bucket = None
     if max_new_tokens > 1:
@@ -327,7 +357,7 @@ def generate(
     seq_mask = torch.arange(s_pad, device=dev)[None] < prompt_lens[:, None]
     masked = torch.where(seq_mask[None], position_ids, torch.full_like(position_ids, -1))
     next_pos = masked.amax(dim=(0, 2)) + 1
-    token0 = _sample(logits, greedy, max(temperature, 1e-6), generator)
+    token0 = _sample(logits, greedy, max(temperature, 1e-6), generator, tensor_parallel(model))
     if marks:
         marks[1].record()
     if max_new_tokens == 1:

@@ -33,6 +33,7 @@ from tstar_tpu_torch.models.transformer import (
     causal_bias,
     padding_bias,
 )
+from tstar_tpu_torch.models.tensor_parallel import tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,7 +289,8 @@ def resize_detector(model: OwlViTDetector, image_size: int) -> OwlViTDetector:
 
     Only the vision position embedding is resampled (a new tensor); every
     other parameter of the returned module IS the original's tensor, so no
-    weight is copied on the device.  The config's ``image_size`` changes, so
+    weight is copied on the device (a tensor-parallel model's view holds
+    the same shards).  The config's ``image_size`` changes, so
     the box bias and heads follow the new patch grid.
     """
     src = model.cfg.vision
@@ -301,6 +303,10 @@ def resize_detector(model: OwlViTDetector, image_size: int) -> OwlViTDetector:
     )
     with torch.device("meta"):   # shapes only; the tensors come from ``model``
         view = OwlViTDetector(new_cfg)
+    tp = tensor_parallel(model)
+    if tp is not None:           # the view takes the model's shards
+        from tstar_tpu_torch.parallel.shardings import shard_module   # it imports the models
+        shard_module(view, tp.mesh)
     state = dict(model.state_dict())
     state["vision.position_embedding"] = interpolate_position_embedding(
         model.vision.position_embedding, src.num_patches_side, image_size // src.patch_size

@@ -100,6 +100,7 @@ class Qwen25VisionBlock(nn.Module):
     def __init__(self, cfg: Qwen25VisionConfig):
         super().__init__()
         self.cfg = cfg
+        self.num_heads = cfg.num_heads      # this rank's under tensor parallelism
         d, i = cfg.embed_dim, cfg.intermediate_size
         self.norm1 = RMSNorm(d, cfg.eps)
         self.qkv = Dense(d, 3 * d)
@@ -113,7 +114,8 @@ class Qwen25VisionBlock(nn.Module):
                 attn_bias) -> torch.Tensor:
         """``attn_bias``: (P, P) additive in the compute dtype, or None."""
         c = self.cfg
-        qkv = self.qkv(self.norm1(x)).reshape(*x.shape[:-1], 3, c.num_heads, c.head_dim)
+        heads = self.num_heads
+        qkv = self.qkv(self.norm1(x)).reshape(*x.shape[:-1], 3, heads, c.head_dim)
         q, k, v = qkv.unbind(dim=-3)                       # (..., P, H, hd)
         q, k = apply_rope(q, k, cos, sin)
         scale = c.head_dim ** -0.5
@@ -121,7 +123,8 @@ class Qwen25VisionBlock(nn.Module):
         logits = torch.matmul(qh, kh.transpose(-1, -2))
         if attn_bias is not None:
             logits = logits + attn_bias
-        out = torch.matmul(_softmax_f32(logits, x.dtype), vh).transpose(-3, -2).reshape(x.shape)
+        out = torch.matmul(_softmax_f32(logits, x.dtype), vh).transpose(-3, -2)
+        out = out.reshape(*x.shape[:-1], heads * c.head_dim)
         x = x + self.proj(out)
         h = self.norm2(x)
         return x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))

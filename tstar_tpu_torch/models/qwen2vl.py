@@ -39,6 +39,7 @@ from torch.nn import functional as F
 from tstar_tpu_torch.kernels.image import device_constant
 from tstar_tpu_torch.models.convert import Rule, convert_state_dict, rule
 from tstar_tpu_torch.models.transformer import ACTIVATIONS, Dense, LayerNorm
+from tstar_tpu_torch.models.tensor_parallel import all_gather_last, all_reduce_
 
 
 # ---------------------------------------------------------------------------
@@ -117,17 +118,30 @@ class RMSNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: an (V, D) table read in the module's dtype."""
+    """flax ``nn.Embed``: an (V, D) table read in the module's dtype.  Under
+    tensor parallelism (``tp``) it holds vocabulary rows [vocab_start,
+    vocab_start + V/T): a lookup reads its rows with the others masked to
+    zero, then all-reduces; ``attend`` all-gathers the logits' columns."""
+
+    tp = None
+    vocab_start = 0
 
     def __init__(self, vocab: int, d: int):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(vocab, d))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        if self.tp is None:
+            return self.embedding[ids]
+        n = self.embedding.shape[0]
+        local = ids - self.vocab_start
+        inside = (local >= 0) & (local < n)
+        x = self.embedding[local.clamp(0, n - 1)] * inside[..., None].to(self.embedding.dtype)
+        return all_reduce_(x, self.tp)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.embedding.t())
+        y = torch.matmul(x, self.embedding.t())
+        return y if self.tp is None else all_gather_last(y, self.tp)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -179,6 +193,7 @@ class VisionBlock(nn.Module):
     def __init__(self, cfg: Qwen2VLVisionConfig):
         super().__init__()
         self.cfg = cfg
+        self.num_heads = cfg.num_heads      # this rank's under tensor parallelism
         d = cfg.embed_dim
         self.norm1 = LayerNorm(d, cfg.eps)
         self.qkv = Dense(d, 3 * d)
@@ -189,13 +204,14 @@ class VisionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        qkv = self.qkv(self.norm1(x)).reshape(*x.shape[:-1], 3, c.num_heads, c.head_dim)
+        heads = self.num_heads
+        qkv = self.qkv(self.norm1(x)).reshape(*x.shape[:-1], 3, heads, c.head_dim)
         q, k, v = qkv.unbind(dim=-3)                       # (..., P, H, hd)
         q, k = apply_rope(q, k, cos, sin)
         scale = c.head_dim ** -0.5
         qh, kh, vh = (t.transpose(-3, -2) for t in (q * scale, k.to(q.dtype), v))
         probs = _softmax_f32(torch.matmul(qh, kh.transpose(-1, -2)), x.dtype)
-        out = torch.matmul(probs, vh).transpose(-3, -2).reshape(x.shape)
+        out = torch.matmul(probs, vh).transpose(-3, -2).reshape(*x.shape[:-1], heads * c.head_dim)
         x = x + self.proj(out)
         h = ACTIVATIONS[c.hidden_act](self.fc1(self.norm2(x)))
         return x + self.fc2(h)
@@ -274,6 +290,8 @@ class Qwen2DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen2VLTextConfig):
         super().__init__()
         self.cfg = cfg
+        # this rank's heads under tensor parallelism
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
         d, hd = cfg.hidden_size, cfg.head_dim
         self.input_layernorm = RMSNorm(d, cfg.rms_norm_eps)
         self.q_proj = Dense(d, cfg.num_heads * hd)
@@ -297,7 +315,7 @@ class Qwen2DecoderLayer(nn.Module):
         """-> (x, cache).  With a cache, this step's K/V are written into it
         in place at ``cache_index`` and attention reads every cache slot."""
         c = self.cfg
-        hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
+        hd, nh, nkv = c.head_dim, self.num_heads, self.num_kv_heads
         b, s = x.shape[:2]
         h = self.input_layernorm(x)
         q = self.q_proj(h).reshape(b, s, nh, hd)

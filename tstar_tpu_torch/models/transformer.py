@@ -43,6 +43,7 @@ from tstar_tpu_torch.kernels.layernorm import (
     supported_width,
 )
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul, use_ln_matmul
+from tstar_tpu_torch.models.tensor_parallel import all_gather_last, all_reduce_
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -58,7 +59,15 @@ ACTIVATIONS: Dict[str, Callable] = {
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with a (in, out) kernel, as flax's Dense."""
+    """``y = x @ kernel + bias`` with a (in, out) kernel, as flax's Dense.
+
+    Under tensor parallelism (``parallel/shardings.shard_module``) a
+    row-parallel layer (``reduce``) all-reduces its product over the model
+    group before its whole bias is added once; a vocabulary-parallel head
+    (``gather``) all-gathers its columns."""
+
+    reduce = None       # TensorParallel of a row-parallel layer
+    gather = None       # TensorParallel of a vocabulary-parallel head
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
         super().__init__()
@@ -67,6 +76,10 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.kernel)
+        if self.reduce is not None:
+            all_reduce_(y, self.reduce)
+        if self.gather is not None:
+            y = all_gather_last(y, self.gather)
         return y if self.bias is None else y + self.bias
 
 
@@ -110,13 +123,16 @@ def dot_product_attention(
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with the fused (D, 3D) q|k|v projection."""
+    """Self-attention with the fused (D, 3D) q|k|v projection.  Under tensor
+    parallelism the projection holds this rank's [q_r | k_r | v_r] sections
+    and ``num_heads`` its heads (``parallel/shardings.shard_module``), and
+    ``out_proj`` is row-parallel."""
 
     def __init__(self, d: int, num_heads: int):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"width {d} not divisible by {num_heads} heads")
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, d // num_heads
         self.qkv_kernel = nn.Parameter(torch.empty(d, 3 * d))
         self.qkv_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = Dense(d, d)
@@ -126,17 +142,17 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         """``x`` is the residual stream; ``ln``, the pre-norm applied to it
         first, folds into the q|k|v projection when it may."""
-        d = x.shape[-1]
+        d = self.num_heads * self.head_dim       # this rank's q|k|v width
         if use_ln_matmul(x, 3 * d):
             qkv = ln_matmul(x, ln.scale, ln.bias, self.qkv_kernel, self.qkv_bias, ln.eps)
         else:
             qkv = torch.matmul(ln(x), self.qkv_kernel) + self.qkv_bias   # (B, S, 3D)
         # K1 has one head width; others (SigLIP's 72) take the split-head
         # routes below, as the reference's gate sends them to XLA
-        if attn_bias is None and d // self.num_heads == HEAD_DIM and use_fused_mha():
+        if attn_bias is None and self.head_dim == HEAD_DIM and use_fused_mha():
             return self.out_proj(fused_mha_from_qkv(qkv, self.num_heads))
         q, k, v = (
-            t.reshape(*t.shape[:-1], self.num_heads, d // self.num_heads)
+            t.reshape(*t.shape[:-1], self.num_heads, self.head_dim)
             for t in qkv.split(d, dim=-1)
         )
         if use_flash_attention(q, attn_bias):
@@ -145,7 +161,7 @@ class MultiHeadAttention(nn.Module):
             out = bf16_probs_attention(q, k, v)
         else:
             out = dot_product_attention(q, k, v, attn_bias)
-        return self.out_proj(out.reshape(x.shape))
+        return self.out_proj(out.reshape(*x.shape[:-1], d))
 
 
 class TransformerMLP(nn.Module):

@@ -34,7 +34,9 @@ size: the cap always applies.
 history mode: the same steps, each one's per-video snapshot kept on the
 device and read once after the loop.
 
-Not ported: the mesh guard and ``scorer_batch_axes`` (TPU- and mesh-only).
+Not ported: ``scorer_batch_axes`` and the TPU mesh guard (GSPMD's; the
+port's mesh is ``parallel/mesh.py``, and ``search_videos(mesh=)`` hands each
+data rank its own videos).
 """
 
 from __future__ import annotations

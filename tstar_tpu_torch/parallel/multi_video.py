@@ -22,8 +22,22 @@ under ``cache_mode='streaming'``, takes the streaming search
 time, before the buckets); ``cache_mode='downscale'`` shrinks such caches to
 fit instead.  With ``collect_history=True`` each batched result row also
 holds the video's per-iteration histories (``_per_video_history``); a
-streamed video's row has none.  Not ported: the mesh half of
-``_search_bucket`` (ROADMAP queue 1 item 10).
+streamed video's row has none.
+
+On a mesh (``search_videos(mesh=)``, ``parallel/mesh.py``) each bucket's
+videos split in contiguous, equal shares over the ``data`` ranks (a bucket
+the data degree does not divide raises, as the reference's ``device_put``
+does), and each rank decodes and searches only its share: the reference's
+per-process host decode feeding only local shards.  The ranks of a model
+group search the same share through a tensor-parallel detector
+(``parallel/shardings.shard_module`` on the heuristic's model).  With more
+than one data rank a bucket verifies per video (``verify_flat=False``,
+unless the config says otherwise), as the reference's mesh does.  Streamed
+videos go to the data ranks in turn.  The result rows come back to every
+rank in task order (``mesh.gather_rows``).  Every rank takes the smallest
+of the ranks' cache budgets, so they route and size the videos alike; a
+bucket that runs out of memory on a mesh of several ranks raises instead
+of retrying (a retry on one rank would part it from the others).
 """
 
 from __future__ import annotations
@@ -35,7 +49,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from tstar_tpu_torch.parallel.mesh import Mesh, data_sharding, gather_rows
 from tstar_tpu_torch.parallel.batched import (
     run_search_batched_auto,
     run_search_batched_with_history,
@@ -85,6 +101,7 @@ def _search_bucket(
     graphs: Optional[bool] = None,
     stats: Optional[StepStats] = None,
     collect_history: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict]:
     """Stack one bucket and search it to completion.
 
@@ -116,6 +133,9 @@ def _search_bucket(
         ))
         caches[i] = None
     batched_config = resolve_pallas_preprocess(config, batched=True)
+    if mesh is not None and mesh.data > 1 and batched_config.verify_flat is None:
+        # the reference's mesh keeps verification per video (shard-aligned)
+        batched_config = dataclasses.replace(batched_config, verify_flat=False)
     batched_scorer = stack_scorers(scorers, batched_config)
     stacked = stack_states(states)
     del scorers, states        # the stacked copies hold the frames now
@@ -230,10 +250,22 @@ class _Uploader:
         return cache
 
 
+def _budgets(sizes: Sequence[int], device, total_bytes, mesh: Optional[Mesh]) -> List[int]:
+    """Each bucket's per-video cache budget (``sizes``: the videos a rank
+    holds of it); on a mesh the smallest over the ranks."""
+    budgets = [per_video_hbm_budget(n, device, total_bytes=total_bytes) for n in sizes]
+    if mesh is None or mesh.world == 1 or not budgets:
+        return budgets
+    t = torch.tensor(budgets, dtype=torch.int64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return t.tolist()
+
+
 def search_videos(
     tasks: Sequence[VideoTask],
     heuristic,
     config: Optional[SearchConfig] = None,
+    mesh: Optional[Mesh] = None,
     bucket_by_length: bool = True,
     decode_workers: int = 2,
     prefetch: bool = True,
@@ -243,7 +275,8 @@ def search_videos(
     collect_history: bool = False,
 ) -> List[Dict]:
     """Search every video to completion in batched searches on the
-    heuristic's device, one length bucket at a time.
+    heuristic's device, one length bucket at a time; on ``mesh``, each
+    data rank its share of each bucket (module docstring).
 
     Each video's cache budget is its bucket's share of the device's free
     memory (``per_video_hbm_budget``; ``hbm_budget_bytes`` replaces the free
@@ -267,14 +300,19 @@ def search_videos(
     """
     config = config or SearchConfig()
     device = torch.device(heuristic.device)
+    if mesh is not None and (device.type, device.index or 0) != (
+            mesh.device.type, mesh.device.index or 0):
+        raise ValueError(f"the heuristic is on {device}, the mesh rank on {mesh.device}")
+    data = mesh.data if mesh is not None else 1
     n_pads = [probe_video_length(t.decoder or t.video_path, config)[1] for t in tasks]
 
     # Each video is judged by its OWN bucket's budget (the budget its bucket's
     # videos would get if none streamed); streaming a video only grows the
     # survivors' budgets, so none of them goes over.
     stream_idx: List[int] = []
-    for bucket in _bucket_indices(n_pads, bucket_by_length):
-        budget = per_video_hbm_budget(len(bucket), device, total_bytes=hbm_budget_bytes)
+    first = _bucket_indices(n_pads, bucket_by_length)
+    for bucket, budget in zip(first, _budgets([-(-len(b) // data) for b in first], device,
+                                              hbm_budget_bytes, mesh)):
         stream_idx += [
             i for i in bucket
             if cache_route(n_pads[i], config, budget, f"{tasks[i].video_path!r} (its "
@@ -288,17 +326,21 @@ def search_videos(
             "videos", len(stream_idx),
         )
     results: List[Optional[Dict]] = [None] * len(tasks)
-    for i in stream_idx:
-        results[i] = _search_streaming_video(tasks[i], heuristic, config, graphs, stats)
+    mine: Dict[int, Dict] = {}          # the rows this rank searched
+    for j, i in enumerate(stream_idx):
+        if mesh is None or j % data == mesh.data_index:
+            mine[i] = _search_streaming_video(tasks[i], heuristic, config, graphs, stats)
     streamed = set(stream_idx)
     batched_idx = [i for i in range(len(tasks)) if i not in streamed]
-    if not batched_idx:
-        return results
     buckets = [[batched_idx[j] for j in b]
-               for b in _bucket_indices([n_pads[i] for i in batched_idx], bucket_by_length)]
+               for b in _bucket_indices([n_pads[i] for i in batched_idx], bucket_by_length) if b]
+    if mesh is not None:
+        buckets = [b[data_sharding(mesh, len(b))] for b in buckets]
     budget_by_index = {
-        i: per_video_hbm_budget(len(bucket), device, total_bytes=hbm_budget_bytes)
-        for bucket in buckets for i in bucket
+        i: budget
+        for bucket, budget in zip(buckets, _budgets([len(b) for b in buckets], device,
+                                                    hbm_budget_bytes, mesh))
+        for i in bucket
     }
     if len(buckets) > 1:
         logger.info("search_videos: %d videos -> %d length buckets %s",
@@ -324,9 +366,9 @@ def search_videos(
                 oom = False
                 try:
                     out = _search_bucket([tasks[i] for i in bucket], caches, heuristic, config,
-                                         graphs, stats, collect_history)
+                                         graphs, stats, collect_history, mesh)
                 except torch.cuda.OutOfMemoryError:
-                    if attempt == 2:
+                    if attempt == 2 or (mesh is not None and mesh.world > 1):
                         raise
                     oom = True
                 # rebuild outside the handler: its traceback pins the failed
@@ -340,6 +382,9 @@ def search_videos(
                 logger.warning("bucket of %d videos ran out of device memory; retrying with "
                                "a %.0f MB per-video cache budget", len(bucket), budget / 2 ** 20)
                 caches = [uploader.wait(uploader.build(tasks[i], budget)) for i in bucket]
-            for i, r in zip(bucket, out):
-                results[i] = r
+            mine.update(zip(bucket, out))
+    shares = gather_rows(mesh, mine) if mesh is not None else [mine]
+    for share in shares:
+        for i, row in share.items():
+            results[i] = row
     return results

@@ -67,6 +67,7 @@ from tstar_tpu_torch.models.owlvit import (
     resize_detector,
 )
 from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
+from tstar_tpu_torch.models.tensor_parallel import tensor_parallel
 from tstar_tpu_torch.ops.splat import splat_detections_to_cells
 from tstar_tpu_torch.utils.config import SearchConfig
 
@@ -430,6 +431,11 @@ def _weight_views(model: OwlViTDetector, config: SearchConfig):
         raise ValueError(
             f"unknown detector_quant={config.detector_quant!r}; "
             "supported: None (compute dtype), 'int8' (W8A8), 'w8a16' (weight-only)"
+        )
+    if config.detector_quant is not None and tensor_parallel(model) is not None:
+        raise NotImplementedError(
+            f"detector_quant={config.detector_quant!r} on a tensor-parallel detector: the "
+            "quantized towers are not sharded (use model=1 on the mesh, or no quantization)"
         )
     qvision = quantize_vision_tower(model) if config.detector_quant is not None else None
     verify_model = qvision_verify = None

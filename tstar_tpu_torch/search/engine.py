@@ -66,6 +66,16 @@ def sample_secs(
     stride = uniform_stride_indices(n_valid, k) if first is not None else None
     if gumbel is None:
         return stride
+    draw, _, _ = sampling_weights(P, visited, valid, n_valid, config)
+    idx, _ = gumbel_topk_from_noise(gumbel, draw, k)
+    return idx if stride is None else torch.where(first[:, None], stride, idx)
+
+
+def sampling_weights(P, visited, valid, n_valid, config: SearchConfig):
+    """What ``sample_secs`` draws from -> (the drawn weights, the weights
+    before the quartile mask (P + K/N on the valid, unvisited seconds), the
+    mask's threshold (B, 1)), all (B, N_pad) rows."""
+    k = config.frames_per_iteration
     nf = n_valid.to(P.dtype)
     bonus = torch.div(torch.full_like(nf, float(k)), nf)[:, None]   # float32 K/N
     non_visiting = (~visited).to(P.dtype)
@@ -78,9 +88,7 @@ def sample_secs(
     starved = (masked.sum(dim=-1, keepdim=True) == 0) | (
         (masked > 0).sum(dim=-1, keepdim=True) < k
     )
-    weights = torch.where(starved, p_bonus, masked)
-    idx, _ = gumbel_topk_from_noise(gumbel, weights, k)
-    return idx if stride is None else torch.where(first[:, None], stride, idx)
+    return torch.where(starved, p_bonus, masked), weights, thr
 
 
 def _percentile_static(x: torch.Tensor, q: float) -> torch.Tensor:

@@ -40,6 +40,15 @@ their capture recorded (the capture itself launches nothing).
 On the CPU, or with ``graphs=False``, the same phase functions run eagerly
 every time, and noise is drawn only for videos still searching.
 
+A detector sharded for tensor parallelism (``parallel/shardings.py``) holds
+collectives in its forward.  NCCL's are captured with the phases.  Over a
+gloo model group of several ranks the steps run eagerly: the choice is made
+from the scorer's model when the stepper is built, logged and kept in
+``StepStats.eager_reason`` (``graphs=True`` raises there).  The ranks of a
+model group step the same videos: every host read is checked against the
+group's (``models/tensor_parallel.agree``) before the value steers the next
+collectives, so ranks that part raise instead of waiting for each other.
+
 History mode (``history=True``, the drivers behind the reference's
 ``run_search_with_history`` and ``run_search_batched_with_history``) keeps
 what each step did for the visualization sinks: phase (a) scores the grid
@@ -58,6 +67,7 @@ step as one without.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -66,9 +76,13 @@ import numpy as np
 import torch
 
 from tstar_tpu_torch.ops.sampling import draw_gumbel
+from tstar_tpu_torch.models.tensor_parallel import agree, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.engine import apply_grid_scores, replay_verification, sample_secs
 from tstar_tpu_torch.search.state import BatchedState, SearchState
 from tstar_tpu_torch.utils.config import SearchConfig
+
+
+logger = logging.getLogger(__name__)
 
 
 class GraphCaptureError(RuntimeError):
@@ -94,7 +108,9 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
 class StepStats:
     """What a driver did, filled in when passed as ``stats=``.  With
     ``record`` each step's active videos, sampled seconds and grid
-    confidences are kept (device tensors, read by the caller afterwards)."""
+    confidences are kept, with what the seconds were sampled from (the
+    distribution, the visited seconds, the noise, the valid count): device
+    tensors, read by the caller afterwards."""
 
     record: bool = False
     steps: int = 0
@@ -105,6 +121,7 @@ class StepStats:
     host_reads: int = 0          # reads inside steps (two a step, three streaming)
     setup_reads: int = 0         # the read before the first step
     stream_seconds: float = 0.0  # streaming: host decode + upload of the step frames
+    eager_reason: str = ""       # why a CUDA device stepped without graphs
     trace: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
@@ -147,6 +164,17 @@ class Stepper:
         self.graphs = _use_graphs(graphs, self.dev)
         self.rngs = list(rngs)
         self.stats = stats if stats is not None else StepStats()
+        model = getattr(scorer, "model", None)
+        blocker = graph_blocker(model)
+        if self.graphs and blocker:
+            if graphs:
+                raise ValueError(f"graphs=True, but {blocker}")
+            self.graphs = False
+            if self.stats.eager_reason != blocker:
+                logger.info("search steps eagerly: %s", blocker)
+            self.stats.eager_reason = blocker
+        tp = tensor_parallel(model)
+        self.model_tp = tp if tp is not None and tp.size > 1 else None
         b, n = scores.shape
         t_max, k = remaining.shape[-1], config.frames_per_iteration
         self.b, self.n, self.k, self.t_max = b, n, k, t_max
@@ -500,12 +528,17 @@ class Stepper:
         """One designated read: a non-blocking copy into pinned memory,
         awaited on an event."""
         if self.dev.type != "cuda":
-            return t.reshape(-1).tolist()
-        host = self._pinned[name]
-        host.copy_(t, non_blocking=True)
-        self._event.record()
-        self._event.synchronize()
-        return host.reshape(-1).tolist()
+            vals = t.reshape(-1).tolist()
+        else:
+            host = self._pinned[name]
+            host.copy_(t, non_blocking=True)
+            self._event.record()
+            self._event.synchronize()
+            vals = host.reshape(-1).tolist()
+        if self.model_tp is not None:
+            agree([int(v) for v in vals], self.model_tp, f"the step's {name!r} read",
+                  self.dev)
+        return vals
 
     # -- driving --------------------------------------------------------------
     def setup(self) -> List[bool]:
@@ -553,8 +586,12 @@ class Stepper:
             run("a2", self._phase_a2)
         self.stats.grid_images += self.b
         if self.stats.record:
+            # the sampler's inputs too: P and visited are still the step's own
             self.stats.trace.append({"active": list(active), "secs": self.secs.clone(),
-                                     "conf": self.conf.clone()})
+                                     "conf": self.conf.clone(), "P": self.P.clone(),
+                                     "visited": self.visited.clone(),
+                                     "gumbel": self.gumbel.clone(),
+                                     "n_valid": self.n_valid.clone()})
         if self.verify:
             count = self._read(self.n_cand, "count")[0]
             self.stats.host_reads += 1
