@@ -197,17 +197,43 @@ Phases (any failed check exits non-zero and prints no result line):
      next-token logits within 2e-2 relative L2, a sampled request
      (temperature 0.7, seed 5) the same on both ranks, prefill and decode
      times under gloo (staged through the host), each rank's peak memory.
+  15. the quantized detector on a tensor-parallel mesh and the
+     reference-style baseline: (a) a one-rank NCCL mesh: phase 8's bucket
+     of 8 under phase 6's int8 + verify 512 through ``search_videos``
+     without a mesh and with the detector ``shard_module``d at model = 1
+     (the int8 tower sharded alike: out_proj and fc2 on K4's row-parallel
+     mode, their MAX and SUM all-reduces inside the captured graphs): equal
+     keyframes and iterations, K4's launches equal (24 column + 24
+     row-parallel a forward against 48), two host reads a step; (b) two
+     gloo ranks on cuda:0 at model = 2 (B/32 bf16, 6 heads a rank): the
+     int8 tower's features on one grid image against the whole int8
+     tower's, bit for bit (else the layer where they part, allowed only
+     where K1's local heads alone explain it), K4 24 column and 12
+     row-parallel launches a forward (out_proj's (384, 768) shard in plain
+     ops); an int8 + verify 512 search of 2 videos in bf16 (launches by
+     mode; keyframes printed beside one rank's, with the first grid
+     forward's difference), and the same search in f32 and under w8a16 in
+     f32, each held to one rank's step by step (keyframes equal, or parted
+     only at a witnessed tie of the sampler; the first grid forward within
+     1e-4: phase 14c's tolerances);
+     (c) ``bench/reference_style.reference_style_search`` (the original
+     TStar's host loop) with a B/32 bf16 forward at 768^2 on phase 5's
+     600 s video: frames scored, wall, frames/s, K1 / K2 / K3 launches a
+     forward, its host grid within one level of the device grid builder's.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
 with two host reads a step.
 Phase 3 also runs K1 at a tensor-parallel rank's local heads of B/32 (6 and 3
-heads, B = 1 and 8) and K5 at the local widths it takes (N = 1152, 1536,
-768).  The second-to-last line is a JSON object of per-kernel results (K1-K8
+heads, B = 1 and 8), K5 at the local widths it takes (N = 1152, 1536,
+768) and K4's row-parallel mode at fc2's shards (1536 and 768 -> 768, R =
+577 and 8 x 577; exact).  The second-to-last line is a JSON object of per-kernel results (K1-K8
 with their launches in phase 10b's YOLO search, in phase 11's pipelines, in
 phase 12a's streaming search, in phase 13a's calibrated search, 13f's
 anyres encode and 13b's knob A/B, in 14a's sharded search and 14c's TP
-search, K1's and K5's local-width rows, and the NMS kernel); the last is
+search, in 15a's sharded int8 bucket and 15b's int8 TP search, K1's and
+K5's local-width rows, K4's row-parallel rows and launches, and the NMS
+kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -594,6 +620,31 @@ def kernel_cases(torch):
             yardsticks={"layer_norm + addmm (two calls)": lambda x=x[0], w=w, b=b, s_b=scale, lb_b=lbias: torch.addmm(
                 b, F.layer_norm(x, (768,), s_b, lb_b, 1e-5), w)},
         ))
+
+    # K4's row-parallel mode (phase 15): a rank's share of fc2 at T = 2
+    # (1536 -> 768) and T = 4 (768 -> 768), at R = 577 (grid) and 8 x 577
+    # (a bucket of 8), f32 in (fc1 writes f32).  The rows' scales are the
+    # whole rows' (here a wider x's, as the MAX all-reduce gives them); out
+    # the int32 partial product.  Exactly equal.  Its own generator keeps
+    # the other cases' inputs as they were.
+    grow = torch.Generator(device=dev).manual_seed(15)
+    for rows in (577, 8 * 577):
+        for name, k in (("fc2 TP 2", 1536), ("fc2 TP 4", 768)):
+            whole = torch.randn(rows, 3072, generator=grow, device=dev) * 3
+            x = whole[:, :k].contiguous()
+            xs = quant_matmul.activation_scale(quant_matmul.row_absmax(whole))
+            w = torch.randint(-127, 128, (k, 768), generator=grow, device=dev).to(torch.int8)
+            wt = w.T.contiguous()
+            q = quant_matmul.quantize_rows(x, xs)
+            cases.append(Case(
+                "K4", f"row-parallel {name} R={rows} {k}->768", "f32->int32",
+                run=lambda x=x, xs=xs, w=w, wt=wt: quant_matmul.w8a8_matmul_rowpar(x, xs, w, w_t=wt),
+                plain=lambda x=x, xs=xs, w=w: quant_matmul.w8a8_matmul_rowpar_plain(x, xs, w),
+                check=exact,
+                n_bytes=rows * k * 4 + k * 768 + rows * 4 + rows * 768 * 4,
+                n_ops=2 * rows * k * 768, kind="int8",
+                yardsticks={"int_mm (int8 GEMM only)": lambda q=q, w=w: torch._int_mm(q, w)},
+            ))
     return cases
 
 
@@ -661,17 +712,19 @@ def phase_build(torch):
     if len(attn) != 6 or failed:
         raise SystemExit(f"bf16 attention kernels: {len(attn)} found (want 6), failing {failed}")
     # K4: one instance per (x, out) dtype pair and tile (128-row slab with
-    # wgmma n = 128, or 64-row with n = 64), each on integer wgmma fed by TMA.
+    # wgmma n = 128, or 64-row with n = 64), each on integer wgmma fed by TMA;
+    # out int32 is the row-parallel mode (phase 15).
     w8a8 = sorted(n for n in bodies if "w8a8_kernel" in n)
+    out_names = {"f": "f32", "i": "int32 (row-parallel mode)"}
     for name in w8a8:
-        m = re.search(r"w8a8_kernelI(\w+?)(S1_|f|13__nv_bfloat16)Li(\d)E", name)
+        m = re.search(r"w8a8_kernelI(\w+?)(S1_|f|i|13__nv_bfloat16)Li(\d)E", name)
         label = f"K4 w8a8_kernel {name}" if not m else (
             f"K4 w8a8_kernel x {'f32' if m.group(1) == 'f' else 'bf16'} -> "
-            f"{'f32' if m.group(2) == 'f' else 'bf16'}, {64 * int(m.group(3))}-row slab")
+            f"{out_names.get(m.group(2), 'bf16')}, {64 * int(m.group(3))}-row slab")
         if not sass_check(name, label, ("IGMMA", "UTMALDG")):
             failed.append(label)
-    if len(w8a8) != 8 or failed:
-        raise SystemExit(f"K4 kernels: {len(w8a8)} found (want 8), failing {failed}")
+    if len(w8a8) != 12 or failed:
+        raise SystemExit(f"K4 kernels: {len(w8a8)} found (want 12), failing {failed}")
     # K2 (bf16): one instance per output columns per CTA (64, 128, 256) and
     # values per TMA segment of a (pw, c) run (32, 16); K5: one per row path
     # (D = 768 in registers, other widths read twice) and columns per
@@ -3348,14 +3401,14 @@ def _rows_key(rows):
     return [(r["keyframe_secs"], r["iterations"]) for r in rows]
 
 
-def _search(torch, heur, cfg, tasks, **kw):
-    """``search_videos`` with fresh stats and launch counts -> (rows, stats,
-    counts, wall)."""
+def _search(torch, heur, cfg, tasks, record=False, **kw):
+    """``search_videos`` with fresh stats (``record``: each step's trace)
+    and launch counts -> (rows, stats, counts, wall)."""
     from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tstar_tpu_torch.parallel import search_videos
     from tstar_tpu_torch.search.step_graphs import StepStats
 
-    stats = StepStats()
+    stats = StepStats(record=record)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3616,11 +3669,12 @@ def batch_dependence(torch, n=8):
     return out
 
 
-def tp_grid_difference(torch, mesh, dev, n=2):
+def tp_grid_difference(torch, mesh, dev, n=2, cfg=None, dtypes=("bf16", "f32")):
     """Why a bf16 TP search may part from one rank's: the first grid forward
     of the bucket of ``n`` through the detector sharded over ``mesh``
     against the whole detector on this rank, the largest confidence
-    difference in bf16 and in f32 (TF32 off)."""
+    difference in bf16 and in f32 (TF32 off), or in ``dtypes``; ``cfg``
+    (phase 5's cache by default) may set the detector's knobs."""
     from tstar_tpu_torch import SearchConfig
     from tstar_tpu_torch.framework.heuristics import initialize_heuristic
     from tstar_tpu_torch.ops.sampling import uniform_stride_indices
@@ -3628,12 +3682,13 @@ def tp_grid_difference(torch, mesh, dev, n=2):
     from tstar_tpu_torch.parallel.batched import stack_scorers
     from tstar_tpu_torch.video.cache import build_frame_cache
 
-    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    cfg = cfg or SearchConfig(cache_hw=(192, 384), search_budget=0.5)
     tasks = _batched_tasks(n)
     caches = [build_frame_cache(t.video_path, cfg, device=dev, decoder=t.decoder) for t in tasks]
     secs = uniform_stride_indices(caches[0].n_valid, 16, device=dev)[None].expand(n, -1)
     out = {}
-    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for name in dtypes:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[name]
         confs = []
         for sharded in (False, True):
             heur = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
@@ -3767,6 +3822,430 @@ def phase_14(torch, card):
                                                        "peak_gb")}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the quantized detector on a tensor-parallel mesh; the
+# reference-style baseline
+# ---------------------------------------------------------------------------
+
+def int8_search_config(quant="int8"):
+    """Phase 6's int8 + verify-512 configuration (or ``quant`` in its place)
+    at phase 8's cache and budget."""
+    from tstar_tpu_torch import SearchConfig
+
+    return SearchConfig(cache_hw=(192, 384), search_budget=0.5, detector_quant=quant,
+                        verify_image_size=512)
+
+
+def phase_15a(torch, card):
+    """Phase 15a: a one-rank NCCL mesh.  Phase 8's bucket of 8 (B/32, bf16)
+    under int8 + verify 512 through ``search_videos`` without a mesh, then
+    with the detector ``shard_module``d at model = 1 on ``make_mesh(1, 1)``:
+    the int8 tower sharded alike, its row-parallel layers (out_proj, fc2) on
+    K4's row-parallel mode with their MAX (f32) and SUM (int32) all-reduces
+    inside the captured step graphs.  The same keyframes and iterations, the
+    same K4 launches (column + row-parallel), two host reads a step.
+    Returns the sharded run's launch counts."""
+    import torch.distributed as dist
+
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.models.owlvit_quant import route_counts
+    from tstar_tpu_torch.parallel import make_mesh, shard_module
+
+    cfg = int8_search_config()
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    # each run twice: the first pays one-time costs (the sharded one the
+    # NCCL communicator's set-up), the second is steady
+    plain = [_search(torch, heur, cfg, _batched_tasks()) for _ in range(2)]
+    del heur
+    mesh = make_mesh(1, 1)
+    try:
+        # a fresh heuristic: the weight views are built once, from the model
+        # as it is when the first scorer is made
+        heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+        shard_module(heur.model, mesh)
+        sharded = [_search(torch, heur, cfg, _batched_tasks(), mesh=mesh) for _ in range(2)]
+        routes = route_counts(heur._weight_views[("int8", 512)][0])
+    finally:
+        dist.destroy_process_group()
+    (rows0, st0, c0, wall0), (rows, st, c, wall) = plain[0], sharded[0]
+    forwards = st.steps + len(st.verify_widths)
+    others = [k for k in c if k not in ("w8a8_matmul", "w8a8_matmul_rowpar")]
+    checks = {
+        "keyframes and iterations equal": _rows_key(rows) == _rows_key(rows0),
+        "routes: 24 column layers on K4, 24 row-parallel on its second mode":
+            routes == {"k4": 24, "k4_row": 24},
+        "K4 launches equal (column + row-parallel)":
+            c["w8a8_matmul"] + c["w8a8_matmul_rowpar"] == c0["w8a8_matmul"] == 48 * forwards,
+        "24 column and 24 row-parallel K4 launches a forward":
+            c["w8a8_matmul"] == c["w8a8_matmul_rowpar"] == 24 * forwards,
+        "every other kernel's launches equal": all(c[k] == c0[k] for k in others),
+        "graphs, two host reads a step": all(
+            s.replays > 0 and s.host_reads == 2 * s.steps and not s.eager_reason for s in (st0, st)),
+        "the second runs alike": all(
+            _rows_key(r[1][0]) == _rows_key(rows0) and r[1][2] == r[0][2] for r in (plain, sharded)),
+    }
+    log(f"[mesh 1x1 int8] phase 8's bucket under int8 + verify 512: {st.steps} steps, "
+        f"{forwards} forwards (verify batches {list(st.verify_widths)}); K4 "
+        f"{c0['w8a8_matmul']} launches without a mesh, {c['w8a8_matmul']} column + "
+        f"{c['w8a8_matmul_rowpar']} row-parallel sharded at model = 1 (routes {routes}); "
+        f"{st.replays / st.steps:.2f} graph replays and {st.host_reads / st.steps:.2f} host reads "
+        f"a step ({st.captures} captures); walls {wall0:.3f} then {plain[1][3]:.3f} s without a "
+        f"mesh, {wall:.3f} then {sharded[1][3]:.3f} s sharded (the first sharded run sets up the "
+        f"NCCL communicator) ({card})")
+    failed = [k for k, v in checks.items() if not v]
+    log(f"[mesh 1x1 int8] checks: {'OK' if not failed else 'FAIL ' + str(failed)}")
+    if failed:
+        raise SystemExit(f"phase 15a failed: {failed}")
+    return {"counts": c, "walls": [wall0, plain[1][3], wall, sharded[1][3]]}
+
+
+@contextlib.contextmanager
+def int8_tower_trace():
+    """Records, in ``encode_image_int8``, each LayerNorm's input (the
+    residual stream: pre_ln, then ln1 and ln2 of every layer, post_ln,
+    merged_ln) and each K1 call's q|k|v and output."""
+    from tstar_tpu_torch.models import owlvit_quant
+
+    rec = {"ln": [], "k1": []}
+    ln, k1 = owlvit_quant._layernorm, owlvit_quant.fused_mha_from_qkv
+
+    def ln_rec(x, p, eps):
+        rec["ln"].append(x.clone())
+        return ln(x, p, eps)
+
+    def k1_rec(qkv, heads):
+        out = k1(qkv, heads)
+        rec["k1"].append((qkv.clone(), out.clone()))
+        return out
+
+    owlvit_quant._layernorm, owlvit_quant.fused_mha_from_qkv = ln_rec, k1_rec
+    try:
+        yield rec
+    finally:
+        owlvit_quant._layernorm, owlvit_quant.fused_mha_from_qkv = ln, k1
+
+
+def first_difference(torch, whole, sharded, index, size):
+    """Where a rank's int8 tower first parts from the whole one: the first
+    LayerNorm input that differs, and whether K1 alone explains it (that
+    layer's q|k|v equal to the whole one's sections, its output not)."""
+    layers = len(whole["k1"])
+    names = (["pre_ln"] + [f"layer {i} {n}" for i in range(layers) for n in ("ln1", "ln2")]
+             + ["post_ln", "merged_ln"])
+    first = next((i for i, (a, b) in enumerate(zip(whole["ln"], sharded["ln"]))
+                  if not torch.equal(a, b)), None)
+    if first is None:
+        return None
+
+    def local(t, sections):     # rank ``index``'s columns of each section
+        w = t.shape[-1] // sections // size
+        return torch.cat([s[..., index * w:(index + 1) * w] for s in t.chunk(sections, -1)], -1)
+
+    k1_layers = []
+    for layer, ((qkv, out), (qkv_r, out_r)) in enumerate(zip(whole["k1"], sharded["k1"])):
+        if torch.equal(local(qkv, 3), qkv_r) and not torch.equal(local(out, 1), out_r):
+            k1_layers.append(layer)
+    diff = (whole["ln"][first].float() - sharded["ln"][first].float()).abs().max().item()
+    k1_alone = bool(k1_layers) and names[first] == f"layer {k1_layers[0]} ln2"
+    return {"point": names[first], "diff": diff, "k1_layers": k1_layers, "k1_alone": k1_alone}
+
+
+# phase 15b's TP searches: (label, detector_quant, dtype name); the f32
+# ones are held to one rank's step by step
+PHASE15B_SEARCHES = (("int8", "int8", "bfloat16"), ("int8_f32", "int8", "float32"),
+                     ("w8a16", "w8a16", "float32"))
+
+
+def phase15_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 15b's two ranks on cuda:0 over gloo (model = 2)."""
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _phase15_rank_body(torch)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _phase15_rank_body(torch):
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.owlvit import OwlViTDetector, init_params, owlvit_base_patch32
+    from tstar_tpu_torch.models.owlvit_quant import (
+        encode_image_int8, quantize_vision_tower, route_counts,
+    )
+    from tstar_tpu_torch.parallel import make_mesh, shard_module
+
+    dev = torch.device("cuda", 0)
+    tp = make_mesh(data=1, model=2, backend="gloo", device=dev)
+    out = {}
+    # the int8 tower (bf16) on one grid image: 6 heads a rank against 12
+    whole = init_params(OwlViTDetector(owlvit_base_patch32()), 0).to(dev, torch.bfloat16)
+    sharded = shard_module(
+        init_params(OwlViTDetector(owlvit_base_patch32()), 0).to(dev, torch.bfloat16), tp)
+    g = torch.Generator(device=dev).manual_seed(15)
+    px = torch.randn(1, 768, 768, 3, generator=g, device=dev).to(torch.bfloat16)
+    qw, qs = quantize_vision_tower(whole), quantize_vision_tower(sharded)
+    with torch.no_grad():
+        with int8_tower_trace() as tw:
+            fw = encode_image_int8(qw, px, whole.cfg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with int8_tower_trace() as ts:
+            fs = encode_image_int8(qs, px, sharded.cfg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    out["tower"] = {
+        "equal": torch.equal(fw, fs), "diff": (fw.float() - fs.float()).abs().max().item(),
+        "finite": bool(torch.isfinite(fs).all()), "routes": route_counts(qs),
+        "heads": (qs["heads"], whole.cfg.vision.num_heads), "counts": counts,
+        "first": first_difference(torch, tw, ts, tp.model_index, tp.model),
+    }
+    del whole, sharded, qw, qs, tw, ts
+    torch.cuda.empty_cache()
+    # the int8 search of 2 videos in bf16, then the int8 and the w8a16
+    # searches in f32, these two step by step against one rank's on this
+    # rank (record=True)
+    for label, quant, dtype in PHASE15B_SEARCHES:
+        dtype = getattr(torch, dtype)
+        cfg = int8_search_config(quant)
+        heur = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
+        shard_module(heur.model, tp)
+        record = dtype == torch.float32
+        rows, stats, counts, wall = _search(torch, heur, cfg, _batched_tasks(2), mesh=tp,
+                                            record=record)
+        out[label] = {"rows": rows, "steps": stats.steps, "verify": len(stats.verify_widths),
+                      "replays": stats.replays, "eager": stats.eager_reason, "counts": counts,
+                      "wall": wall,
+                      "grid": tp_grid_difference(torch, tp, dev, cfg=cfg,
+                                                 dtypes=("f32",) if record else ("bf16",))}
+        if record:
+            out[label]["parted"] = tp_partings(torch, heur, stats, cfg, dtype, dev)
+        del heur
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_partings(torch, heur, stats, cfg, dtype, dev):
+    """The TP search (``stats``' trace) against one rank's search of the
+    same videos, step by step (``tools/dryrun_multi._compare``): {video: the
+    witness of the step where their sampled seconds part, a tie of the
+    sampler} (anything else raises), and the largest grid confidence
+    difference over the steps that sampled the same seconds."""
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.tools.dryrun_multi import _compare
+
+    whole = initialize_heuristic("owl-vit-random", device=dev, dtype=dtype, seed=0)
+    rows, whole_stats, _, _ = _search(torch, whole, cfg, _batched_tasks(2), record=True)
+    try:
+        parted, err, close = _compare(stats.trace, whole_stats.trace, slice(0, 2), cfg)
+    except AssertionError as e:      # a parting that is not a tie
+        return {"fault": str(e)}
+    return {"parted": {f"video {j}": w for j, w in parted.items()}, "conf_err": err,
+            "close": close, "rows": rows}
+
+
+def phase_15b_references(torch):
+    """One rank's searches of the 2 videos, as ``PHASE15B_SEARCHES``."""
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+
+    refs = {}
+    for label, quant, dtype in PHASE15B_SEARCHES:
+        heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=getattr(torch, dtype),
+                                    seed=0)
+        rows, stats, counts, wall = _search(torch, heur, int8_search_config(quant),
+                                            _batched_tasks(2))
+        refs[label] = {"rows": rows, "wall": wall, "counts": counts,
+                       "forwards": stats.steps + len(stats.verify_widths)}
+        del heur
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_15b(torch, card):
+    """Phase 15b: two gloo ranks on cuda:0 at model = 2 (B/32, 6 heads a
+    rank): the int8 tower against one rank's, bit for bit (else the layer
+    where it parts, allowed only where K1's local heads alone explain it);
+    an int8 search of 2 videos in bf16 (K4: 24 column and 12 row-parallel
+    launches a forward, out_proj's (384, 768) shard in plain ops), its
+    keyframes printed beside one rank's; the same search in f32, and under
+    w8a16 in f32, held to phase 14c's tolerances (keyframes equal to one
+    rank's, or parted at a witnessed tie of the sampler, step by step).
+    Returns rank 0's int8 search counts and the walls."""
+    import os
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    refs = phase_15b_references(torch)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(phase15_rank, args=(2, port, out_dir), nprocs=2, start_method="spawn")
+        outs = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+    spawn_s = time.perf_counter() - t0
+    failed = []
+    for r, out in enumerate(outs):
+        t = out["tower"]
+        k = t["counts"]
+        first = t["first"]
+        explained = t["equal"] or (first is not None and first["k1_alone"])
+        ok = (explained and t["finite"] and 2 * t["heads"][0] == t["heads"][1]
+              and t["routes"] == {"k4": 24, "plain": 12, "k4_row": 12}
+              and k["w8a8_matmul"] == 24 and k["w8a8_matmul_rowpar"] == 12
+              and k["fused_mha_from_qkv"] == 12)
+        where = ("" if t["equal"] else
+                 f"; parts first at {first['point']} by {first['diff']:.3e}, K1's outputs differ on "
+                 f"equal inputs in layers {first['k1_layers']} (K1's local heads alone: "
+                 f"{first['k1_alone']})")
+        log(f"[mesh 1x2 gloo int8] rank {r}: B/32's int8 tower (bf16) on one grid image, 6 heads "
+            f"a rank, against the whole int8 tower: bit for bit {t['equal']} (max |diff| "
+            f"{t['diff']:.3e}){where}; routes {t['routes']}; K4 {k['w8a8_matmul']} column + "
+            f"{k['w8a8_matmul_rowpar']} row-parallel launches (want 24 + 12; one rank: 48), K1 "
+            f"{k['fused_mha_from_qkv']} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"15b tower rank {r}")
+        for label, quant, dtype in PHASE15B_SEARCHES:
+            s, ref = out[label], refs[label]
+            equal = _rows_key(s["rows"]) == _rows_key(ref["rows"])
+            forwards = s["steps"] + s["verify"]
+            k = s["counts"]
+            grid = s["grid"]
+            launched = quant == "w8a16" or (k["w8a8_matmul"] == 24 * forwards
+                                           and k["w8a8_matmul_rowpar"] == 12 * forwards
+                                           and k["fused_mha_from_qkv"] == 12 * forwards)
+            ok = launched and s["eager"] and s["replays"] == 0
+            held = "" if quant == "w8a16" else (
+                f"K4 {k['w8a8_matmul']} column + {k['w8a8_matmul_rowpar']} row-parallel (24 + "
+                f"12 a forward; one rank {ref['counts']['w8a8_matmul']} in {ref['forwards']} "
+                f"forwards), K1 {k['fused_mha_from_qkv']}; ")
+            if dtype == "bfloat16":
+                # not held: the float text tower's bf16 partial sums (14c's
+                # cause); the f32 search below holds the same path
+                held += (f"keyframes and iterations equal to one rank's: {equal} (not held in "
+                         f"bf16: the first grid forward differs by {grid['bf16']:.3e}, the float "
+                         f"text tower's bf16 partial sums; the f32 search is held)")
+            else:
+                # phase 14c's tolerances: f32 keyframes equal to one rank's,
+                # unless the searches part at a tie of the sampler (the dry
+                # run's witness, queue 3 item 11), and the first grid forward
+                # within 1e-4
+                p = s["parted"]
+                tied = "fault" not in p and all(
+                    f"video {j}" in p["parted"] for j, (a, b) in enumerate(
+                        zip(_rows_key(s["rows"]), _rows_key(p["rows"]))) if a != b)
+                ok = ok and (equal or tied) and grid["f32"] <= 1e-4
+                held += (f"keyframes and iterations equal to one rank's: {equal}"
+                         + ("" if equal else f" (parted: {p.get('fault') or p['parted']})")
+                         + f"; grid confidences on the steps that sampled the same seconds up "
+                         f"to {p.get('conf_err', float('nan')):.3e} apart; the first grid forward "
+                         f"differs by {grid['f32']:.3e} (tol 1e-4, phase 14c's)")
+            log(f"[mesh 1x2 gloo {quant}] rank {r}: {quant} + verify 512 TP search of 2 videos "
+                f"({'bf16' if dtype == 'bfloat16' else 'f32'}): {s['steps']} steps, "
+                f"{forwards} forwards, eager ({s['eager'][:40]}...); {held}; wall {s['wall']:.3f} s against one rank's "
+                f"{ref['wall']:.3f} s with graphs ({card}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"15b {label} search rank {r}")
+    log(f"[phase 15b] two ranks' spawn and run {spawn_s:.1f} s")
+    if failed:
+        raise SystemExit(f"phase 15b failed: {failed}")
+    return {"counts": outs[0]["int8"]["counts"], "wall": outs[0]["int8"]["wall"],
+            "int8_f32_wall": outs[0]["int8_f32"]["wall"],
+            "w8a16_wall": outs[0]["w8a16"]["wall"], "ref_wall": refs["int8"]["wall"]}
+
+
+def phase_15c(torch, card):
+    """Phase 15c: ``reference_style_search`` (the original TStar's host loop:
+    numpy sampling, the grid built on the host, one forward on the card,
+    detections back with ``.cpu()``, the host splat and scipy spline) with a
+    B/32 bf16 forward at 768^2 on phase 5's 600 s video: frames scored,
+    wall, frames/s, the forward's launches; its host grid within one level
+    of the device grid builder's."""
+    import numpy as np
+
+    from tstar_tpu_torch import SearchConfig
+    from tstar_tpu_torch.bench.reference_style import host_grid, reference_style_search
+    from tstar_tpu_torch.framework.heuristics import initialize_heuristic
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.kernels.image import CLIP_MEAN, CLIP_STD, build_detector_grid
+    from tstar_tpu_torch.models.owlvit import postprocess_detections
+    from tstar_tpu_torch.video.cache import build_frame_cache_host
+    from tstar_tpu_torch.video.synthetic import default_scene
+
+    cfg = SearchConfig(cache_hw=(192, 384), search_budget=0.5)
+    heur = initialize_heuristic("owl-vit-random", device="cuda", dtype=torch.bfloat16, seed=0)
+    host = build_frame_cache_host("mem://synthetic-600s", cfg, decoder=default_scene(600.0))
+    cache = torch.from_numpy(host.frames).cuda()
+    scorer = heur.build_scorer(cache, ["couch", "lamp"], ["tv"], cfg)
+    model = heur.model
+
+    @torch.no_grad()
+    def forward(pixels):
+        feats = model.encode_image(pixels.to(torch.bfloat16))
+        logits, boxes = model.predict(feats, scorer.query_embeds, scorer.query_mask)
+        return postprocess_detections(logits, boxes, (768, 768))
+
+    weights = scorer.class_weights.cpu().numpy()
+    args = (forward, host.frames, host.n_valid, weights, 2, cfg)
+    reference_style_search(*args, device="cuda")      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    frames, wall = reference_style_search(*args, device="cuda")
+    counts = launch_counts()
+    forwards = frames // 16
+    secs = np.arange(16) * (host.n_valid // 16)
+    grid = host_grid(host.frames, secs, 4, 4, 768).astype(np.float32)
+    dev_grid = build_detector_grid(cache, torch.from_numpy(secs).cuda(), (4, 4), 768,
+                                   torch.float32)[0].cpu().numpy()
+    levels = (dev_grid * CLIP_STD + CLIP_MEAN) * 255.0
+    grid_diff = float(np.abs(levels - grid).max())
+    want = launches(fused_mha_from_qkv=12, patch_embed_matmul=1, fused_layernorm=27)
+    ok = (frames == cfg.budget_frames(host.n_valid) + (-cfg.budget_frames(host.n_valid)) % 16
+          and all(counts[k] == n * forwards for k, n in want.items()) and grid_diff <= 1.0 + 1e-3)
+    log(f"[reference style] the original's host loop on the 600 s video, B/32 bf16 at 768^2: "
+        f"{frames} frames scored in {forwards} forwards, wall {wall:.3f} s, "
+        f"{frames / wall:.1f} frames/s; launches K1 {counts['fused_mha_from_qkv']}, K2 "
+        f"{counts['patch_embed_matmul']}, K3 {counts['fused_layernorm']} (12 / 1 / 27 a "
+        f"forward); the host grid against the device grid builder's: {grid_diff:.4f} levels "
+        f"(tol 1) ({card}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 15c failed")
+    return {"frames": frames, "wall": wall, "fps": frames / wall, "grid_levels": grid_diff}
+
+
+def phase_15(torch, card):
+    """Phase 15 (module docstring).  Returns 15a's launch counts, 15b's int8
+    TP search counts and walls, and 15c's baseline."""
+    t0 = time.perf_counter()
+    mesh_1x1 = phase_15a(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_15b(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = phase_15c(torch, card)
+    log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
+    return {"counts_1x1": mesh_1x1["counts"], "walls_1x1": mesh_1x1["walls"], "tp": tp,
+            "baseline": baseline}
+
+
 def log_allocated(torch, phase):
     """What earlier phases left allocated, which each later phase's peak
     memory includes (phases 10b and 11 count theirs above it)."""
@@ -3834,6 +4313,13 @@ def main() -> int:
     log_allocated(torch, "phase 14")
     p14 = phase_14(torch, card)
     log("[phase 14] " + json.dumps(p14["llava"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_allocated(torch, "phase 15")
+    p15 = phase_15(torch, card)
+    walls = ("wall", "int8_f32_wall", "w8a16_wall", "ref_wall")
+    log("[phase 15] " + json.dumps({k: p15["tp"][k] for k in walls}
+                                   | {"baseline": p15["baseline"]}))
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -3902,12 +4388,28 @@ def main() -> int:
             # NCCL mesh; 14c: rank 0's bf16 search of 2 videos at model = 2
             "launches_mesh_1x1": p14["counts_1x1"][name],
             "launches_tp_search": p14["counts_tp"][name],
+            # phase 15a: phase 8's bucket under int8 + verify 512, sharded
+            # over a one-rank NCCL mesh; 15b: rank 0's int8 TP search (K4:
+            # the first mode; its row-parallel mode under launches_rowpar)
+            "launches_mesh_int8_1x1": p15["counts_1x1"][name],
+            "launches_tp_int8": p15["tp"]["counts"][name],
         })
         if k in ("K1", "K5"):
             kernels[-1]["tp_rows"] = [
                 {key: r[key] for key in ("shape", "dtype", "ms", "plain_ms", "library_ms",
                                          "yardsticks", "bound_ms", "bound_by", "err")}
                 for r in mine if "TP" in r["shape"]]
+        if k == "K4":
+            # the row-parallel mode: its phase 3 rows, and its launches (and
+            # the first mode's) in phase 15a's sharded int8 bucket and in
+            # 15b's int8 TP search (rank 0)
+            kernels[-1]["rowpar_rows"] = [
+                {key: r[key] for key in ("shape", "dtype", "ms", "plain_ms", "library_ms",
+                                         "yardsticks", "bound_ms", "bound_by", "err")}
+                for r in mine if r["shape"].startswith("row-parallel")]
+            kernels[-1]["launches_rowpar"] = {
+                "mesh_int8_1x1": p15["counts_1x1"]["w8a8_matmul_rowpar"],
+                "tp_int8": p15["tp"]["counts"]["w8a8_matmul_rowpar"]}
         if k == "K3":
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
             kernels[-1]["vlm_row"] = {key: sig[key] for key in (
@@ -3932,6 +4434,8 @@ def main() -> int:
                              for knob, e in p13["knob_ab"]["knobs"].items()},
         "launches_mesh_1x1": p14["counts_1x1"]["greedy_nms"],
         "launches_tp_search": p14["counts_tp"]["greedy_nms"],
+        "launches_mesh_int8_1x1": p15["counts_1x1"]["greedy_nms"],
+        "launches_tp_int8": p15["tp"]["counts"]["greedy_nms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -276,6 +276,6 @@ def test_cpu_wrappers_run_the_plain_versions():
     greedy_nms(torch.zeros(2, 5, 4), torch.arange(5).expand(2, 5), 0.7, 3)
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
-        "w8a8_matmul": 0, "ln_matmul": 0, "grid_cell_embed": 0,
+        "w8a8_matmul": 0, "w8a8_matmul_rowpar": 0, "ln_matmul": 0, "grid_cell_embed": 0,
         "build_detector_grid_pallas": 0, "flash_mha": 0, "greedy_nms": 0,
     }

@@ -2,7 +2,9 @@
 (no JAX): ``run`` is one process of ``tests/test_torch_parallel.py``'s gloo
 group on the CPU, ``cuda_rank`` one of ``tests/test_torch_cuda_parallel.py``'s
 two ranks on cuda:0.  Each rank writes what it computed to
-``<out_dir>/rank<r>.pkl`` for the test to compare.
+``<out_dir>/rank<r>.pkl`` for the test to compare: the float detector's
+and the quantized towers' (``QUANTS``) dp x tp searches and forwards, and
+the TP Qwen2-VL's decodes.
 """
 
 import os
@@ -17,6 +19,7 @@ from tstar_tpu_torch.video.synthetic import PlantedObject, SyntheticDecoder
 TARGETS, CUES = ["couch", "lamp"], ["tv"]
 SEEDS = (3, 11, 20, 27)
 CONFIG = dict(search_budget=0.5, cache_hw=(32, 64), deterministic_pop=True)
+QUANTS = ("int8", "w8a16")      # the quantized detector's knobs, searched on the mesh too
 
 # __graft_entry__.py's tiny Qwen2-VL (dryrun_multichip)
 QWEN_VISION = dict(depth=2, embed_dim=16, num_heads=2, mlp_ratio=2.0, patch_size=2,
@@ -64,6 +67,7 @@ def _body(spec: dict) -> dict:
     from tstar_tpu_torch.framework.heuristics import initialize_heuristic
     from tstar_tpu_torch.models import owlvit as tow
     from tstar_tpu_torch.models import qwen2vl as tqwen
+    from tstar_tpu_torch.models import owlvit_quant as tq
     from tstar_tpu_torch.models.generate import generate
     from tstar_tpu_torch.models.tensor_parallel import TensorParallel, agree
     from tstar_tpu_torch.parallel import make_mesh, replicated, shard_module
@@ -101,13 +105,29 @@ def _body(spec: dict) -> dict:
                          n_pad=n_pad, device=device)
 
     mv.init_state = replayed
-    try:
+
+    def search(heuristic, quant, on_mesh):
+        # int8's searches keep each step's history: the test holds them to
+        # the reference's step by step
         tasks = [mv.VideoTask(f"mem://{i}", TARGETS, CUES, seed=s, decoder=d)
                  for i, (s, d) in enumerate(zip(SEEDS, decoders()))]
         stats = StepStats()
-        out["rows"] = mv.search_videos(tasks, heur, SearchConfig(**CONFIG), mesh=mesh,
-                                       stats=stats)
-        out["steps"] = stats.steps
+        rows = mv.search_videos(tasks, heuristic, SearchConfig(**CONFIG, detector_quant=quant),
+                                mesh=mesh if on_mesh else None, stats=stats,
+                                collect_history=quant == "int8")
+        return rows, stats.steps
+
+    try:
+        # the float detector, then the quantized towers sharded alike
+        out["rows"], out["steps"] = search(heur, None, True)
+        for quant in QUANTS:
+            out[f"rows_{quant}"], out[f"steps_{quant}"] = search(heur, quant, True)
+        if dist.get_rank() == 0:    # the quantized searches of the whole detector, no mesh
+            whole = initialize_heuristic("owl-vit-random", device="cpu", dtype=torch.float32,
+                                         model_config=tiny_owlvit(tow))
+            whole.model.load_state_dict(spec["owl_state"], strict=True)
+            for quant in QUANTS:
+                out[f"one_rank_rows_{quant}"] = search(whole, quant, False)[0]
     finally:
         mv.init_state = real_init
 
@@ -120,6 +140,16 @@ def _body(spec: dict) -> dict:
         *(torch.from_numpy(a) for a in spec["text"])))
     out["forward_err"] = max((a - b).abs().max().item() for a, b in (
         (feats, feats_tp), (logits, logits_tp), (boxes, boxes_tp)))
+
+    # the quantized towers: this rank's shards against the whole model's
+    q_whole, q_tp = tq.quantize_vision_tower(full), tq.quantize_vision_tower(heur.model)
+    out["quant_routes"] = tq.route_counts(q_tp)
+    out["quant_heads"] = q_tp["heads"]
+    for quant in QUANTS:
+        kw = dict(dtype=torch.float32, weight_only=quant == "w8a16")
+        want = tq.encode_image_int8(q_whole, px, full.cfg, **kw)
+        got = tq.encode_image_int8(q_tp, px, heur.model.cfg, **kw)
+        out[f"{quant}_features"] = (torch.equal(got, want), (got - want).abs().max().item())
 
     # the TP Qwen2-VL: greedy tokens, and a sampled decode
     cfg = tqwen.Qwen2VLConfig(vision=tqwen.Qwen2VLVisionConfig(**QWEN_VISION),

@@ -54,6 +54,21 @@
 //   3. The epilogue dequantizes straight from the accumulator registers
 //      (thread t of a warpgroup holds rows 16(t/32) + (t%32)/4 (+8), column
 //      pairs 8k + 2(t%4)) and stores pairs of outputs, with no shared stage.
+// Row-parallel mode (TO = int32_t; tstar_w8a8_rowpar).  Under Megatron tensor
+// parallelism a rank holds K/T rows of a row-parallel layer's weight (out_proj,
+// fc2) and x's matching K/T columns.  The per-row scale must be the whole
+// row's, so the caller all-reduces the local absmax (MAX) first and passes
+// xs = max(amax, 1e-12) / 127 per row; the prologue quantizes with that xs
+// instead of its own absmax, and the epilogue stores the int32 accumulator
+// without dequantizing: the caller sums the ranks' accumulators (exact) and
+// dequantizes once, so T ranks give the one-rank result bit for bit.  The
+// fast quantization stays exact with a given xs: |v| <= the whole row's
+// absmax bounds |v / xs| by 127 as the own absmax does (and values past
+// 127.5 clip to 127 in both forms).  Everything else (the cluster sharing a
+// slab's quantization, the W^T ring, the tiles) is the one kernel's.  At
+// B/32's fc2 shards (K = 1536 at T = 2, 768 at T = 4; N = 768; f32 x,
+// R = 577 .. 8 x 577) it moves 4-44 MB (x, W, xs, the int32 output) and
+// does 0.7-11 GOP: bound by bytes, 1.2-13 us at 3.35 TB/s.
 // Integer wgmma reads A and B only K-major (the transpose flags exist for
 // f16 / bf16 alone), hence W^T.  Shared memory: the slab (96 KB at K = 768,
 // 192 KB at K = 3072) plus up to 8 stages (two at K = 3072); one CTA an SM.
@@ -66,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -301,9 +318,12 @@ __device__ __forceinline__ float half_warp_max(float v) {
 // time.  `mine`: whether this half has a row at all; rows past R quantize to
 // zero.  `waited`: whether this warp has passed the cluster barrier that
 // lets it write to the other CTAs (it waits once its first rows are read).
-template <int G, int MW, typename TI>
-__device__ __forceinline__ void quantize_half(const TI* __restrict__ x, int R, int K, int m0,
-                                              int r, bool mine, const Slabs& dst, int hl,
+// ROW: the row's scale is xs_in[row] (the row-parallel mode), no absmax is
+// taken, and at G = 0 the row is read once.
+template <int G, int MW, bool ROW, typename TI>
+__device__ __forceinline__ void quantize_half(const TI* __restrict__ x,
+                                              const float* __restrict__ xs_in, int R, int K,
+                                              int m0, int r, bool mine, const Slabs& dst, int hl,
                                               bool& waited) {
   constexpr int V = G > 0 ? G : 4;  // groups a lane holds at once
   const int groups = K / 8;
@@ -311,18 +331,20 @@ __device__ __forceinline__ void quantize_half(const TI* __restrict__ x, int R, i
   const TI* xr = x + (size_t)(real ? m0 + r : 0) * K;
   float v[V][8];
   float amax = 0.f;
-  if (real)
+  if (real && (G > 0 || !ROW))
     for (int g0 = hl; g0 < groups; g0 += 16 * V) {
 #pragma unroll
       for (int i = 0; i < V; ++i)
         if (G > 0 || g0 + 16 * i < groups) load8(xr + (g0 + 16 * i) * 8, v[i]);
+      if constexpr (!ROW) {
 #pragma unroll
-      for (int i = 0; i < V; ++i)
-        if (G > 0 || g0 + 16 * i < groups)
+        for (int i = 0; i < V; ++i)
+          if (G > 0 || g0 + 16 * i < groups)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+            for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+      }
     }
-  amax = half_warp_max(amax);
+  if constexpr (!ROW) amax = half_warp_max(amax);
   if (!waited) {
     TSTAR_TRACE(9);
     cluster_wait();
@@ -335,7 +357,7 @@ __device__ __forceinline__ void quantize_half(const TI* __restrict__ x, int R, i
     if (hl == 0) dst.put(dst.xs_off + 4 * r, 1.f);
     return;
   }
-  const float xs = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+  const float xs = ROW ? __ldg(xs_in + m0 + r) : __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
   const float rcp = __frcp_rn(xs);
   if (hl == 0) dst.put(dst.xs_off + 4 * r, xs);
   if (G > 0) {
@@ -360,12 +382,18 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(int32_t* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
 
+// TO = int32_t is the row-parallel mode: x quantized with the given row
+// scales xs_in, the int32 accumulator stored (ws and bias unread).
 template <typename TI, typename TO, int MW>
 __global__ void __launch_bounds__(THREADS, 1)
 w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const TI* __restrict__ x,
-            const float* __restrict__ ws, const float* __restrict__ bias, TO* __restrict__ out,
-            const Params p) {
+            const float* __restrict__ ws, const float* __restrict__ bias,
+            const float* __restrict__ xs_in, TO* __restrict__ out, const Params p) {
+  constexpr bool ROW = std::is_same<TO, int32_t>::value;
   using T = Tile<MW>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -419,9 +447,9 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const TI* __restrict__ x,
     const int j = j0 + lane / 16;
     const int r = rank + dst.n * j;
     if (p.K == 768)  // the towers' K = 768 stays in registers
-      quantize_half<6, MW>(x, p.R, p.K, m0, r, j < share, dst, lane % 16, waited);
+      quantize_half<6, MW, ROW>(x, xs_in, p.R, p.K, m0, r, j < share, dst, lane % 16, waited);
     else
-      quantize_half<0, MW>(x, p.R, p.K, m0, r, j < share, dst, lane % 16, waited);
+      quantize_half<0, MW, ROW>(x, xs_in, p.R, p.K, m0, r, j < share, dst, lane % 16, waited);
     if (j0 == 2 * warp) TSTAR_TRACE(11);
   }
   if (!waited) cluster_wait();
@@ -480,25 +508,37 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const TI* __restrict__ x,
     if (tile == t1 - 1) TSTAR_TRACE(5);
 
     // 3. Epilogue from the accumulators: register 4k + 2i + e holds row
-    //    row_a + 8i, column col_a + 8k + e.
+    //    row_a + 8i, column col_a + 8k + e.  The row-parallel mode stores
+    //    them as they are.
     const int n0 = tile * BN;
-    const float xs0 = xs_s[row_a], xs1 = xs_s[row_a + 8];
     TO* orow = out + (size_t)(m0 + row_a) * p.N + n0;
+    if constexpr (ROW) {
 #pragma unroll
-    for (int k = 0; k < T::WN / 8; ++k) {
-      const int col = col_a + 8 * k;
-      const float2 s = __ldg(reinterpret_cast<const float2*>(ws + n0 + col));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n0 + col));
+      for (int k = 0; k < T::WN / 8; ++k) {
+        const int col = col_a + 8 * k;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (m0 + row_a + 8 * i >= p.R) continue;
-        const float xs = i ? xs1 : xs0;
-        const float lo = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * k + 2 * i]), xs), s.x), b.x);
-        const float hi = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * k + 2 * i + 1]), xs), s.y), b.y);
-        store2(orow + (size_t)8 * i * p.N + col, lo, hi);
+        for (int i = 0; i < 2; ++i)
+          if (m0 + row_a + 8 * i < p.R)
+            store2(orow + (size_t)8 * i * p.N + col, acc[4 * k + 2 * i], acc[4 * k + 2 * i + 1]);
       }
-      // one column pair's scale and bias live at a time (the 168-register cap)
-      asm volatile("" ::: "memory");
+    } else {
+      const float xs0 = xs_s[row_a], xs1 = xs_s[row_a + 8];
+#pragma unroll
+      for (int k = 0; k < T::WN / 8; ++k) {
+        const int col = col_a + 8 * k;
+        const float2 s = __ldg(reinterpret_cast<const float2*>(ws + n0 + col));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n0 + col));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (m0 + row_a + 8 * i >= p.R) continue;
+          const float xs = i ? xs1 : xs0;
+          const float lo = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * k + 2 * i]), xs), s.x), b.x);
+          const float hi = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * k + 2 * i + 1]), xs), s.y), b.y);
+          store2(orow + (size_t)8 * i * p.N + col, lo, hi);
+        }
+        // one column pair's scale and bias live at a time (the 168-register cap)
+        asm volatile("" ::: "memory");
+      }
     }
   }
   TSTAR_TRACE(6);
@@ -616,8 +656,8 @@ bool shape_ok(int R, int K, int N) {
 }
 
 template <typename TI, typename TO, int MW>
-int launch_mw(const CUtensorMap& map, const void* x, const void* ws, const void* b, void* out,
-              const Config& c, const Params& p, void* stream) {
+int launch_mw(const CUtensorMap& map, const void* x, const void* ws, const void* b, const void* xs,
+              void* out, const Config& c, const Params& p, void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c.groups, c.row_tiles);
   cfg.blockDim = dim3(THREADS);
@@ -632,14 +672,15 @@ int launch_mw(const CUtensorMap& map, const void* x, const void* ws, const void*
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, w8a8_kernel<TI, TO, MW>, map, static_cast<const TI*>(x),
-      static_cast<const float*>(ws), static_cast<const float*>(b), static_cast<TO*>(out), p);
+      static_cast<const float*>(ws), static_cast<const float*>(b), static_cast<const float*>(xs),
+      static_cast<TO*>(out), p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename TI, typename TO>
-int launch_w8a8(const void* x, const void* wt, const void* ws, const void* b, void* out, int R,
-                int K, int N, void* stream) {
+int launch_w8a8(const void* x, const void* wt, const void* ws, const void* b, const void* xs,
+                void* out, int R, int K, int N, void* stream) {
   if (!shape_ok(R, K, N)) return (int)cudaErrorInvalidValue;
   DeviceInfo d;
   int dev = 0;
@@ -660,8 +701,8 @@ int launch_w8a8(const void* x, const void* wt, const void* ws, const void* b, vo
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   const Params p{R, K, N, c.per, c.stages};
-  return c.mw == 2 ? launch_mw<TI, TO, 2>(map, x, ws, b, out, c, p, stream)
-                   : launch_mw<TI, TO, 1>(map, x, ws, b, out, c, p, stream);
+  return c.mw == 2 ? launch_mw<TI, TO, 2>(map, x, ws, b, xs, out, c, p, stream)
+                   : launch_mw<TI, TO, 1>(map, x, ws, b, xs, out, c, p, stream);
 }
 
 }  // namespace
@@ -673,10 +714,22 @@ extern "C" int tstar_w8a8(const void* x, const void* wt, const void* ws, const v
                           int R, int K, int N, int x_dtype, int out_dtype, void* stream) {
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) % 16)
     return (int)cudaErrorInvalidValue;
-  if (x_dtype == 0 && out_dtype == 0) return launch_w8a8<float, float>(x, wt, ws, b, out, R, K, N, stream);
-  if (x_dtype == 0 && out_dtype == 1) return launch_w8a8<float, __nv_bfloat16>(x, wt, ws, b, out, R, K, N, stream);
-  if (x_dtype == 1 && out_dtype == 0) return launch_w8a8<__nv_bfloat16, float>(x, wt, ws, b, out, R, K, N, stream);
-  if (x_dtype == 1 && out_dtype == 1) return launch_w8a8<__nv_bfloat16, __nv_bfloat16>(x, wt, ws, b, out, R, K, N, stream);
+  if (x_dtype == 0 && out_dtype == 0) return launch_w8a8<float, float>(x, wt, ws, b, nullptr, out, R, K, N, stream);
+  if (x_dtype == 0 && out_dtype == 1) return launch_w8a8<float, __nv_bfloat16>(x, wt, ws, b, nullptr, out, R, K, N, stream);
+  if (x_dtype == 1 && out_dtype == 0) return launch_w8a8<__nv_bfloat16, float>(x, wt, ws, b, nullptr, out, R, K, N, stream);
+  if (x_dtype == 1 && out_dtype == 1) return launch_w8a8<__nv_bfloat16, __nv_bfloat16>(x, wt, ws, b, nullptr, out, R, K, N, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The row-parallel mode: x (R, K) and W^T (N, K) as above (a rank's K rows of
+// the weight), xs (R,) f32 the whole rows' scales; out (R, N) int32, the
+// partial accumulator.
+extern "C" int tstar_w8a8_rowpar(const void* x, const void* wt, const void* xs, void* out, int R,
+                                 int K, int N, int x_dtype, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0) return launch_w8a8<float, int32_t>(x, wt, nullptr, nullptr, xs, out, R, K, N, stream);
+  if (x_dtype == 1) return launch_w8a8<__nv_bfloat16, int32_t>(x, wt, nullptr, nullptr, xs, out, R, K, N, stream);
   return (int)cudaErrorInvalidValue;
 }
 

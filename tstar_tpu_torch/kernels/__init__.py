@@ -13,7 +13,9 @@ XLA code).
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; ``launch_counts`` / ``reset_launch_counts`` read and clear them,
 and ``add_launch_counts`` adds a graph replay's launches
-(``search/step_graphs.py``).
+(``search/step_graphs.py``).  A second mode of a kernel has a wrapper of its
+own, counted apart: ``quant_matmul.w8a8_matmul_rowpar``, K4's row-parallel
+mode (``w8a8_matmul`` counts the first mode only).
 """
 
 from typing import Dict
@@ -27,13 +29,14 @@ def _wrappers():
     from tstar_tpu_torch.kernels.nms import greedy_nms
     from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
     from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
-    from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
+    from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul, w8a8_matmul_rowpar
 
     return {
         "fused_mha_from_qkv": fused_mha_from_qkv,
         "patch_embed_matmul": patch_embed_matmul,
         "fused_layernorm": fused_layernorm,
         "w8a8_matmul": w8a8_matmul,
+        "w8a8_matmul_rowpar": w8a8_matmul_rowpar,
         "ln_matmul": ln_matmul,
         "grid_cell_embed": grid_cell_embed,
         "build_detector_grid_pallas": build_detector_grid_pallas,

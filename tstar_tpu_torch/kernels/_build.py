@@ -126,6 +126,9 @@ def open_library(path: Path) -> ctypes.CDLL:
     # x, w^T (N, K), w_scale, bias, out, R, K, N, x dtype, out dtype, stream
     lib.tstar_w8a8.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.tstar_w8a8.restype = ci
+    # K4's row-parallel mode: x, w^T (N, K), row scales, int32 out, R, K, N, x dtype, stream
+    lib.tstar_w8a8_rowpar.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.tstar_w8a8_rowpar.restype = ci
     # R, K, N, int[6] out: CTAs, N tiles per CTA, stages, rows per CTA, smem bytes,
     # CTAs per cluster
     lib.tstar_w8a8_config.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]

@@ -81,6 +81,13 @@ def all_reduce_(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return x
 
 
+def all_reduce_max_(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x``'s elementwise max over the model group, in place."""
+    if tp.collectives:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp.group)
+    return x
+
+
 def all_gather_last(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The model group's shards of ``x`` concatenated on the last axis."""
     if not tp.collectives:

@@ -28,6 +28,13 @@ this rank's shard in place, and marks the modules that exchange data:
     all-reduces; ``lm_head`` (or the tied embedding's ``attend``)
     all-gathers the vocabulary shards of the logits.
 
+The quantized detector's int8 tower follows the same table: quantized
+after ``shard_module`` (``models/owlvit_quant.quantize_vision_tower``), it
+holds this rank's columns of q|k|v and fc1 and rows of out_proj and fc2,
+the row-parallel layers' scales all-reduced (MAX) to the whole columns',
+and its row-parallel products summed in int32 over the model group (K4's
+row-parallel mode), where the reference replicates its int8 weights.
+
 Each attention module's head counts (``num_heads``, ``num_kv_heads``)
 become this rank's here, and its forward reads them.  A model degree that
 does not divide a layer's heads, kv heads, features or vocabulary raises,
@@ -90,6 +97,8 @@ def _sections(t: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     [r H/T, (r+1) H/T) of each section (the caller checks that T divides
     the heads)."""
     d = t.shape[-1] // 3
+    if t.is_meta:    # shapes only; torch.cat's meta kernel would import torch._dynamo
+        return t.new_empty(*t.shape[:-1], 3 * (d // tp.size))
     cols = slice(tp.index * d // tp.size, (tp.index + 1) * d // tp.size)
     return torch.cat([s[..., cols] for s in t.split(d, dim=-1)], dim=-1)
 

@@ -8,9 +8,10 @@ once when the scorer is built.
 
 Ported: the detector in its compute dtype or quantized
 (``SearchConfig.detector_quant``: 'int8' W8A8 through K4, 'w8a16'
-weight-only), at its native size or with verification at a reduced size
-(``verify_image_size``: a view of the detector with a resampled position
-embedding, ``models/owlvit.resize_detector``), over a resident cache; and
+weight-only; on one rank or sharded over a tensor-parallel mesh), at its
+native size or with verification at a reduced size (``verify_image_size``:
+a view of the detector with a resampled position embedding,
+``models/owlvit.resize_detector``), over a resident cache; and
 the grid forward's four input routes, in the reference's branch order: the
 fused cache -> patch-embedding kernel K6 (``TSTAR_GRID_EMBED``), the
 composed projection (``TSTAR_COMPOSED_PATCH=1``), the fused grid-pack kernel K7
@@ -67,7 +68,6 @@ from tstar_tpu_torch.models.owlvit import (
     resize_detector,
 )
 from tstar_tpu_torch.models.owlvit_quant import encode_image_int8, quantize_vision_tower
-from tstar_tpu_torch.models.tensor_parallel import tensor_parallel
 from tstar_tpu_torch.ops.splat import splat_detections_to_cells
 from tstar_tpu_torch.utils.config import SearchConfig
 
@@ -426,16 +426,14 @@ def build_prompt_batch(
 
 def _weight_views(model: OwlViTDetector, config: SearchConfig):
     """-> (qvision, verify_model, qvision_verify) for ``config``'s
-    ``detector_quant`` and ``verify_image_size``; Nones where not set."""
+    ``detector_quant`` and ``verify_image_size``; Nones where not set.  On a
+    tensor-parallel model the quantized towers are this rank's shards
+    (``models/owlvit_quant``); the verification tower shares them and
+    resamples only the replicated position embedding."""
     if config.detector_quant not in (None, "int8", "w8a16"):
         raise ValueError(
             f"unknown detector_quant={config.detector_quant!r}; "
             "supported: None (compute dtype), 'int8' (W8A8), 'w8a16' (weight-only)"
-        )
-    if config.detector_quant is not None and tensor_parallel(model) is not None:
-        raise NotImplementedError(
-            f"detector_quant={config.detector_quant!r} on a tensor-parallel detector: the "
-            "quantized towers are not sharded (use model=1 on the mesh, or no quantization)"
         )
     qvision = quantize_vision_tower(model) if config.detector_quant is not None else None
     verify_model = qvision_verify = None

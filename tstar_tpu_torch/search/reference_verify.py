@@ -23,19 +23,12 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tstar_tpu_torch.kernels.image import bilinear_resize
 from tstar_tpu_torch.search.engine import pop_frame_secs, verification_replay
 from tstar_tpu_torch.search.state import SearchState
 from tstar_tpu_torch.search.step_graphs import StepStats, Stepper
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.images import resize_uint8
 from tstar_tpu_torch.video.decoder import open_video
-
-
-def _resize_uint8(frames: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """(K, H, W, 3) uint8 -> (K, h, w, 3) uint8, bilinear (half-pixel
-    centres, as cv2's INTER_LINEAR), rounded to the nearest level."""
-    x = bilinear_resize(torch.from_numpy(np.ascontiguousarray(frames)), tuple(out_hw))
-    return x.round().clamp(0, 255).to(torch.uint8).numpy()
 
 
 def make_raw_frame_source(
@@ -50,7 +43,7 @@ def make_raw_frame_source(
 
     def source(secs: List[int]) -> np.ndarray:
         idxs = [int(s / config.sampling_fps * fps) for s in secs]
-        return _resize_uint8(dec.decode_batch(idxs), config.verify_hw)
+        return resize_uint8(dec.decode_batch(idxs), config.verify_hw)
 
     source.close = (lambda: None) if decoder is not None else dec.close
     return source

@@ -4,7 +4,9 @@ Frames are read from the video file (``video/decoder.open_video``), or from
 ``decoder=`` when given (any object with ``meta`` (fps, total_frames),
 ``decode_batch`` and ``decode_sweep``, as ``KeyframeSearcher`` and
 ``VideoTask`` take), which stays open for its owner.  PIL is imported by the
-functions that need it, never with the module.
+functions that need it, never with the module.  ``resize_uint8`` is the
+port's host bilinear resize (cv2's INTER_LINEAR, which the card's machine
+does not have).
 """
 
 from __future__ import annotations
@@ -12,11 +14,21 @@ from __future__ import annotations
 import base64
 import io
 import os
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from tstar_tpu_torch.kernels.image import bilinear_resize
 from tstar_tpu_torch.video.decoder import opened
+
+
+def resize_uint8(frames: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """(K, H, W, 3) uint8 -> (K, h, w, 3) uint8 on the host, bilinear
+    (half-pixel centres, as cv2's INTER_LINEAR), rounded to the nearest
+    level: within one level of cv2's fixed-point result."""
+    x = bilinear_resize(torch.from_numpy(np.ascontiguousarray(frames)), tuple(out_hw))
+    return x.round().clamp(0, 255).to(torch.uint8).numpy()
 
 
 def encode_image_to_base64(image) -> str:
