@@ -1,0 +1,22 @@
+"""The share of the traced window the host spent capturing the search's
+step graphs: 100 x the host seconds of the ``search.capture`` spans (each
+phase's first use: its eager run on the capture stream and its capture)
+over the window."""
+
+
+def spans():
+    """The program's span registry (``utils/profiling.snapshot``), or {}
+    where the program keeps none."""
+    try:
+        from tstar_tpu_torch.utils import profiling
+    except ImportError:
+        return {}
+    snapshot = getattr(profiling, "snapshot", None)
+    return snapshot() if snapshot is not None else {}
+
+
+def read(record):
+    s = spans().get("search.capture")
+    if not s or not record.get("window_s"):
+        return None
+    return 100.0 * s["host_s"] / record["window_s"]

@@ -175,3 +175,46 @@ def test_capture_failure_raises(heur):
     assert stats.steps >= 3 and stats.replays == 0
     # the failed capture left no generator in capture mode
     assert torch.isfinite(torch.randn(4, device="cuda")).all()
+
+
+@pytest.mark.cuda
+def test_spans_time_the_graphed_phases_from_outside(heur, monkeypatch):
+    """A graphed batched search under the profiler: every capture succeeds
+    and no span records an event while a stream captures; the phase spans'
+    device milliseconds are positive and together no longer than the
+    search; the step, read and capture spans count what ``StepStats``
+    counts."""
+    from tstar_tpu_torch.utils import profiling
+
+    in_capture = []
+
+    class Checked(torch.cuda.Event):
+        def record(self, stream=None):
+            in_capture.append(torch.cuda.is_current_stream_capturing())
+            return super().record(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", Checked)
+    tasks = [VideoTask(f"mem://{i}", TARGETS, CUES, seed=i, decoder=scene_variant(i, 300.0))
+             for i in range(3)]
+    stats = StepStats()
+    profiling.reset()
+    start, end = Checked(enable_timing=True), Checked(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts):
+            start.record()
+            search_videos(tasks, heur, CFG, graphs=True, stats=stats)
+            end.record()
+        end.synchronize()
+        snap = profiling.snapshot()
+    finally:
+        profiling.reset()
+    assert stats.captures >= 3 and stats.replays > 0 and stats.verify_widths
+    assert in_capture and not any(in_capture)
+    phases = [snap[f"search.phase.{p}"]["device_ms"] for p in ("a", "verify", "c")]
+    assert all(ms is not None and ms > 0 for ms in phases), phases
+    assert sum(phases) <= start.elapsed_time(end)
+    assert snap["search.step"]["count"] == stats.steps
+    assert snap["search.read"]["count"] == stats.host_reads + stats.setup_reads
+    assert snap["search.capture"]["count"] == stats.captures
+    assert snap["search.step"]["device_ms"] is None

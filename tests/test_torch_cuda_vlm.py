@@ -159,3 +159,33 @@ def test_grounder_on_card_equals_cpu(card, family, tmp_path):
             )
     assert answers["cuda"] == answers["cpu"]
     assert answers["cuda"][0] == answers["cuda"][1]
+
+
+@pytest.mark.cuda
+def test_timed_stats_are_the_generate_spans(card):
+    """``GenerateStats(timed=True)`` reads its spans' own events: with no
+    profiler it still fills ``prefill_ms`` / ``decode_ms`` and the registry
+    stays empty; under the profiler the ``generate.prefill`` and
+    ``generate.decode`` spans hold the same milliseconds."""
+    from tstar_tpu_torch.utils import profiling
+
+    model = model_on_card("qwen")
+    stats = tgen.GenerateStats(timed=True)
+    kw = dict(max_new_tokens=8, eos_token_ids=[299], stats=stats)
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.no_grad():
+            tgen.generate(model, *prompt(), **kw)
+            assert len(stats.prefill_ms) == len(stats.decode_ms) == 1
+            assert profiling.snapshot() == {}
+            with torch.profiler.profile(activities=acts):
+                for n, seed in ((12, 1), (9, 2)):
+                    tgen.generate(model, *prompt(n, seed), **kw)
+        snap = profiling.snapshot()
+    finally:
+        profiling.reset()
+    assert all(ms > 0 for ms in stats.prefill_ms + stats.decode_ms)
+    for name, got in (("generate.prefill", stats.prefill_ms), ("generate.decode", stats.decode_ms)):
+        assert snap[name]["count"] == 2
+        assert snap[name]["device_ms"] == pytest.approx(sum(got[1:]), rel=1e-9, abs=0)

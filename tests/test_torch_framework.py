@@ -41,7 +41,7 @@ from tstar_tpu_torch.models import owlvit as tow
 from tstar_tpu_torch.models.clip_tokenizer import HashTokenizer as THash
 from tstar_tpu_torch.search import searcher as tsearcher
 from tstar_tpu_torch.utils.config import FrameworkConfig, SearchConfig, dataset_config, demo_config
-from tstar_tpu_torch.utils.profiling import MetricsLogger, StageTimer
+from tstar_tpu_torch.utils.profiling import StageTimer
 from tstar_tpu_torch.video import cache as tcache
 
 
@@ -276,9 +276,7 @@ def test_framework_configs_match_reference():
     assert FrameworkConfig(seed=3).seed == 3 and isinstance(FrameworkConfig().search, SearchConfig)
 
 
-def test_stage_timer_and_metrics_logger(tmp_path):
-    import json
-
+def test_stage_timer_and_metrics_logger():
     t = StageTimer()
     for name in ("decode", "decode", "search"):
         with t.stage(name):
@@ -286,13 +284,6 @@ def test_stage_timer_and_metrics_logger(tmp_path):
     rep = t.report()
     assert rep["decode"]["count"] == 2 and rep["search"]["count"] == 1
     assert rep["decode"]["total_s"] >= 0
-    path = str(tmp_path / "m" / "m.jsonl")
-    log = MetricsLogger(path)
-    log.log({"metric": "x", "value": 1})
-    log.log({"metric": "y", "value": 2})
-    rows = [json.loads(line) for line in open(path)]
-    assert len(rows) == 2 and rows[0]["metric"] == "x" and "ts" in rows[0]
-    MetricsLogger(None).log({"a": 1})
 
 
 def test_image_utilities(tmp_path):
@@ -315,19 +306,3 @@ def test_image_utilities(tmp_path):
     n = images.extract_frames_at_fps("mem://v", str(tmp_path / "fps"), fps=1.0,
                                      decoder=default_scene(12.0, hw=(36, 64)))
     assert n == 12 == len(os.listdir(tmp_path / "fps"))
-
-
-def test_device_profile_writes_a_chrome_trace(tmp_path):
-    """``start_device_profile`` / ``stop_device_profile`` trace the CPU (and
-    a card where there is one) into ``<logdir>/trace.json``, with the
-    ``trace(name)`` ranges in it."""
-    from tstar_tpu_torch.utils.profiling import start_device_profile, stop_device_profile, trace
-
-    start_device_profile(str(tmp_path / "prof"))
-    with pytest.raises(RuntimeError, match="already running"):
-        start_device_profile(str(tmp_path / "other"))
-    with trace("stage-under-test"):
-        torch.ones(32, 32) @ torch.ones(32, 32)
-    path = stop_device_profile()
-    assert path == str(tmp_path / "prof" / "trace.json")
-    assert "stage-under-test" in open(path).read()

@@ -26,6 +26,7 @@ from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionModel, prepare_
 from tstar_tpu_torch.models.loader import load_vlm_checkpoint
 from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
 from tstar_tpu_torch.parallel.shardings import shard_module
+from tstar_tpu_torch.utils.profiling import trace
 
 
 class TorchVLMBackend:
@@ -64,13 +65,14 @@ class TorchVLMBackend:
         self.stats = GenerateStats()
 
     def _prepare(self, query: str, frames) -> Dict:
-        frames = [np.asarray(f) for f in (frames or [])]
-        if self._is_llava:
-            return prepare_llava_inputs(self.tokenizer, query, frames, self.model.cfg)
-        return prepare_vlm_inputs(
-            self.tokenizer, query, frames, self.model.cfg.vision,
-            max_pixels=self.max_pixels, image_token_id=self.model.cfg.image_token_id,
-        )
+        with trace("vlm.prepare"):
+            frames = [np.asarray(f) for f in (frames or [])]
+            if self._is_llava:
+                return prepare_llava_inputs(self.tokenizer, query, frames, self.model.cfg)
+            return prepare_vlm_inputs(
+                self.tokenizer, query, frames, self.model.cfg.vision,
+                max_pixels=self.max_pixels, image_token_id=self.model.cfg.image_token_id,
+            )
 
     def _generate(self, ids, lens, pos, patches, grid_hw, temperature, max_tokens) -> List[List[int]]:
         tokens = generate(

@@ -58,6 +58,7 @@ import torch
 
 from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
+from tstar_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -68,8 +69,10 @@ MAX_BUCKETS = 4
 @dataclasses.dataclass
 class GenerateStats:
     """What ``generate`` did, filled in when passed as ``stats=``.  With
-    ``timed``, each request's prefill and decode device milliseconds
-    (CUDA events; read after the request's last step, outside the loop)."""
+    ``timed``, each request's prefill and decode device milliseconds: the
+    CUDA events of its ``generate.prefill`` and ``generate.decode`` spans
+    (``utils/profiling.trace``), recorded with or without a profiler and
+    read after the request's last step, outside the loop."""
 
     timed: bool = False
     decode_steps: int = 0       # steps enqueued (one may follow the last token)
@@ -347,31 +350,28 @@ def generate(
                          lambda: DecodeBucket(model, b, max_len, len(eos), greedy, cache_dtype,
                                               use_graphs))
     caches = bucket.caches if bucket is not None else None
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if (
-        stats.timed and dev.type == "cuda") else None
-    if marks:
-        marks[0].record()
-    logits, caches = prefill(model, input_ids, prompt_lens, position_ids, image_patches,
-                             image_grid_hw, max_len, cache_dtype, caches)
-    # text positions continue from max(prompt positions) + 1 per sequence
-    seq_mask = torch.arange(s_pad, device=dev)[None] < prompt_lens[:, None]
-    masked = torch.where(seq_mask[None], position_ids, torch.full_like(position_ids, -1))
-    next_pos = masked.amax(dim=(0, 2)) + 1
-    token0 = _sample(logits, greedy, max(temperature, 1e-6), generator, tensor_parallel(model))
-    if marks:
-        marks[1].record()
+    timed = stats.timed and dev.type == "cuda"
+    with trace("generate.prefill", device=dev, timed=timed) as prefill_span:
+        logits, caches = prefill(model, input_ids, prompt_lens, position_ids, image_patches,
+                                 image_grid_hw, max_len, cache_dtype, caches)
+        # text positions continue from max(prompt positions) + 1 per sequence
+        seq_mask = torch.arange(s_pad, device=dev)[None] < prompt_lens[:, None]
+        masked = torch.where(seq_mask[None], position_ids, torch.full_like(position_ids, -1))
+        next_pos = masked.amax(dim=(0, 2)) + 1
+        token0 = _sample(logits, greedy, max(temperature, 1e-6), generator,
+                         tensor_parallel(model))
     if max_new_tokens == 1:
         return token0[:, None]
-    done0 = (token0[:, None] == eos[None]).any(dim=-1)
-    # cache slots holding real keys: the true prompt prefix and every decode
-    # slot (decode writes start at s_pad; padded prompt slots stay masked)
-    slots = torch.arange(max_len, device=dev)[None]
-    base_valid = (slots < prompt_lens[:, None]) | (slots >= s_pad)
-    out = bucket.decode(token0, done0, next_pos, s_pad, base_valid, eos, temperature,
-                        generator, max_new_tokens, stats)
-    if marks:
-        marks[2].record()
-        marks[2].synchronize()
-        stats.prefill_ms.append(marks[0].elapsed_time(marks[1]))
-        stats.decode_ms.append(marks[1].elapsed_time(marks[2]))
+    with trace("generate.decode", device=dev, timed=timed) as decode_span:
+        done0 = (token0[:, None] == eos[None]).any(dim=-1)
+        # cache slots holding real keys: the true prompt prefix and every
+        # decode slot (decode writes start at s_pad; padded prompt slots stay
+        # masked)
+        slots = torch.arange(max_len, device=dev)[None]
+        base_valid = (slots < prompt_lens[:, None]) | (slots >= s_pad)
+        out = bucket.decode(token0, done0, next_pos, s_pad, base_valid, eos, temperature,
+                            generator, max_new_tokens, stats)
+    if timed:
+        stats.prefill_ms.append(prefill_span.device_ms())
+        stats.decode_ms.append(decode_span.device_ms())
     return out

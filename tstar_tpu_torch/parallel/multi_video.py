@@ -62,6 +62,7 @@ from tstar_tpu_torch.search.engine import run_search_streaming
 from tstar_tpu_torch.search.state import init_state, stack_states
 from tstar_tpu_torch.search.step_graphs import StepStats, history_lists
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.profiling import trace
 from tstar_tpu_torch.video.cache import (
     FrameCache,
     build_frame_cache,
@@ -175,16 +176,17 @@ def _per_video_history(history, i: int, n_valid: int) -> Dict:
     """Video ``i``'s histories from the batched snapshots (``P_history``,
     ``Score_history``, ``non_visiting_history``, ``sampled_history`` and,
     with detections, ``detect_bbox_iters``), over the steps it was active."""
-    p_hist, s_hist, nv_hist, samp, dets = history_lists(history, n_valid, video=i)
-    out = {
-        "P_history": p_hist,
-        "Score_history": s_hist,
-        "non_visiting_history": nv_hist,
-        "sampled_history": samp,
-    }
-    if dets:
-        out["detect_bbox_iters"] = [{k: v.tolist() for k, v in d.items()} for d in dets]
-    return out
+    with trace("search.history"):
+        p_hist, s_hist, nv_hist, samp, dets = history_lists(history, n_valid, video=i)
+        out = {
+            "P_history": p_hist,
+            "Score_history": s_hist,
+            "non_visiting_history": nv_hist,
+            "sampled_history": samp,
+        }
+        if dets:
+            out["detect_bbox_iters"] = [{k: v.tolist() for k, v in d.items()} for d in dets]
+        return out
 
 
 def _search_streaming_video(

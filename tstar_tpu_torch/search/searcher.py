@@ -40,6 +40,7 @@ from tstar_tpu_torch.search.engine import (
 )
 from tstar_tpu_torch.search.state import init_state
 from tstar_tpu_torch.search.step_graphs import StepStats, history_lists
+from tstar_tpu_torch.utils.profiling import trace
 from tstar_tpu_torch.video.cache import FrameCache, StreamingFrameCache, build_frame_cache
 from tstar_tpu_torch.video.decoder import opened
 
@@ -170,10 +171,12 @@ class KeyframeSearcher:
                 self._state0, self.scorer, self.config, graphs, self.step_stats
             )
         self._final_state = final
-        lists = history_lists(history, self.total_frame_num)
-        for dest, items in zip((self.P_history, self.Score_history, self.non_visiting_history,
-                                self.sampled_history, self.detect_bbox_iters), lists):
-            dest.extend(items)
+        with trace("search.history"):
+            lists = history_lists(history, self.total_frame_num)
+            for dest, items in zip((self.P_history, self.Score_history,
+                                    self.non_visiting_history, self.sampled_history,
+                                    self.detect_bbox_iters), lists):
+                dest.extend(items)
         return self._materialize(secs.cpu().numpy())
 
     def _record_final_history(self):

@@ -62,6 +62,15 @@ step counter kept on the device.  ``cap`` is the most steps the budgets
 allow (``ceil(budget / K)``, read with the setup read).  The buffers are read
 once, after the loop, so a history search makes the same two host reads a
 step as one without.
+
+Spans (``utils/profiling.trace``, recorded only under a profiler):
+``search.step`` around a step, ``search.read`` around each read's wait,
+``search.setup`` around the setup read, ``search.capture`` around a phase's
+first use (its eager run and capture), ``search.history`` around
+``history_rows``; and, timed on the device, ``search.phase.a`` (a, or a1
+and a2), ``search.phase.verify`` (the rounds or the wide rescore) and
+``search.phase.c``, each around the phase's run from outside, since no
+event may be recorded inside a capture.
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ from tstar_tpu_torch.models.tensor_parallel import agree, graph_blocker, tensor_
 from tstar_tpu_torch.search.engine import apply_grid_scores, replay_verification, sample_secs
 from tstar_tpu_torch.search.state import BatchedState, SearchState
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.profiling import trace
 
 
 logger = logging.getLogger(__name__)
@@ -441,14 +451,15 @@ class Stepper:
         {"active" (B,), "secs" (B, K), "conf" (B, K), "P", "scores",
         "visited" (B, N_pad)[, "detections": {"scores", "class_ids", "boxes",
         "valid"} with a leading B axis]}."""
-        host = {k: v[:self._steps].cpu().numpy() for k, v in self.hist.items()}
-        rows = []
-        for t in range(self._steps):
-            row = {k: host[k][t] for k in ("active", "secs", "conf", "P", "scores", "visited")}
-            if self.dets is not None:
-                row["detections"] = {k: host["det_" + k][t] for k in self.dets}
-            rows.append(row)
-        return rows
+        with trace("search.history"):
+            host = {k: v[:self._steps].cpu().numpy() for k, v in self.hist.items()}
+            rows = []
+            for t in range(self._steps):
+                row = {k: host[k][t] for k in ("active", "secs", "conf", "P", "scores", "visited")}
+                if self.dets is not None:
+                    row["detections"] = {k: host["det_" + k][t] for k in self.dets}
+                rows.append(row)
+            return rows
 
     # -- graphs ---------------------------------------------------------------
     def _run(self, name: str, eager: Callable[[], None],
@@ -467,12 +478,13 @@ class Stepper:
             eager()
             return
         # the first use runs on the capture stream, whose cuBLAS state it sets up
-        current = torch.cuda.current_stream(self.dev)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            eager()
-        current.wait_stream(self._stream)
-        self._graphs[name] = self._capture(name, capture or eager)
+        with trace("search.capture"):
+            current = torch.cuda.current_stream(self.dev)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                eager()
+            current.wait_stream(self._stream)
+            self._graphs[name] = self._capture(name, capture or eager)
 
     def _capture(self, name: str, fn: Callable[[], None]) -> _Graph:
         from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
@@ -528,13 +540,15 @@ class Stepper:
         """One designated read: a non-blocking copy into pinned memory,
         awaited on an event."""
         if self.dev.type != "cuda":
-            vals = t.reshape(-1).tolist()
+            with trace("search.read"):
+                vals = t.reshape(-1).tolist()
         else:
             host = self._pinned[name]
             host.copy_(t, non_blocking=True)
             self._event.record()
-            self._event.synchronize()
-            vals = host.reshape(-1).tolist()
+            with trace("search.read"):
+                self._event.synchronize()
+                vals = host.reshape(-1).tolist()
         if self.model_tp is not None:
             agree([int(v) for v in vals], self.model_tp, f"the step's {name!r} read",
                   self.dev)
@@ -545,7 +559,9 @@ class Stepper:
         """The read before the first step: which videos search, and each
         one's iteration count."""
         flags = self.remaining.any(dim=-1) & (self.budget > 0)
-        vals = self._read(torch.cat([flags.to(torch.int64), self.iteration, self.budget]), "setup")
+        with trace("search.setup"):      # its read is the one ``search.read`` outside a step
+            vals = self._read(torch.cat([flags.to(torch.int64), self.iteration, self.budget]),
+                              "setup")
         self.stats.setup_reads += 1
         self._it0 = vals[self.b:2 * self.b]
         # the most steps any video's budget allows: the history's rows
@@ -558,6 +574,10 @@ class Stepper:
     def step(self, active: List[bool]) -> List[bool]:
         """One step of the videos flagged ``active`` (host copy of the
         previous flags; ``setup`` first); returns the new flags."""
+        with trace("search.step"):
+            return self._step(active)
+
+    def _step(self, active: List[bool]) -> List[bool]:
         is_first = [it + self._steps == 0 for it in self._it0]
         draw = [a and not f for a, f in zip(active, is_first)]
         graphed = self.graphs and not any(a and f for a, f in zip(active, is_first))
@@ -579,11 +599,15 @@ class Stepper:
 
         every = [True] * self.b
         if self.paged is None:
-            run("a", lambda: self._phase_a(first, draw), lambda: self._phase_a(None, every))
+            with trace("search.phase.a", device=self.dev):
+                run("a", lambda: self._phase_a(first, draw), lambda: self._phase_a(None, every))
         else:
-            run("a1", lambda: self._phase_a1(first, draw), lambda: self._phase_a1(None, every))
+            with trace("search.phase.a", device=self.dev):
+                run("a1", lambda: self._phase_a1(first, draw),
+                    lambda: self._phase_a1(None, every))
             self._fetch_frames()
-            run("a2", self._phase_a2)
+            with trace("search.phase.a", device=self.dev):
+                run("a2", self._phase_a2)
         self.stats.grid_images += self.b
         if self.stats.record:
             # the sampler's inputs too: P and visited are still the step's own
@@ -595,8 +619,10 @@ class Stepper:
         if self.verify:
             count = self._read(self.n_cand, "count")[0]
             self.stats.host_reads += 1
-            self._verify(count)
-        self._run("c", self._phase_c)
+            with trace("search.phase.verify", device=self.dev):
+                self._verify(count)
+        with trace("search.phase.c", device=self.dev):
+            self._run("c", self._phase_c)
         flags = [bool(v) for v in self._read(self.flags, "flags")]
         self.stats.host_reads += 1
         self.stats.steps += 1

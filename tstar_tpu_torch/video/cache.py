@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.profiling import trace
 from tstar_tpu_torch.video.decoder import open_video, opened
 
 logger = logging.getLogger(__name__)
@@ -277,7 +278,7 @@ def build_frame_cache(
         raise ValueError("build_frame_cache needs an explicit device")
     if budget_bytes is None:
         budget_bytes = device_budget_bytes(device)
-    with opened(video_path, decoder) as dec:
+    with trace("video.cache"), opened(video_path, decoder) as dec:
         n_valid, n_pad = probe_video_length(dec, config)
         if cache_route(n_pad, config, budget_bytes, repr(video_path)) == "streaming":
             if config.cache_mode == "auto":
