@@ -260,6 +260,19 @@ KERNELS = ("fused_mha_from_qkv", "patch_embed_matmul", "fused_layernorm", "w8a8_
            "greedy_nms")
 
 
+# The decode step's kernels (kernels/decode.py): each fused decoder layer
+# launches add_rms_norm twice and the others once; the final norm once more.
+DECODE_KERNELS = ("add_rms_norm", "decode_attention", "silu_mul")
+
+
+def decode_launches(counts, steps: int, layers: int = 28) -> bool:
+    """Whether ``counts`` hold the decode kernels' launches of ``steps``
+    decode steps with all ``layers`` layers on the fused route."""
+    want = {"add_rms_norm": (2 * layers + 1) * steps, "decode_attention": layers * steps,
+            "silu_mul": layers * steps}
+    return {k: counts[k] for k in DECODE_KERNELS} == want
+
+
 def launches(**per_forward):
     """Every kernel's launches per detector forward, 0 where not named; a
     value is a count for every forward or (per grid, per verify) forward."""
@@ -294,6 +307,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 50, replays: int = 10) -> float:
+    """Mean device milliseconds per call of ``fn`` captured ``calls`` times
+    into one CUDA graph: a call's launch inside a graph, as the decode step
+    replays it, without the host's launch rate between eager calls."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                  # the first call, eagerly
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate
@@ -318,6 +357,7 @@ class Case:
     kind: str                # operand type of the operations: bf16 / int8 / f32
     library: Optional[Callable] = None      # one PyTorch call, same function
     yardsticks: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    graphed: bool = False    # timed inside a CUDA graph (graph_ms), as its path replays it
 
 
 def _close(atol, rtol, ref=None):
@@ -645,6 +685,126 @@ def kernel_cases(torch):
                 n_ops=2 * rows * k * 768, kind="int8",
                 yardsticks={"int_mm (int8 GEMM only)": lambda q=q, w=w: torch._int_mm(q, w)},
             ))
+
+    cases += decode_cases(torch)
+    return cases
+
+
+def bf16_ulp_check(row=None, exact=None):
+    """D1-D3's check: |got - want| <= one bf16 ulp of each value of the
+    plain result or, with ``row``, of the largest of each run of ``row``
+    values (an attention head's output).  The kernels round where their
+    plain versions round and sum in another order, so a sum whose last f32
+    bit differs may round the other way: a norm's or an activation's value
+    by one ulp of itself, an attention logit or probability by one ulp,
+    which moves every value of its head by about a ulp of its largest.  A
+    tuple's first entry (the residual) must be equal, as must each pair of
+    tensors ``exact()`` gives (the cache the kernel wrote, the plain one's)."""
+    import torch
+
+    def check(got, want, x=None):
+        tol = "one bf16 ulp " + ("of its head's largest" if row else "of each value")
+        same = True
+        if isinstance(got, tuple):
+            same, tol = torch.equal(got[0], want[0]), tol + ", the residual exact"
+            got, want = got[1], want[1]
+        if exact is not None:
+            same = same and all(torch.equal(a, b) for a, b in exact())
+            tol += ", the cache exact"
+        scale = want.float().abs()
+        if row is not None:
+            scale = scale.reshape(-1, row).amax(dim=-1, keepdim=True).expand(-1, row)
+            scale = scale.reshape(want.shape)
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0 ** -126))) - 7)
+        diff = (got.float() - want.float()).abs()
+        ok = same and bool((diff <= ulp).all()) and bool(got.float().isfinite().all())
+        return diff.max().item(), ok, tol
+    return check
+
+
+def decode_cases(torch):
+    """D1-D3 (``kernels/decode.py``), the decode step's kernels at Qwen2-7B's
+    widths: B = 1 (grounding) and 4 (batched QA), D = 3,584, I = 18,944, 28 /
+    4 heads at slot 2,400 of grounding's 2,432-slot bucket (a run of prompt
+    padding masked), and a tensor-parallel rank's 14 / 2 and 7 / 1.  Timed
+    in CUDA graphs, as the decode step replays them.  Yardsticks: the
+    library call that computes part of the function (``F.rms_norm`` without
+    the residual add; SDPA's grouped-query mode over the live slots, without
+    bias, mRoPE or cache write); SiLU * up has none.  Its own generator
+    keeps the other cases' inputs as they were."""
+    from torch.nn import functional as F
+
+    from tstar_tpu_torch.kernels import decode
+    from tstar_tpu_torch.models.qwen2vl import mrope_cos_sin
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(bf16)
+
+    cases = []
+    d, inter = 3584, 18944
+    for rows in (1, 4):
+        x, delta = randn(rows, 1, d, std=3.0), randn(rows, 1, d)
+        scale = randn(d, std=0.2) + 1.0
+        cases.append(Case(
+            "D1", f"B={rows} D={d}", "bf16",
+            run=lambda x=x, delta=delta, scale=scale: decode.add_rms_norm(x, delta, scale, 1e-6),
+            plain=lambda x=x, delta=delta, scale=scale: decode.add_rms_norm_plain(
+                x, delta, scale, 1e-6),
+            check=bf16_ulp_check(),
+            # x, delta, the residual and the output a row; the scale once
+            n_bytes=2 * (4 * rows * d + d), n_ops=5 * rows * d, kind="f32",
+            yardsticks={"rms_norm (no residual add)": lambda x=x, scale=scale: F.rms_norm(
+                x, (d,), scale, 1e-6)},
+            graphed=True,
+        ))
+    for rows in (1, 4):
+        gate, up = randn(rows, 1, inter, std=3.0), randn(rows, 1, inter)
+        cases.append(Case(
+            "D3", f"B={rows} I={inter}", "bf16",
+            run=lambda gate=gate, up=up: decode.silu_mul(gate, up),
+            plain=lambda gate=gate, up=up: decode.silu_mul_plain(gate, up),
+            check=bf16_ulp_check(),
+            n_bytes=2 * 3 * rows * inter, n_ops=5 * rows * inter, kind="f32", graphed=True,
+        ))
+    slots, index = 2432, 2400
+    for batch, nh, nkv in ((1, 28, 4), (4, 28, 4), (1, 14, 2), (1, 7, 1)):
+        q, k, v = (randn(batch, 1, n * 128) for n in (nh, nkv, nkv))
+        biases = [randn(n * 128, std=0.5) for n in (nh, nkv, nkv)]
+        cache = tuple(randn(batch, slots, nkv, 128) for _ in range(2))
+        plain_cache = tuple(t.clone() for t in cache)
+        valid = torch.ones(batch, slots, dtype=torch.bool, device=dev)
+        valid[:, 600:610] = False                  # prompt padding
+        valid[:, index + 1:] = False
+        bias = torch.where(valid[:, None, None, :], 0.0, torch.finfo(torch.float32).min)
+        pos = torch.full((3, batch, 1), index, dtype=torch.int64, device=dev)
+        cos, sin = mrope_cos_sin(pos, 128, (16, 24, 24), 1e6)
+        at = torch.tensor(index, device=dev)
+        args = (q, k, v, *biases, cos, sin, bias)
+        qh = q.reshape(batch, nh, 1, 128)
+        kh, vh = (t[:, :index + 1].transpose(1, 2) for t in cache)
+        live = index + 1
+        # q, k, v and their biases in, the old slots' K / V read, this
+        # token's written, the output; cos, sin and the live mask in f32
+        n_bytes = (2 * (batch * (nh + 2 * nkv) * 128 + (nh + 2 * nkv) * 128
+                        + 2 * batch * index * nkv * 128 + 2 * batch * nkv * 128
+                        + batch * nh * 128)
+                   + 4 * (2 * batch * 128 + batch * live))
+        cases.append(Case(
+            "D2", f"B={batch} {live} of {slots} slots {nh}/{nkv} heads", "bf16",
+            run=lambda args=args, cache=cache, at=at, nh=nh, nkv=nkv: decode.decode_attention(
+                *args, cache, at, nh, nkv),
+            plain=lambda args=args, pc=plain_cache, at=at, nh=nh, nkv=nkv:
+                decode.decode_attention_plain(*args, pc, at, nh, nkv),
+            check=bf16_ulp_check(row=128, exact=lambda cache=cache, pc=plain_cache: zip(cache, pc)),
+            n_bytes=n_bytes, n_ops=4 * batch * nh * live * 128, kind="bf16",
+            yardsticks={"sdpa gqa (no bias, mRoPE or cache write)":
+                        lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(
+                            qh, kh, vh, enable_gqa=True)},
+            graphed=True,
+        ))
     return cases
 
 
@@ -800,16 +960,17 @@ def phase_kernels(torch, card):
         torch.cuda.synchronize()
         want = c.plain()
         err, ok, tol = c.check(got, want)
-        ms, plain_ms = cuda_ms(c.run), cuda_ms(c.plain)
-        lib_ms = cuda_ms(c.library) if c.library is not None else None
-        yard = {k: cuda_ms(fn) for k, fn in c.yardsticks.items()}
+        timer = graph_ms if c.graphed else cuda_ms
+        ms, plain_ms = timer(c.run), timer(c.plain)
+        lib_ms = timer(c.library) if c.library is not None else None
+        yard = {k: timer(fn) for k, fn in c.yardsticks.items()}
         b_ms, b_by = bound_ms(c.n_bytes, c.n_ops, c.kind)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         extra = "".join(f" {k}={v:.4f} ms" for k, v in yard.items())
         log(f"[kernels] {c.kernel} {c.shape} {c.dtype}: max_abs_err={err:.3e} tol={tol} "
             f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={lib}{extra} "
-            f"bound={b_ms:.4f} ms ({b_by}: {c.n_bytes / 1e6:.2f} MB, {c.n_ops / 1e9:.3f} GOP) "
-            f"({card}) {'OK' if ok else 'FAIL'}")
+            f"bound={b_ms:.4g} ms ({b_by}: {c.n_bytes / 1e6:.4f} MB, {c.n_ops / 1e9:.3f} GOP) "
+            f"{'(in a CUDA graph) ' if c.graphed else ''}({card}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{c.kernel} {c.shape} {c.dtype} disagrees with its plain version")
         rows_out.append({
@@ -1577,18 +1738,25 @@ def vlm_full_width(torch, card, model, tok):
     inp2 = prepare_llava_inputs(tok, prompt, frames2, cfg)
     s = int(inp["prompt_lens"][0])
     others = {k: v for c in (counts, second_counts) for k, v in c.items()
-              if k != "fused_layernorm" and v}
+              if k != "fused_layernorm" and k not in DECODE_KERNELS and v}
     ok = (graph_tokens == eager_tokens and captures == 1 and backend.stats.captures == 0
           and backend.stats.replays >= 1 and isinstance(answer, str)
           and counts["fused_layernorm"] == 54 == second_counts["fused_layernorm"] and not others
+          and decode_launches(counts, stats.decode_steps)
+          and decode_launches(second_counts, backend.stats.decode_steps)
+          and stats.fused_layers == 28 == backend.stats.fused_layers
           and len(graph_tokens[0]) == 30 and int(inp2["prompt_lens"][0]) == s)
+    decode = (f"decode kernels {[counts[k] for k in DECODE_KERNELS]} / "
+              f"{[second_counts[k] for k in DECODE_KERNELS]} in {stats.decode_steps} / "
+              f"{backend.stats.decode_steps} steps (want 57, 28, 28 a step), layers on them "
+              f"{stats.fused_layers} / {backend.stats.fused_layers} (want 28)")
     stats = backend.stats
     log(f"[vlm] QA request, 8 frames of a synthetic 600 s video, prompt {s} tokens "
         f"({8 * cfg.tokens_per_frame + 1} video), 30 new tokens, greedy: graph tokens == eager "
         f"tokens: {graph_tokens == eager_tokens} ({graph_tokens[0][:6]}...); captures: first "
         f"request {captures}, second request of the bucket (UniversalGrounder.inference_qa, "
         f"answer {answer[:24]!r}) {stats.captures}; K3 launches {counts['fused_layernorm']} / "
-        f"{second_counts['fused_layernorm']} a request (want 54), other kernels "
+        f"{second_counts['fused_layernorm']} a request (want 54), {decode}, other kernels "
         f"{others or 'none'} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 9a: the full-width VLM request failed its checks")
@@ -2450,6 +2618,7 @@ def pipeline_checks(torch, card, label, fw, s, result, counts, standin, per_forw
     frames = list(decoder.decode_batch([int(t * s.raw_fps) for t in result["Frame Timestamps"]]))
     torch.cuda.synchronize()
     reset_launch_counts()
+    qa_steps = standin.backend.stats.decode_steps
     t0 = time.perf_counter()
     answer = fw.grounder.inference_qa(frames, QA_QUESTION, QA_OPTIONS, temperature=0.0)
     torch.cuda.synchronize()
@@ -2475,8 +2644,10 @@ def pipeline_checks(torch, card, label, fw, s, result, counts, standin, per_forw
         **{f"{k} {per_forward.get(k, 0)} per (grid, verify) forward + {per_run.get(k, 0)} a run":
            counts[k] == expected(k) for k in KERNELS},
         "answer == inference_qa at temperature 0 on the keyframes": result["Answer"] == answer,
-        "K3 54 in the QA request, no other kernel":
-            qa_counts["fused_layernorm"] == 54 and sum(qa_counts.values()) == 54,
+        "K3 54 in the QA request, the decode kernels at every step, no other kernel":
+            qa_counts["fused_layernorm"] == 54
+            and sum(qa_counts[k] for k in KERNELS) == 54
+            and decode_launches(qa_counts, standin.backend.stats.decode_steps - qa_steps),
         "8 keyframes in range": len(stamps) == 8 and all(0 <= t < 600 for t in stamps),
     }
     timings = fw.results["Timings"]
@@ -3226,8 +3397,8 @@ def phase_13e(torch, card):
     language model Qwen2-7B's), seeded on the card in bf16, byte tokenizer,
     8 frames at the backend's 448^2 pixel cap, 30 new tokens, greedy, through
     ``UniversalGrounder.inference_qa``: the first request captures the
-    decode graph, the second is timed.  No port kernel runs (RMSNorm, plain
-    attention)."""
+    decode graph, the second is timed.  No detector kernel runs; every decode
+    step runs the decode kernels of ``kernels/decode.py`` (28 fused layers)."""
     import tempfile
 
     from tstar_tpu_torch.grounding.prompts import build_qa_prompt
@@ -3281,7 +3452,8 @@ def phase_13e(torch, card):
     b_step = step_bytes / HBM_BYTES_PER_S * 1e3
     per_token = decode_ms / max(steps, 1)
     ok = (isinstance(answer, str) and isinstance(first, str) and st.captures == 0
-          and st.replays >= 1 and not any(counts.values()))
+          and st.replays >= 1 and not any(counts[k] for k in KERNELS)
+          and decode_launches(counts, steps))
     log(f"[qwen2.5] 13e QA request, 8 frames at grid {grid} patches ({grid[0] * grid[1] // 4} "
         f"tokens a frame), prompt {s} tokens, answer {answer[:24]!r}: prefill {prefill_ms:.3f} ms "
         f"(bound {b_prefill:.3f} ms: {prefill_ops / 1e12:.3f} TFLOP, vision "
@@ -3504,6 +3676,7 @@ def llava_runs(torch, dev, mesh=None):
     out["greedy"] = generate(m, *args, max_new_tokens=30, eos_token_ids=eos, temperature=0.0,
                              image_patches=inp["image_patches"], stats=stats).tolist()
     out["eager_reason"] = stats.eager_reason
+    out["fused_layers"] = [stats.fused_layers]
     del m
     torch.cuda.empty_cache()
     m = model(torch.bfloat16)
@@ -3520,6 +3693,7 @@ def llava_runs(torch, dev, mesh=None):
     out["prefill_ms"] = stats.prefill_ms[-1]
     out["decode_ms_per_token"] = stats.decode_ms[-1] / max(1, stats.decode_steps)
     out["captures"] = stats.captures
+    out["fused_layers"].append(stats.fused_layers)      # f32: none; bf16: every layer
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["params"] = sum(p.numel() for p in m.parameters())
     del m
@@ -3799,14 +3973,18 @@ def phase_14(torch, card):
     for r, out in enumerate(outs):
         lv = out["llava"]
         err = (lv["logits"] - ref["logits"]).norm() / ref["logits"].norm()
+        fused = [0, TP_LM_LAYERS]
         ok = (lv["greedy"] == ref["greedy"] and err.item() <= 2e-2 and lv["eager_reason"]
-              and lv["sampled"] == outs[0]["llava"]["sampled"] and lv["captures"] == 0)
+              and lv["sampled"] == outs[0]["llava"]["sampled"] and lv["captures"] == 0
+              and lv["fused_layers"] == fused == ref["fused_layers"])
         log(f"[mesh 1x2 gloo] rank {r}: LLaVA-OneVision at 7B widths (SigLIP 1152 x 27, "
             f"Qwen2 3584 x {TP_LM_LAYERS} of 28 layers (cut), vocab 152064; 14 heads, 2 kv "
             f"heads, 76032 vocabulary rows a rank): f32 greedy tokens equal to one rank's: "
             f"{lv['greedy'] == ref['greedy']}; bf16 next-token logits relative L2 "
             f"{err.item():.3e} (tol 2e-2); sampled (temperature 0.7, seed 5) tokens equal on "
-            f"both ranks: {lv['sampled'] == outs[0]['llava']['sampled']}; prefill "
+            f"both ranks: {lv['sampled'] == outs[0]['llava']['sampled']}; layers on the "
+            f"decode kernels (f32, bf16) {lv['fused_layers']}, one rank "
+            f"{ref['fused_layers']} (want {fused}); prefill "
             f"{lv['prefill_ms']:.3f} ms, decode {lv['decode_ms_per_token']:.3f} ms a token "
             f"(eager, every collective staged through the host by gloo; one rank with graphs: "
             f"{ref['decode_ms_per_token']:.3f}); peak {lv['peak_gb']:.2f} GB on this rank "
@@ -4414,6 +4592,21 @@ def main() -> int:
             sig = [r for r in mine if r["shape"] == "5832x1152" and r["dtype"] == "bf16"][0]
             kernels[-1]["vlm_row"] = {key: sig[key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")}
+    # D1-D3, the decode step's kernels: launches a decode step of the 28
+    # layers, as phases 9a, 11 and 13e hold them (decode_launches)
+    for k, name, impl, per_step in (
+            ("D1", "add_rms_norm", "add_rms_norm_kernel (a CTA a row)", 57),
+            ("D2", "decode_attention",
+             "decode_attn_kernel<G> (a cluster of CTAs a (row, kv head), mma.sync)", 28),
+            ("D3", "silu_mul", "silu_mul_kernel (8 values a thread)", 28)):
+        mine = [r for r in rows if r["kernel"] == k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tstar_tpu_torch/csrc/decode_layer.cu",
+            "replaces": "none (XLA: the reference's Qwen2 decoder layer)", "impl": impl,
+            "launches_per_decode_step": per_step, "max_abs_err": max(r["err"] for r in mine),
+            "rows": [{key: r[key] for key in ("shape", "ms", "plain_ms", "yardsticks", "bound_ms",
+                                              "bound_by", "err")} for r in mine],
+        })
     nms = p10["nms"]
     kernels.append({
         "name": "greedy_nms", "route": "cuda", "source": "tstar_tpu_torch/csrc/nms.cu",

@@ -25,6 +25,7 @@ from tstar_tpu.kernels.layernorm import fused_layernorm as jax_ln
 from tstar_tpu.kernels.patch_matmul import patch_embed_matmul as jax_patch
 from tstar_tpu_torch.kernels import grid_embed, launch_counts, pallas_grid, reset_launch_counts
 from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
+from tstar_tpu_torch.kernels.decode import add_rms_norm, decode_attention, silu_mul
 from tstar_tpu_torch.kernels import layernorm as layernorm_module
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, supported_width
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
@@ -274,8 +275,16 @@ def test_cpu_wrappers_run_the_plain_versions():
     pallas_grid.build_detector_grid_pallas(cache[0], secs[0], (2, 2), 32)
     flash_mha(*(torch.zeros(1, 8, 2, 64) for _ in range(3)))
     greedy_nms(torch.zeros(2, 5, 4), torch.arange(5).expand(2, 5), 0.7, 3)
+    x = torch.zeros(1, 1, 256, dtype=torch.bfloat16)
+    add_rms_norm(x, x, torch.ones(256, dtype=torch.bfloat16), 1e-6)
+    silu_mul(x, x)
+    qkv = torch.zeros(1, 1, 128, dtype=torch.bfloat16)
+    cache = tuple(torch.zeros(1, 4, 1, 128, dtype=torch.bfloat16) for _ in range(2))
+    rope = torch.zeros(1, 1, 1, 128)
+    decode_attention(qkv, qkv, qkv, None, None, None, rope, rope, None, cache, 0, 1, 1)
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
         "w8a8_matmul": 0, "w8a8_matmul_rowpar": 0, "ln_matmul": 0, "grid_cell_embed": 0,
         "build_detector_grid_pallas": 0, "flash_mha": 0, "greedy_nms": 0,
+        "add_rms_norm": 0, "decode_attention": 0, "silu_mul": 0,
     }

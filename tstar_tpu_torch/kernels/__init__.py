@@ -6,16 +6,20 @@ version: K1 ``attention.fused_mha_from_qkv`` (CUDA), K2
 ``pallas_grid.build_detector_grid_pallas`` (CUDA) and K8
 ``attention.flash_mha`` (CUDA): every TPU kernel of the reference has its
 counterpart.  ``nms.greedy_nms`` (CUDA) is the loop of the reference's
-class-aware NMS, an XLA ``fori_loop`` there, not a Pallas kernel.  ``image.py`` (the pixel chain and the composed projection) and
-``attention.bf16_probs_attention`` are plain PyTorch (the reference's are
-XLA code).
+class-aware NMS, an XLA ``fori_loop`` there, not a Pallas kernel;
+``decode.add_rms_norm``, ``decode.decode_attention`` and ``decode.silu_mul``
+(CUDA) are the Qwen2 decoder layer's single-token step between its matrix
+products, XLA code in the reference.  ``image.py`` (the pixel chain and the
+composed projection) and ``attention.bf16_probs_attention`` are plain
+PyTorch (the reference's are XLA code).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; ``launch_counts`` / ``reset_launch_counts`` read and clear them,
 and ``add_launch_counts`` adds a graph replay's launches
-(``search/step_graphs.py``).  A second mode of a kernel has a wrapper of its
-own, counted apart: ``quant_matmul.w8a8_matmul_rowpar``, K4's row-parallel
-mode (``w8a8_matmul`` counts the first mode only).
+(``search/step_graphs.py``, ``models/generate.py``).  A second mode of a
+kernel has a wrapper of its own, counted apart:
+``quant_matmul.w8a8_matmul_rowpar``, K4's row-parallel mode (``w8a8_matmul``
+counts the first mode only).
 """
 
 from typing import Dict
@@ -23,6 +27,7 @@ from typing import Dict
 
 def _wrappers():
     from tstar_tpu_torch.kernels.attention import flash_mha, fused_mha_from_qkv
+    from tstar_tpu_torch.kernels.decode import add_rms_norm, decode_attention, silu_mul
     from tstar_tpu_torch.kernels.grid_embed import grid_cell_embed
     from tstar_tpu_torch.kernels.layernorm import fused_layernorm
     from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
@@ -42,6 +47,9 @@ def _wrappers():
         "build_detector_grid_pallas": build_detector_grid_pallas,
         "flash_mha": flash_mha,
         "greedy_nms": greedy_nms,
+        "add_rms_norm": add_rms_norm,
+        "decode_attention": decode_attention,
+        "silu_mul": silu_mul,
     }
 
 

@@ -171,6 +171,16 @@ def open_library(path: Path) -> ctypes.CDLL:
     # valid, stream
     lib.tstar_nms.argtypes = [vp, vp, cf, ci, ci, ci, vp, vp, vp, vp]
     lib.tstar_nms.restype = ci
+    # x, delta, scale, res, out, R, D, eps, stream
+    lib.tstar_add_rms_norm.argtypes = [vp] * 5 + [ci, ci, cf, vp]
+    lib.tstar_add_rms_norm.restype = ci
+    # q, k, v, q/k/v biases, cos, sin, mask, k cache, v cache, index, out,
+    # B, M, H, KV, scale, stream
+    lib.tstar_decode_attention.argtypes = [vp] * 13 + [ci] * 4 + [cf, vp]
+    lib.tstar_decode_attention.restype = ci
+    # gate, up, out, n, stream
+    lib.tstar_silu_mul.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    lib.tstar_silu_mul.restype = ci
     lib.tstar_error_string.argtypes = [ci]
     lib.tstar_error_string.restype = ctypes.c_char_p
     return lib

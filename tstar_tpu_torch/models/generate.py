@@ -37,6 +37,13 @@ The reference's defaults to bf16 whatever the model's dtype, which is the
 same for its bf16 default and fails on an f32 model (its cache write
 refuses the mixed dtypes).
 
+A bf16 model's step on the card runs each Qwen2 decoder layer's work
+between its matrix products as three kernels (``kernels/decode.py``);
+``GenerateStats.fused_layers`` counts the layers of the step body that took
+them (the bucket's, whether the step ran eagerly or replayed), and a
+replay adds the launches its capture recorded to the wrappers'
+counts (``kernels.add_launch_counts``), as the search's step graphs do.
+
 The loop reads the host once a step: whether every sequence is done, as one
 small non-blocking copy into pinned memory, awaited on an event.  Step t+1
 is enqueued before the host waits for step t's flag, so the card never
@@ -56,6 +63,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
+from tstar_tpu_torch.kernels.decode import decode_attention
 from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
 from tstar_tpu_torch.utils.profiling import trace
@@ -82,6 +91,8 @@ class GenerateStats:
     prefill_ms: List[float] = dataclasses.field(default_factory=list)
     decode_ms: List[float] = dataclasses.field(default_factory=list)
     eager_reason: str = ""      # why a CUDA device decoded without graphs
+    fused_layers: int = 0       # decoder layers of the last step's body (counted when it
+                                # ran eagerly, before its capture) on kernels/decode.py
 
 
 def init_kv_cache(model, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
@@ -171,6 +182,8 @@ class DecodeBucket:
         self.eos = torch.zeros(n_eos, **i64)
         self.temperature = torch.ones((), dtype=torch.float32, device=dev)
         self.graph = None
+        self.launches: Dict[str, int] = {}    # kernel launches a replay runs
+        self.fused_layers = 0                 # the body's layers on the decode kernels
         if dev.type == "cuda":
             self._pinned = torch.zeros(2, dtype=torch.bool).pin_memory()
             self._events = [torch.cuda.Event(), torch.cuda.Event()]
@@ -191,25 +204,43 @@ class DecodeBucket:
         self.step += 1
         self.flag.copy_(self.done.all())
 
+    def _counted_body(self, stats: GenerateStats) -> None:
+        """The body, counting its layers that took the fused route (each
+        launches the decode attention once)."""
+        before = decode_attention.launches
+        self.body()
+        self.fused_layers = stats.fused_layers = decode_attention.launches - before
+
     def run_step(self, stats: GenerateStats) -> None:
         """Enqueue one step: replay the graph, or run the body eagerly (and,
-        with graphs, capture it after its first eager run)."""
+        with graphs, capture it after its first eager run).  A replay adds
+        its captured kernel launches to the wrappers' counts."""
         stats.decode_steps += 1
         if self.graph is not None:
             self.graph.replay()
+            if self.launches:
+                add_launch_counts(self.launches)
+            stats.fused_layers = self.fused_layers
             stats.replays += 1
             return
         if not self.graphs:
-            self.body()
+            self._counted_body(stats)
             return
         # the first step runs eagerly on the capture stream, whose cuBLAS
         # state it sets up, then the body is captured
         current = torch.cuda.current_stream()
         self._stream.wait_stream(current)
         with torch.cuda.stream(self._stream):
-            self.body()
+            self._counted_body(stats)
         current.wait_stream(self._stream)
-        self.graph = self._capture()
+        before = launch_counts()
+        try:
+            self.graph = self._capture()
+        finally:
+            after = launch_counts()
+            # the capture recorded launches without running them
+            self.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
+            add_launch_counts({k: -n for k, n in self.launches.items()})
         stats.captures += 1
 
     def _capture(self):

@@ -29,9 +29,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from tstar_tpu_torch.kernels.decode import apply_rope, softmax_f32
 from tstar_tpu_torch.kernels.image import device_constant
 from tstar_tpu_torch.models.convert import Rule, rule
-from tstar_tpu_torch.models.qwen2vl import RMSNorm, _softmax_f32, apply_rope, vision_rope_angles
+from tstar_tpu_torch.models.qwen2vl import RMSNorm, vision_rope_angles
 from tstar_tpu_torch.models.transformer import Dense
 
 
@@ -123,7 +124,7 @@ class Qwen25VisionBlock(nn.Module):
         logits = torch.matmul(qh, kh.transpose(-1, -2))
         if attn_bias is not None:
             logits = logits + attn_bias
-        out = torch.matmul(_softmax_f32(logits, x.dtype), vh).transpose(-3, -2)
+        out = torch.matmul(softmax_f32(logits, x.dtype), vh).transpose(-3, -2)
         out = out.reshape(*x.shape[:-1], heads * c.head_dim)
         x = x + self.proj(out)
         h = self.norm2(x)

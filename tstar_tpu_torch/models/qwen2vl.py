@@ -15,9 +15,14 @@ A module computes in its parameters' dtype (bf16 on the card, f32 in the
 parity tests), at the reference's rounding points: projections round to
 the compute dtype; RoPE runs in f32 and rounds back; the attention logits
 and the bias add stay in the compute dtype, the softmax runs in f32 and
-rounds back.  None of this is a Pallas kernel in the reference (XLA), so
-the decoder's attention, RMSNorm, RoPE and SwiGLU are plain torch ops here
-(``torch.matmul`` for the products, not SDPA, whose rounding differs).  The
+rounds back.  None of this is a Pallas kernel in the reference (XLA).  The
+decoder's RMSNorm, attention and SwiGLU are the plain versions of
+``kernels/decode.py`` (``torch.matmul`` for the attention's products, not
+SDPA, whose rounding differs), except in the single-token decode step of a
+bf16 model on the card: there ``Qwen2LM.decoder`` takes that module's three
+kernels (``fused_decode_supported``), the same rounding points in 11
+launches a layer with the seven projections.  A layer hands on its output
+as (residual, delta), so that the next norm's launch adds the two.  The
 vision LayerNorms are the port's ``LayerNorm`` (the same math as flax's).
 
 ``build_mrope_position_ids`` is host numpy, as in the reference: a caller
@@ -36,6 +41,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from tstar_tpu_torch.kernels.decode import (
+    add_rms_norm, add_rms_norm_plain, apply_rope, decode_attention, decode_attention_plain,
+    fused_decode_supported, silu_mul, silu_mul_plain, softmax_f32,
+)
 from tstar_tpu_torch.kernels.image import device_constant
 from tstar_tpu_torch.models.convert import Rule, convert_state_dict, rule
 from tstar_tpu_torch.models.transformer import ACTIVATIONS, Dense, LayerNorm
@@ -112,9 +121,7 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
-        return (norm * self.scale.float()).to(self.scale.dtype)
+        return add_rms_norm_plain(x, None, self.scale, self.eps)[1]
 
 
 class Embed(nn.Module):
@@ -142,23 +149,6 @@ class Embed(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.embedding.t())
         return y if self.tp is None else all_gather_last(y, self.tp)
-
-
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """q/k: (..., S, H, D); cos/sin broadcastable to (..., S, 1, D).  f32."""
-    qf, kf = q.float(), k.float()
-    q_out = qf * cos + rotate_half(qf) * sin
-    k_out = kf * cos + rotate_half(kf) * sin
-    return q_out.to(q.dtype), k_out.to(k.dtype)
-
-
-def _softmax_f32(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return torch.softmax(logits.float(), dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +200,7 @@ class VisionBlock(nn.Module):
         q, k = apply_rope(q, k, cos, sin)
         scale = c.head_dim ** -0.5
         qh, kh, vh = (t.transpose(-3, -2) for t in (q * scale, k.to(q.dtype), v))
-        probs = _softmax_f32(torch.matmul(qh, kh.transpose(-1, -2)), x.dtype)
+        probs = softmax_f32(torch.matmul(qh, kh.transpose(-1, -2)), x.dtype)
         out = torch.matmul(probs, vh).transpose(-3, -2).reshape(*x.shape[:-1], heads * c.head_dim)
         x = x + self.proj(out)
         h = ACTIVATIONS[c.hidden_act](self.fc1(self.norm2(x)))
@@ -314,38 +304,26 @@ class Qwen2DecoderLayer(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """-> (x, cache).  With a cache, this step's K/V are written into it
         in place at ``cache_index`` and attention reads every cache slot."""
-        c = self.cfg
-        hd, nh, nkv = c.head_dim, self.num_heads, self.num_kv_heads
-        b, s = x.shape[:2]
-        h = self.input_layernorm(x)
-        q = self.q_proj(h).reshape(b, s, nh, hd)
-        k = self.k_proj(h).reshape(b, s, nkv, hd)
-        v = self.v_proj(h).reshape(b, s, nkv, hd)
-        q, k = apply_rope(q, k, cos, sin)
-        if cache is not None:
-            k_all, v_all = cache
-            slots = cache_index + torch.arange(s, device=x.device)
-            k_all.index_copy_(1, slots, k.to(k_all.dtype))
-            v_all.index_copy_(1, slots, v.to(v_all.dtype))
-        else:
-            k_all, v_all = k, v
-        groups = nh // nkv
-        # (B, KV, G*S, hd) @ (B, KV, hd, M): heads kv*G + g share K/V head kv
-        qg = (q * hd ** -0.5).reshape(b, s, nkv, groups, hd).permute(0, 2, 3, 1, 4)
-        kt = k_all.to(q.dtype).permute(0, 2, 3, 1)
-        logits = torch.matmul(qg.reshape(b, nkv, groups * s, hd), kt)
-        logits = logits.reshape(b, nkv, groups, s, -1)
-        if attn_bias is not None:
-            logits = logits + attn_bias[:, :, None].to(logits.dtype)
-        probs = _softmax_f32(logits, x.dtype).reshape(b, nkv, groups * s, -1)
-        vv = v_all.permute(0, 2, 1, 3)
-        ctype = torch.promote_types(probs.dtype, vv.dtype)
-        out = torch.matmul(probs.to(ctype), vv.to(ctype)).reshape(b, nkv, groups, s, hd)
-        out = out.permute(0, 3, 1, 2, 4).reshape(b, s, nh * hd)
-        x = x + self.o_proj(out.to(x.dtype))
-        h = self.post_attention_layernorm(x)
-        down = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
-        return x + down, cache
+        x, delta = self.step(x, None, cos, sin, attn_bias, cache, cache_index)
+        return x + delta, cache
+
+    def step(self, x, delta, cos, sin, attn_bias, cache=None, cache_index=None,
+             fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` on the input ``x + delta`` (``x`` when ``delta`` is
+        None), its output left as (residual, delta) for the next norm to add.
+        ``fused``: the three kernels of ``kernels/decode.py`` (one token on
+        the card, ``fused_decode_supported``) in place of their plain
+        versions."""
+        norm = add_rms_norm if fused else add_rms_norm_plain
+        attend = decode_attention if fused else decode_attention_plain
+        x, h = norm(x, delta, self.input_layernorm.scale, self.input_layernorm.eps)
+        q, k, v = self.q_proj, self.k_proj, self.v_proj
+        out = attend(q.product(h), k.product(h), v.product(h), q.bias, k.bias, v.bias, cos, sin,
+                     attn_bias, cache, cache_index, self.num_heads, self.num_kv_heads)
+        post = self.post_attention_layernorm
+        x, h = norm(x, self.o_proj(out), post.scale, post.eps)
+        gate, up = self.gate_proj(h), self.up_proj(h)
+        return x, self.down_proj(silu_mul(gate, up) if fused else silu_mul_plain(gate, up))
 
 
 class Qwen2LM(nn.Module):
@@ -383,12 +361,22 @@ class Qwen2LM(nn.Module):
         return flat_x.reshape(x.shape)
 
     def decoder(self, hidden, position_ids, attn_bias, caches=None, cache_index=None):
+        """-> (the final norm's output, caches).  A single-token step that
+        ``fused_decode_supported`` takes runs every layer, and the final
+        norm, on the kernels of ``kernels/decode.py``."""
         t = self.cfg.text
         cos, sin = mrope_cos_sin(position_ids, t.head_dim, t.mrope_section, t.rope_theta)
+        first = self.layers[0]
+        fused = fused_decode_supported(hidden, caches[0] if caches is not None else None,
+                                       first.num_heads, first.num_kv_heads, t.head_dim,
+                                       first.up_proj.kernel.shape[1])
+        delta = None
         for i, layer in enumerate(self.layers):
-            hidden, _ = layer(hidden, cos, sin, attn_bias,
-                              caches[i] if caches is not None else None, cache_index)
-        return self.norm(hidden), caches
+            hidden, delta = layer.step(hidden, delta, cos, sin, attn_bias,
+                                       caches[i] if caches is not None else None, cache_index,
+                                       fused)
+        norm = add_rms_norm if fused else add_rms_norm_plain
+        return norm(hidden, delta, self.norm.scale, self.norm.eps)[1], caches
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:

@@ -74,12 +74,17 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel`` with its tensor-parallel collective, before the bias."""
         y = torch.matmul(x, self.kernel)
         if self.reduce is not None:
             all_reduce_(y, self.reduce)
         if self.gather is not None:
             y = all_gather_last(y, self.gather)
+        return y
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.product(x)
         return y if self.bias is None else y + self.bias
 
 
