@@ -23,6 +23,8 @@ Phases (any failed check exits non-zero and prints no result line):
      version and the one PyTorch call that computes the same function where
      there is one (``library_ms``; K4-K7 have none and get yardsticks that
      do part of the work), and the bound the card sets for the same work;
+     then the decode kernels D1-D3 and Kimi-VL's MoE router and experts
+     M1-M2 at their decode shapes, timed inside CUDA graphs;
   4. tower numerics: one 768^2 grid image through the full-width OWL-ViT B/32
      (seeded random weights) in bf16 on the card with the kernels, against
      the same weights in f32 on the CPU with the plain versions;
@@ -220,6 +222,13 @@ Phases (any failed check exits non-zero and prints no result line):
      TStar's host loop) with a B/32 bf16 forward at 768^2 on phase 5's
      600 s video: frames scored, wall, frames/s, K1 / K2 / K3 launches a
      forward, its host grid within one level of the device grid builder's.
+  16. Kimi-VL-A3B-Instruct at its published widths, seeded on the card in
+     bf16: two grounding requests (8 frames of 360 x 640 at native
+     resolution, the 512-token cap, temperature 0) through
+     ``TorchVLMBackend.from_model`` -> ``generate``, the first capturing
+     its bucket, the second only replaying: the router (M1) and expert (M2)
+     kernels launched 26 times a decode step in each, ``moe_layers`` 26, a
+     replay under ``set_sync_debug_mode('error')``; the expert_tokens skew.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
@@ -232,8 +241,9 @@ with their launches in phase 10b's YOLO search, in phase 11's pipelines, in
 phase 12a's streaming search, in phase 13a's calibrated search, 13f's
 anyres encode and 13b's knob A/B, in 14a's sharded search and 14c's TP
 search, in 15a's sharded int8 bucket and 15b's int8 TP search, K1's and
-K5's local-width rows, K4's row-parallel rows and launches, and the NMS
-kernel); the last is
+K5's local-width rows, K4's row-parallel rows and launches, D1-D3 and
+M1-M2 with their launches a decode step (M1-M2: phase 16's two requests),
+and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -687,6 +697,7 @@ def kernel_cases(torch):
             ))
 
     cases += decode_cases(torch)
+    cases += moe_cases(torch)
     return cases
 
 
@@ -803,6 +814,78 @@ def decode_cases(torch):
             yardsticks={"sdpa gqa (no bias, mRoPE or cache write)":
                         lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(
                             qh, kh, vh, enable_gqa=True)},
+            graphed=True,
+        ))
+    return cases
+
+
+def moe_cases(torch):
+    """M1-M2 (``kernels/moe.py``), Kimi-VL's router and experts of the decode
+    step at the published widths: D = 2,048, 64 experts of 1,408, 6 a token
+    (two tokens of the four share their choice, so each expert is read
+    once), 2 shared, for 1 and 4 tokens.  Timed in CUDA graphs, as the
+    decode step replays them.  M1's ids must equal the plain router's and
+    its weights agree to f32 rounding; M2 within 2 bf16 ulps of its output's
+    largest (a gate, an up or an expert's bf16 rounding may flip).  M2's
+    plain version is the prefill's route (``moe_grouped``,
+    ``torch._grouped_mm``); its yardstick gathers the chosen experts'
+    weights (a copy of every chosen expert a step) into batched products."""
+    from tstar_tpu_torch.kernels import moe
+    from tstar_tpu_torch.kernels.decode import silu_mul_plain
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(20)
+    d, e, i, k, ns = 2048, 64, 1408, 6, 2
+
+    def weight(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) / shape[-1] ** 0.5).to(bf16)
+
+    w13, w2, sw13, sw2 = weight(e, 2 * i, d), weight(e, d, i), weight(2 * ns * i, d), weight(d, ns * i)
+    gate, bias = weight(e, d), (torch.randn(e, generator=g, device=dev) * 0.02).to(bf16)
+
+    def route_check(got, want, x=None):
+        err = (got[1] - want[1]).abs().max().item()
+        ok = torch.equal(got[0], want[0]) and err <= 1e-5 * want[1].abs().max().item()
+        return err, ok, "ids exact, weights 1e-5 of the largest"
+
+    def gathered(x, ids, weights):
+        gu = torch.matmul(w13[ids], x[:, None, :, None])[..., 0]         # (T, K, 2I)
+        y = torch.matmul(w2[ids], silu_mul_plain(gu[..., :i], gu[..., i:])[..., None])[..., 0]
+        return (y.float() * weights[..., None]).sum(dim=1).to(x.dtype) + moe.shared_experts(
+            x, sw13, sw2)
+
+    def ulps_of_largest(got, want, x=None):
+        err = (got.float() - want.float()).abs().max().item()
+        return err, err <= 2 ** -7 * want.float().abs().max().item(), "2 bf16 ulps of the largest"
+
+    cases = []
+    for rows in (1, 4):
+        x = torch.randn(rows, d, generator=g, device=dev).to(bf16)
+        ids, weights = moe.route(x, gate, bias, k, 2.446)
+        if rows > 1:
+            ids[1] = ids[0]
+        n_experts = len(set(ids.flatten().tolist())) + ns
+        cases.append(Case(
+            "M1", f"B={rows} D={d} E={e} K={k}", "bf16",
+            run=lambda x=x: moe.moe_route(x, gate, bias, k, 2.446),
+            plain=lambda x=x: moe.route(x, gate, bias, k, 2.446),
+            check=route_check,
+            # the gate, the bias and the tokens read, ids and weights written
+            n_bytes=2 * (e * d + e + rows * d) + 12 * rows * k, n_ops=2 * rows * e * d, kind="f32",
+            graphed=True,
+        ))
+        cases.append(Case(
+            "M2", f"B={rows} {n_experts - ns} experts + {ns} shared D={d} I={i}", "bf16",
+            run=lambda x=x, ids=ids, weights=weights: moe.moe_decode(
+                x, ids, weights, w13, w2, sw13, sw2),
+            plain=lambda x=x, ids=ids, weights=weights: moe.moe_grouped(
+                x, ids, weights, w13, w2, sw13, sw2),
+            check=ulps_of_largest,
+            # each chosen and shared expert's rows once, the tokens in and out
+            n_bytes=2 * 3 * d * i * n_experts + rows * (4 * d + 12 * k),
+            n_ops=2 * 3 * d * i * rows * (k + ns), kind="bf16",
+            yardsticks={"gathered experts": lambda x=x, ids=ids, weights=weights: gathered(
+                x, ids, weights)},
             graphed=True,
         ))
     return cases
@@ -4424,6 +4507,124 @@ def phase_15(torch, card):
             "baseline": baseline}
 
 
+def kimi_a3b(torch, card):
+    """Kimi-VL-A3B-Instruct at its published widths (MoonViT 1152 x 27, 27
+    decoder layers of 2048, 64 experts of 1408, 6 a token, 2 shared, vocab
+    163840), seeded on the card in bf16 one weight at a time
+    (``kimi_vl.seeded_weight``, in ``load_weights``' order), and a
+    byte-level tokenizer at Kimi-VL's special ids."""
+    import tempfile
+
+    from tstar_tpu_torch.models import kimi_vl
+
+    cfg = kimi_vl.KimiVLConfig()
+    shapes = dict(kimi_vl.flat_weight_shapes(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    class Draws:
+        def __getitem__(self, name):
+            return kimi_vl.seeded_weight(name, shapes[name], gen, torch.bfloat16)
+
+    t0 = time.perf_counter()
+    model = kimi_vl.kimi_model_from(cfg, Draws(), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[kimi] Kimi-VL-A3B at its published widths: {n_params / 1e9:.3f} B parameters, "
+        f"{n_params * 2 / 1e9:.2f} GB bf16, seeded on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = byte_tokenizer(tmp, kimi_vl.KIMI_SPECIAL_TOKENS)
+    return model, tok
+
+
+def phase_16(torch, card):
+    """Phase 16: Kimi-VL-A3B (``kimi_a3b``) serves two grounding requests as
+    a user's are served: ``TorchVLMBackend.from_model`` -> ``generate``, 8
+    frames of 360 x 640 at native resolution (299 tokens each), the
+    framework's 512-token cap, temperature 0.  The first request captures
+    its bucket's decode step; the second, of the same bucket, only replays
+    it.  Each request's launches, counted from zero, must hold the router
+    (M1, ``moe_route``) and the experts (M2, ``moe_decode``) 26 times a
+    decode step, eager, captured or replayed, and ``GenerateStats.moe_layers``
+    must read 26; a replay under ``set_sync_debug_mode('error')`` (a host
+    read raises) runs.  Prints each kernel's launches a step as measured,
+    the expert_tokens skew, the device times and the peak memory."""
+    from tstar_tpu_torch.grounding.prompts import build_grounding_prompt
+    from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
+    from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tstar_tpu_torch.models.generate import GenerateStats
+    from tstar_tpu_torch.utils.images import load_video_frames
+    from tstar_tpu_torch.video.synthetic import default_scene, scene_variant
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, tok = kimi_a3b(torch, card)
+    moe = model.cfg.text.moe_layers
+    backend = TorchVLMBackend.from_model(model, tok)
+    prompt = build_grounding_prompt(QA_QUESTION, QA_OPTIONS, 8)
+    rows = []
+    for label, scene in (("first (captures)", default_scene(600.0)),
+                         ("second (replays)", scene_variant(3))):
+        stats = backend.stats = GenerateStats(timed=True)
+        frames = load_video_frames("mem://scene", 8, decoder=scene)
+        prompt_tokens = int(backend._prepare(prompt, frames)["prompt_lens"][0])
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        backend.inference_with_frames(prompt, frames, temperature=0.0, max_tokens=512)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {k: v for k, v in launch_counts().items() if v}
+        steps = stats.decode_steps
+        rows.append({"request": label, "frames_hw": list(frames[0].shape[:2]),
+                     "prompt_tokens": prompt_tokens,
+                     "decode_steps": steps, "captures": stats.captures,
+                     "replays": stats.replays, "flag_reads": stats.flag_reads,
+                     "moe_layers": stats.moe_layers, "fused_layers": stats.fused_layers,
+                     "launches": counts,
+                     "per_step": {k: counts.get(k, 0) / max(steps, 1)
+                                  for k in ("moe_route", "moe_decode", "add_rms_norm",
+                                            "silu_mul", "decode_attention")},
+                     "request_s": wall, "prefill_ms": stats.prefill_ms[-1],
+                     "decode_ms": stats.decode_ms[-1]})
+        log(f"[kimi] grounding request, {label}: " + json.dumps(rows[-1]))
+    first, second = rows
+    ok = (all(r["decode_steps"] >= 1 and r["moe_layers"] == moe
+              and r["launches"].get("moe_route", 0) == moe * r["decode_steps"]
+              and r["launches"].get("moe_decode", 0) == moe * r["decode_steps"] for r in rows)
+          and first["captures"] == 1 and second["captures"] == 0
+          and second["replays"] == second["decode_steps"]
+          and first["prompt_tokens"] == second["prompt_tokens"])
+    log(f"[kimi] moe_route / moe_decode launches a decode step: "
+        f"{first['per_step']['moe_route']} / {first['per_step']['moe_decode']} and "
+        f"{second['per_step']['moe_route']} / {second['per_step']['moe_decode']} "
+        f"(want {moe} / {moe}); moe_layers {first['moe_layers']} / {second['moe_layers']} "
+        f"(want {moe}); captures {first['captures']} / {second['captures']} (want 1 / 0) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 16: Kimi-VL's decode did not take the MoE kernels in every "
+                         "MoE layer of every step")
+    (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bucket.run_step(GenerateStats())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[kimi] a decode replay raised nothing under torch.cuda.set_sync_debug_mode('error') OK")
+    counts = model.expert_tokens.float()
+    share = counts / counts.sum(dim=1, keepdim=True)
+    skew = {"pairs": int(counts.sum()), "busiest_share_mean": share.max(1).values.mean().item(),
+            "busiest_share_max": share.max().item(), "least_share_min": share.min().item(),
+            "uniform": 1 / counts.shape[1]}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[kimi] expert_tokens {json.dumps(skew)}; peak memory {peak / 1e9:.2f} GB; "
+        f"phase 16 wall {time.perf_counter() - t_phase:.1f} s ({card})")
+    del bucket, backend, model
+    return {"requests": rows, "skew": skew, "peak_gb": peak / 1e9}
+
+
 def log_allocated(torch, phase):
     """What earlier phases left allocated, which each later phase's peak
     memory includes (phases 10b and 11 count theirs above it)."""
@@ -4498,6 +4699,10 @@ def main() -> int:
     walls = ("wall", "int8_f32_wall", "w8a16_wall", "ref_wall")
     log("[phase 15] " + json.dumps({k: p15["tp"][k] for k in walls}
                                    | {"baseline": p15["baseline"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_allocated(torch, "phase 16")
+    p16 = phase_16(torch, card)
     if "triton" in sys.modules:
         raise SystemExit("triton was imported: the port has no Triton kernel")
     log("[routes] triton was never imported")
@@ -4604,6 +4809,21 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "tstar_tpu_torch/csrc/decode_layer.cu",
             "replaces": "none (XLA: the reference's Qwen2 decoder layer)", "impl": impl,
             "launches_per_decode_step": per_step, "max_abs_err": max(r["err"] for r in mine),
+            "rows": [{key: r[key] for key in ("shape", "ms", "plain_ms", "yardsticks", "bound_ms",
+                                              "bound_by", "err")} for r in mine],
+        })
+    # M1-M2, Kimi-VL's router and experts: launches a decode step of its 26
+    # MoE layers, as phase 16's two grounding requests measured them
+    for k, name, impl in (
+            ("M1", "moe_route", "moe_route_kernel (8 CTAs a token, the last picks the top K)"),
+            ("M2", "moe_decode", "moe_decode_up_kernel + moe_decode_down_kernel (each expert "
+                                 "read once a step)")):
+        mine = [r for r in rows if r["kernel"] == k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tstar_tpu_torch/csrc/moe_decode.cu",
+            "replaces": "none (the reference has no MoE model)", "impl": impl,
+            "launches_per_decode_step": [r["per_step"][name] for r in p16["requests"]],
+            "max_abs_err": max(r["err"] for r in mine),
             "rows": [{key: r[key] for key in ("shape", "ms", "plain_ms", "yardsticks", "bound_ms",
                                               "bound_by", "err")} for r in mine],
         })

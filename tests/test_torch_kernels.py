@@ -29,6 +29,7 @@ from tstar_tpu_torch.kernels.decode import add_rms_norm, decode_attention, silu_
 from tstar_tpu_torch.kernels import layernorm as layernorm_module
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, supported_width
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+from tstar_tpu_torch.kernels.moe import moe_decode, moe_route
 from tstar_tpu_torch.kernels.nms import greedy_nms
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
 from tstar_tpu_torch.kernels.quant_matmul import w8a8_matmul
@@ -282,9 +283,16 @@ def test_cpu_wrappers_run_the_plain_versions():
     cache = tuple(torch.zeros(1, 4, 1, 128, dtype=torch.bfloat16) for _ in range(2))
     rope = torch.zeros(1, 1, 1, 128)
     decode_attention(qkv, qkv, qkv, None, None, None, rope, rope, None, cache, 0, 1, 1)
+    h = torch.zeros(1, 16, dtype=torch.bfloat16)
+    ids, weights = moe_route(h, torch.zeros(4, 16, dtype=torch.bfloat16),
+                             torch.zeros(4, dtype=torch.bfloat16), 2, 1.0)
+    moe_decode(h, ids, weights, torch.zeros(4, 16, 16, dtype=torch.bfloat16),
+               torch.zeros(4, 16, 8, dtype=torch.bfloat16), torch.zeros(32, 16, dtype=torch.bfloat16),
+               torch.zeros(16, 16, dtype=torch.bfloat16))
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
         "w8a8_matmul": 0, "w8a8_matmul_rowpar": 0, "ln_matmul": 0, "grid_cell_embed": 0,
         "build_detector_grid_pallas": 0, "flash_mha": 0, "greedy_nms": 0,
-        "add_rms_norm": 0, "decode_attention": 0, "silu_mul": 0,
+        "add_rms_norm": 0, "decode_attention": 0, "silu_mul": 0, "moe_decode": 0,
+        "moe_route": 0,
     }

@@ -253,7 +253,7 @@ def test_backend_from_a_built_model(grounders):
 
     tg, _ = grounders["llava"]
     backend = TorchVLMBackend.from_model(tg.backend.model, tg.backend.tokenizer)
-    assert backend.model is tg.backend.model and backend._is_llava
+    assert backend.model is tg.backend.model and not backend.model.batched_requests
     adopted = tuniversal.UniversalGrounder("llava-tiny", backend=backend)
     frames = frames_of(4)
     assert (adopted.inference_qa(frames, "What color?", "A) Red\nB) Blue", temperature=0.0)

@@ -1,5 +1,9 @@
 """The port's VLM backend (port of ``tstar_tpu/grounding/vlm_backend.py``):
-Qwen2-VL or LLaVA-OneVision from a local checkpoint for grounding and QA.
+Qwen2-VL or LLaVA-OneVision from a local checkpoint, or any model built
+beforehand (``from_model``: Kimi-VL too), for grounding and QA.  Each model
+prepares its own inputs (``model.prepare_inputs``: its chat template,
+tokens, positions and frame preprocessing) and says whether requests of one
+input signature may be stacked (``model.batched_requests``).
 
 The ``inference_with_frames(query, frames, temperature, max_tokens)``
 surface the ``UniversalGrounder`` facade dispatches to (the reference's
@@ -22,9 +26,7 @@ import numpy as np
 import torch
 
 from tstar_tpu_torch.models.generate import GenerateStats, generate
-from tstar_tpu_torch.models.llava_onevision import LlavaOnevisionModel, prepare_llava_inputs
 from tstar_tpu_torch.models.loader import load_vlm_checkpoint
-from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
 from tstar_tpu_torch.parallel.shardings import shard_module
 from tstar_tpu_torch.utils.profiling import trace
 
@@ -59,7 +61,6 @@ class TorchVLMBackend:
 
     def _adopt(self, model, tokenizer, max_pixels: int, seed: int) -> None:
         self.model, self.tokenizer = model, tokenizer
-        self._is_llava = isinstance(model, LlavaOnevisionModel)
         self.max_pixels = max_pixels
         self.generator = torch.Generator(device=model.device).manual_seed(seed)
         self.stats = GenerateStats()
@@ -67,12 +68,7 @@ class TorchVLMBackend:
     def _prepare(self, query: str, frames) -> Dict:
         with trace("vlm.prepare"):
             frames = [np.asarray(f) for f in (frames or [])]
-            if self._is_llava:
-                return prepare_llava_inputs(self.tokenizer, query, frames, self.model.cfg)
-            return prepare_vlm_inputs(
-                self.tokenizer, query, frames, self.model.cfg.vision,
-                max_pixels=self.max_pixels, image_token_id=self.model.cfg.image_token_id,
-            )
+            return self.model.prepare_inputs(self.tokenizer, query, frames, self.max_pixels)
 
     def _generate(self, ids, lens, pos, patches, grid_hw, temperature, max_tokens) -> List[List[int]]:
         tokens = generate(
@@ -117,8 +113,9 @@ class TorchVLMBackend:
         """Many (query, frames) requests per forward: requests group by input
         signature (image grid and patch shape) so a group stacks into static
         shapes; prompts right-pad to a multiple of 128.  Greedy results equal
-        the serial path's.  LLaVA stays serial, as in the reference."""
-        if self._is_llava:
+        the serial path's.  A model whose ``batched_requests`` is False
+        (LLaVA, as in the reference, and Kimi-VL) stays serial."""
+        if not self.model.batched_requests:
             return [self.inference_with_frames(q, f, temperature, max_tokens)
                     for q, f in zip(queries, frames_list)]
         prepared = [self._prepare(q, f) for q, f in zip(queries, frames_list)]

@@ -9,7 +9,9 @@ counterpart.  ``nms.greedy_nms`` (CUDA) is the loop of the reference's
 class-aware NMS, an XLA ``fori_loop`` there, not a Pallas kernel;
 ``decode.add_rms_norm``, ``decode.decode_attention`` and ``decode.silu_mul``
 (CUDA) are the Qwen2 decoder layer's single-token step between its matrix
-products, XLA code in the reference.  ``image.py`` (the pixel chain and the
+products, XLA code in the reference; ``moe.moe_route`` and ``moe.moe_decode``
+(CUDA) are the router and the experts of Kimi-VL's single-token step, which
+the reference does not have.  ``image.py`` (the pixel chain and the
 composed projection) and ``attention.bf16_probs_attention`` are plain
 PyTorch (the reference's are XLA code).
 
@@ -31,6 +33,7 @@ def _wrappers():
     from tstar_tpu_torch.kernels.grid_embed import grid_cell_embed
     from tstar_tpu_torch.kernels.layernorm import fused_layernorm
     from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+    from tstar_tpu_torch.kernels.moe import moe_decode, moe_route
     from tstar_tpu_torch.kernels.nms import greedy_nms
     from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
     from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
@@ -50,6 +53,8 @@ def _wrappers():
         "add_rms_norm": add_rms_norm,
         "decode_attention": decode_attention,
         "silu_mul": silu_mul,
+        "moe_decode": moe_decode,
+        "moe_route": moe_route,
     }
 
 

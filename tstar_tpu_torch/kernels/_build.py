@@ -181,6 +181,13 @@ def open_library(path: Path) -> ctypes.CDLL:
     # gate, up, out, n, stream
     lib.tstar_silu_mul.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
     lib.tstar_silu_mul.restype = ci
+    # x, ids, weights, w13, w2, sw13, sw2, act, out, counts, route log, index,
+    # B, K, NS, D, I, M, stream
+    lib.tstar_moe_decode.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+    lib.tstar_moe_decode.restype = ci
+    # x, gate (E, D), bias, ids, weights, scratch, tickets, B, D, E, K, scale, stream
+    lib.tstar_moe_route.argtypes = [vp] * 7 + [ci] * 4 + [cf, vp]
+    lib.tstar_moe_route.restype = ci
     lib.tstar_error_string.argtypes = [ci]
     lib.tstar_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,18 +1,21 @@
 """Autoregressive generation for the port's VLMs (port of ``tstar_tpu/models/generate.py``).
 
 Two phases, as in the reference: one PREFILL over the right-padded prompts
-fills a static KV cache per layer, (B, max_len, kv_heads, head_dim), then a
-DECODE loop emits up to ``max_new_tokens`` tokens with a per-sequence done
-mask (a sequence that emitted an end token keeps emitting ``eos[0]``).
+fills a static cache that the model makes (``model.init_cache``: Qwen2's
+(B, max_len, kv_heads, head_dim) K and V per layer, Kimi-VL's latent cache
+of 576 values a slot and layer), then a DECODE loop emits up to
+``max_new_tokens`` tokens with a per-sequence done mask (a sequence that
+emitted an end token keeps emitting ``eos[0]``).
 Temperature 0 takes the argmax; otherwise a token is drawn from
 softmax(logits / temperature) as the argmax of logits / temperature plus
 Gumbel noise from an explicit ``torch.Generator`` (``jax.random.categorical``
 draws the same way, from another key schedule, so sampled tokens differ
 from the reference's).
 
-The decode step reads its cache slot, positions, token and done mask from
-static device buffers of its (B, max_len) bucket and writes the cache in
-place.  On a CUDA device (``graphs=None`` or True) the step is captured
+The decode step reads its cache slot, positions (made by the model from
+each sequence's next one: ``model.step_positions``), token and done mask
+from static device buffers of its (B, max_len) bucket and writes the cache
+in place.  On a CUDA device (``graphs=None`` or True) the step is captured
 once into a CUDA graph per (model, B, max_len, greedy, end tokens, cache
 dtype) and replayed: the counterpart of the reference's single
 ``lax.while_loop``.  A second request of the same bucket captures nothing.
@@ -38,11 +41,14 @@ same for its bf16 default and fails on an f32 model (its cache write
 refuses the mixed dtypes).
 
 A bf16 model's step on the card runs each Qwen2 decoder layer's work
-between its matrix products as three kernels (``kernels/decode.py``);
-``GenerateStats.fused_layers`` counts the layers of the step body that took
-them (the bucket's, whether the step ran eagerly or replayed), and a
-replay adds the launches its capture recorded to the wrappers'
-counts (``kernels.add_launch_counts``), as the search's step graphs do.
+between its matrix products as three kernels (``kernels/decode.py``), and
+each Kimi-VL MoE layer's experts as ``kernels/moe.moe_decode`` (its routing,
+top-k and expert ids stay on the device, so the step captures as any other);
+``GenerateStats.fused_layers`` and ``GenerateStats.moe_layers`` count the
+layers of the step body that took them (the bucket's, whether the step ran
+eagerly or replayed), and a replay adds the launches its capture recorded
+to the wrappers' counts (``kernels.add_launch_counts``), as the search's
+step graphs do.
 
 The loop reads the host once a step: whether every sequence is done, as one
 small non-blocking copy into pinned memory, awaited on an event.  Step t+1
@@ -65,6 +71,7 @@ import torch
 
 from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
 from tstar_tpu_torch.kernels.decode import decode_attention
+from tstar_tpu_torch.kernels.moe import moe_decode
 from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
 from tstar_tpu_torch.utils.profiling import trace
@@ -93,17 +100,7 @@ class GenerateStats:
     eager_reason: str = ""      # why a CUDA device decoded without graphs
     fused_layers: int = 0       # decoder layers of the last step's body (counted when it
                                 # ran eagerly, before its capture) on kernels/decode.py
-
-
-def init_kv_cache(model, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Zero (K, V) caches of every layer of ``model``, at the kv heads its
-    layers hold (this rank's under tensor parallelism)."""
-    t = model.cfg.text
-    shape = (batch, max_len, model.layers[0].num_kv_heads, t.head_dim)
-    return [
-        (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
-        for _ in range(t.num_layers)
-    ]
+    moe_layers: int = 0         # MoE layers of the last step's body on kernels/moe.py
 
 
 def bucket_len(n: int) -> int:
@@ -114,12 +111,12 @@ def prefill(model, input_ids, prompt_lens, position_ids, image_patches, image_gr
             max_len: int, cache_dtype=None, caches=None):
     """-> (next-token logits (B, vocab) f32, caches filled to ``prompt_lens``).
 
-    ``caches`` (as ``init_kv_cache`` makes them) are written in place; new
-    zero caches when None."""
+    ``caches`` (as ``model.init_cache`` makes them) are written in place;
+    new zero caches when None."""
     b, s = input_ids.shape
     dev = input_ids.device
     if caches is None:
-        caches = init_kv_cache(model, b, max_len, cache_dtype or model.dtype, dev)
+        caches = model.init_cache(b, max_len, cache_dtype or model.dtype, dev)
     image_embeds = None
     if image_patches is not None:
         enc = model.encode_images(image_patches, image_grid_hw)
@@ -149,10 +146,9 @@ def _sample(logits: torch.Tensor, greedy: bool, temperature, generator, tp=None)
 def decode_step(model, token, index, next_pos, key_valid, caches):
     """One-token decoder forward -> logits (B, vocab); this step's K/V are
     written into ``caches`` at slot ``index`` in place."""
-    b = token.shape[0]
     hidden = model.embed(token[:, None], None)
-    pos = next_pos[None, :, None].expand(3, b, 1)
-    max_len = caches[0][0].shape[1]
+    pos = model.step_positions(next_pos)
+    max_len = key_valid.shape[1]
     ok = key_valid & (torch.arange(max_len, device=token.device)[None] <= index)
     bias = torch.where(ok[:, None, None, :], 0.0, torch.finfo(torch.float32).min)
     hidden, _ = model.decoder(hidden, pos, bias, caches, index)
@@ -169,7 +165,7 @@ class DecodeBucket:
         self.greedy, self.graphs = greedy, graphs
         self.generator = None if greedy else torch.Generator(device=dev)
         self.tp = tensor_parallel(model)
-        self.caches = init_kv_cache(model, b, max_len, cache_dtype, dev)
+        self.caches = model.init_cache(b, max_len, cache_dtype, dev)
         i64 = dict(dtype=torch.int64, device=dev)
         self.token = torch.zeros(b, **i64)
         self.next_pos = torch.zeros(b, **i64)
@@ -184,6 +180,7 @@ class DecodeBucket:
         self.graph = None
         self.launches: Dict[str, int] = {}    # kernel launches a replay runs
         self.fused_layers = 0                 # the body's layers on the decode kernels
+        self.moe_layers = 0                   # and on the MoE decode kernel
         if dev.type == "cuda":
             self._pinned = torch.zeros(2, dtype=torch.bool).pin_memory()
             self._events = [torch.cuda.Event(), torch.cuda.Event()]
@@ -206,10 +203,11 @@ class DecodeBucket:
 
     def _counted_body(self, stats: GenerateStats) -> None:
         """The body, counting its layers that took the fused route (each
-        launches the decode attention once)."""
-        before = decode_attention.launches
+        launches the decode attention once) and the MoE kernel."""
+        attn, moe = decode_attention.launches, moe_decode.launches
         self.body()
-        self.fused_layers = stats.fused_layers = decode_attention.launches - before
+        self.fused_layers = stats.fused_layers = decode_attention.launches - attn
+        self.moe_layers = stats.moe_layers = moe_decode.launches - moe
 
     def run_step(self, stats: GenerateStats) -> None:
         """Enqueue one step: replay the graph, or run the body eagerly (and,
@@ -220,7 +218,7 @@ class DecodeBucket:
             self.graph.replay()
             if self.launches:
                 add_launch_counts(self.launches)
-            stats.fused_layers = self.fused_layers
+            stats.fused_layers, stats.moe_layers = self.fused_layers, self.moe_layers
             stats.replays += 1
             return
         if not self.graphs:
@@ -332,7 +330,7 @@ def generate(
     model,
     input_ids,                   # (B, S) right-padded int
     prompt_lens,                 # (B,)
-    position_ids,                # (3, B, S)
+    position_ids,                # (3, B, S) M-RoPE, or the model's own, e.g. (B, S)
     max_new_tokens: int,
     eos_token_ids: Sequence[int],
     temperature: float = 0.0,
@@ -386,9 +384,10 @@ def generate(
         logits, caches = prefill(model, input_ids, prompt_lens, position_ids, image_patches,
                                  image_grid_hw, max_len, cache_dtype, caches)
         # text positions continue from max(prompt positions) + 1 per sequence
+        # (over M-RoPE's three rows too)
         seq_mask = torch.arange(s_pad, device=dev)[None] < prompt_lens[:, None]
-        masked = torch.where(seq_mask[None], position_ids, torch.full_like(position_ids, -1))
-        next_pos = masked.amax(dim=(0, 2)) + 1
+        masked = torch.where(seq_mask, position_ids, torch.full_like(position_ids, -1))
+        next_pos = masked.reshape(-1, b, s_pad).amax(dim=(0, 2)) + 1
         token0 = _sample(logits, greedy, max(temperature, 1e-6), generator,
                          tensor_parallel(model))
     if max_new_tokens == 1:

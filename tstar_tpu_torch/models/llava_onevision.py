@@ -66,6 +66,8 @@ class LlavaOnevisionModel(Qwen2LM):
     """The method surface of ``Qwen2VLModel``, so ``models/generate.py`` runs
     both; ``encode_images`` takes frame pixels and ignores ``grid_hw``."""
 
+    batched_requests = False        # served one request at a time, as in the reference
+
     def __init__(self, cfg: LlavaOnevisionConfig):
         super().__init__()
         self.cfg = cfg
@@ -136,6 +138,11 @@ class LlavaOnevisionModel(Qwen2LM):
 
     def embed(self, input_ids: torch.Tensor, image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         return self._scatter(input_ids, image_embeds, self.cfg.video_token_id)
+
+    def prepare_inputs(self, tokenizer, query: str, frames, max_pixels: int = 0) -> Dict:
+        """-> ``generate`` inputs for one request (``prepare_llava_inputs``)."""
+        del max_pixels
+        return prepare_llava_inputs(tokenizer, query, frames, self.cfg)
 
     def forward(self, input_ids, position_ids, attention_mask=None, video_frames=None,
                 grid_hw=None) -> torch.Tensor:

@@ -347,6 +347,21 @@ class Qwen2LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.embedding.device
 
+    def init_cache(self, batch: int, max_len: int, dtype, device) -> List[KVCache]:
+        """Zero (K, V) caches of every layer, (B, max_len, kv_heads,
+        head_dim) at the kv heads the layers hold (this rank's under tensor
+        parallelism)."""
+        t = self.cfg.text
+        shape = (batch, max_len, self.layers[0].num_kv_heads, t.head_dim)
+        return [(torch.zeros(shape, dtype=dtype, device=device),
+                 torch.zeros(shape, dtype=dtype, device=device)) for _ in range(t.num_layers)]
+
+    @staticmethod
+    def step_positions(next_pos: torch.Tensor) -> torch.Tensor:
+        """A decode step's M-RoPE positions (3, B, 1): a text token's t / h /
+        w positions are equal."""
+        return next_pos[None, :, None].expand(3, next_pos.shape[0], 1)
+
     def _scatter(self, input_ids, image_embeds, token_id) -> torch.Tensor:
         """Embeddings with the k-th ``token_id`` position (in (B, S) order)
         taking the k-th row of ``image_embeds`` (HF's masked_scatter)."""
@@ -398,6 +413,8 @@ class Qwen2LM(nn.Module):
 class Qwen2VLModel(Qwen2LM):
     """Full VLM: embeds tokens, scatters vision features, runs the decoder."""
 
+    batched_requests = True         # the backend may stack requests of one input signature
+
     def __init__(self, cfg: Qwen2VLConfig):
         super().__init__()
         self.cfg = cfg
@@ -416,6 +433,14 @@ class Qwen2VLModel(Qwen2LM):
 
     def embed(self, input_ids: torch.Tensor, image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         return self._scatter(input_ids, image_embeds, self.cfg.image_token_id)
+
+    def prepare_inputs(self, tokenizer, query: str, frames, max_pixels: int) -> Dict:
+        """-> ``generate`` inputs (host numpy) for one request
+        (``qwen2vl_processor.prepare_vlm_inputs``)."""
+        from tstar_tpu_torch.models.qwen2vl_processor import prepare_vlm_inputs
+
+        return prepare_vlm_inputs(tokenizer, query, frames, self.cfg.vision,
+                                  max_pixels=max_pixels, image_token_id=self.cfg.image_token_id)
 
     def forward(self, input_ids, position_ids, attention_mask=None, image_patches=None,
                 image_grid_hw=None) -> torch.Tensor:
