@@ -23,8 +23,9 @@ Phases (any failed check exits non-zero and prints no result line):
      version and the one PyTorch call that computes the same function where
      there is one (``library_ms``; K4-K7 have none and get yardsticks that
      do part of the work), and the bound the card sets for the same work;
-     then the decode kernels D1-D3 and Kimi-VL's MoE router and experts
-     M1-M2 at their decode shapes, timed inside CUDA graphs;
+     then the decode kernels D1-D3, Kimi-VL's MoE router and experts
+     M1-M2 and its latent attention (MLA) at their decode shapes, timed
+     inside CUDA graphs;
   4. tower numerics: one 768^2 grid image through the full-width OWL-ViT B/32
      (seeded random weights) in bf16 on the card with the kernels, against
      the same weights in f32 on the CPU with the plain versions;
@@ -227,8 +228,10 @@ Phases (any failed check exits non-zero and prints no result line):
      resolution, the 512-token cap, temperature 0) through
      ``TorchVLMBackend.from_model`` -> ``generate``, the first capturing
      its bucket, the second only replaying: the router (M1) and expert (M2)
-     kernels launched 26 times a decode step in each, ``moe_layers`` 26, a
-     replay under ``set_sync_debug_mode('error')``; the expert_tokens skew.
+     kernels launched 26 times a decode step in each and the latent
+     attention (MLA) 27 times, ``moe_layers`` 26, ``mla_layers`` 27, at most
+     300 kernel launches a step (its graph's kernel nodes), a replay under
+     ``set_sync_debug_mode('error')``; the expert_tokens skew.
 In phases 5-8 every kernel's launches must equal its launches per grid and
 per verification forward times those forwards (a CUDA graph's replay counts
 the launches its capture recorded), and the searches step through graphs
@@ -242,7 +245,7 @@ phase 12a's streaming search, in phase 13a's calibrated search, 13f's
 anyres encode and 13b's knob A/B, in 14a's sharded search and 14c's TP
 search, in 15a's sharded int8 bucket and 15b's int8 TP search, K1's and
 K5's local-width rows, K4's row-parallel rows and launches, D1-D3 and
-M1-M2 with their launches a decode step (M1-M2: phase 16's two requests),
+M1-M2 and MLA with their launches a decode step (phase 16's two requests),
 and the NMS kernel); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -698,10 +701,11 @@ def kernel_cases(torch):
 
     cases += decode_cases(torch)
     cases += moe_cases(torch)
+    cases += mla_cases(torch)
     return cases
 
 
-def bf16_ulp_check(row=None, exact=None):
+def bf16_ulp_check(row=None, exact=None, ulps=1):
     """D1-D3's check: |got - want| <= one bf16 ulp of each value of the
     plain result or, with ``row``, of the largest of each run of ``row``
     values (an attention head's output).  The kernels round where their
@@ -710,11 +714,13 @@ def bf16_ulp_check(row=None, exact=None):
     by one ulp of itself, an attention logit or probability by one ulp,
     which moves every value of its head by about a ulp of its largest.  A
     tuple's first entry (the residual) must be equal, as must each pair of
-    tensors ``exact()`` gives (the cache the kernel wrote, the plain one's)."""
+    tensors ``exact()`` gives (the cache the kernel wrote, the plain one's).
+    ``ulps`` widens the bound to that many ulps."""
     import torch
 
     def check(got, want, x=None):
-        tol = "one bf16 ulp " + ("of its head's largest" if row else "of each value")
+        tol = (f"{ulps} bf16 ulp{'s' if ulps > 1 else ''} "
+               + ("of its head's largest" if row else "of each value"))
         same = True
         if isinstance(got, tuple):
             same, tol = torch.equal(got[0], want[0]), tol + ", the residual exact"
@@ -726,7 +732,7 @@ def bf16_ulp_check(row=None, exact=None):
         if row is not None:
             scale = scale.reshape(-1, row).amax(dim=-1, keepdim=True).expand(-1, row)
             scale = scale.reshape(want.shape)
-        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0 ** -126))) - 7)
+        ulp = ulps * torch.exp2(torch.floor(torch.log2(scale.clamp_min(2.0 ** -126))) - 7)
         diff = (got.float() - want.float()).abs()
         ok = same and bool((diff <= ulp).all()) and bool(got.float().isfinite().all())
         return diff.max().item(), ok, tol
@@ -891,6 +897,78 @@ def moe_cases(torch):
     return cases
 
 
+def mla_cases(torch):
+    """The latent-attention decode kernels (``kernels/mla.py``, three
+    launches a call) at Kimi-VL's widths (16 heads, kv_lora_rank 512, rope
+    64, nope and v 128): B = 1 (grounding) and 4, at 1, 2,401 and 3,500 live
+    slots of a 3,584-slot bucket (a run of prompt padding masked), timed in
+    CUDA graphs as the decode step replays them.  Each call of a timed graph reads its own copy
+    of W_UK, W_UV and the cache, six copies in turn (more than the 50 MB L2
+    holds at 3,500 slots), so the bytes come from memory as a step's 27
+    layers bring them.  Held to ``mla_decode_plain``: the cache exact, each
+    head's output within 2 bf16 ulps of its largest (the kernel rounds its
+    probabilities before normalising them).  No library yardstick: no one
+    PyTorch call computes it."""
+    from tstar_tpu_torch.kernels import mla
+    from tstar_tpu_torch.models.kimi_vl import rope_cos_sin
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(21)
+    slots, copies, width = 3584, 6, 16 * 192 + 576
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(bf16)
+
+    def turns(fn, sets):
+        """``fn`` on each set of operands in turn, one a call."""
+        at = [0]
+
+        def call():
+            out = fn(*sets[at[0] % len(sets)])
+            at[0] += 1
+            return out
+        return call
+
+    w_sets = [(randn(16, 128, 512, std=128 ** -0.5), randn(16, 512, 128, std=512 ** -0.5))
+              for _ in range(copies)]
+    norm = randn(512, std=0.1) + 1.0
+    cases = []
+    for batch in (1, 4):
+        caches = [randn(batch, slots, 576) for _ in range(copies)]
+        plain_caches = [c.clone() for c in caches]
+        for live in (1, 2401, 3500):
+            index = live - 1
+            y = randn(batch, 1, width)
+            cos, sin = rope_cos_sin(torch.full((batch, 1), index, device=dev), 64, 800000.0)
+            valid = torch.arange(slots, device=dev) <= index
+            valid[600:610] = False
+            bias = torch.where(valid, 0.0, torch.finfo(torch.float32).min).expand(
+                batch, 1, 1, slots).contiguous()
+            at = torch.tensor(index, device=dev)
+
+            def step(cache, w_uk, w_uv, y=y, cos=cos, sin=sin, bias=bias, at=at, fn=None):
+                return fn(y, cos, sin, norm, 1e-6, cache, at, w_uk, w_uv, bias)
+
+            kernel = [(c, *w) for c, w in zip(caches, w_sets)]
+            plain = [(c, *w) for c, w in zip(plain_caches, w_sets)]
+            # the projection, the rope tables, the scale and the live mask in; W_UK
+            # and W_UV; the live slots read but this step's, which is written; the
+            # output rows
+            n_bytes = (2 * (batch * width + 2 * 16 * 128 * 512 + 512 + batch * index * 576
+                            + batch * 576 + batch * 16 * 128)
+                       + 4 * (2 * batch * 64 + batch * live))
+            n_ops = 2 * batch * 16 * (128 * 512 + live * 576 + live * 512 + 512 * 128)
+            cases.append(Case(
+                "MLA", f"B={batch} {live} of {slots} slots", "bf16",
+                run=turns(functools.partial(step, fn=mla.mla_decode), kernel),
+                plain=turns(functools.partial(step, fn=mla.mla_decode_plain), plain),
+                check=bf16_ulp_check(row=128, ulps=2, exact=lambda c=caches, pc=plain_caches:
+                                     zip(c, pc)),
+                n_bytes=n_bytes, n_ops=n_ops, kind="bf16", graphed=True,
+            ))
+    return cases
+
+
 def ptxas_props():
     """ptxas -v of the built library: {kernel: {"registers", "spills"}}."""
     import re
@@ -994,6 +1072,14 @@ def phase_build(torch):
     for name in ln:
         log(f"[build]   {name}: {props[name].get('registers')} registers, "
             f"{props[name].get('spills')} bytes spilled")
+    # the latent-attention decode kernels: the attention on mma.sync (HMMA)
+    # fed by TMA (UTMALDG) and ldmatrix (LDSM); none spills
+    for kernel, ops in (("mla_q_kernel", ("FFMA", "STG")),
+                        ("mla_attend_kernel", ("HMMA", "UTMALDG", "LDSM")),
+                        ("mla_out_kernel", ("FFMA", "STG"))):
+        found = [n for n in bodies if kernel in n]
+        if len(found) != 1 or not sass_check(found[0], f"MLA {kernel}", ops):
+            raise SystemExit(f"{kernel}: {len(found)} found (want 1), or without {ops}, or spills")
     # K7: one instance per output dtype (f32, bf16)
     for name in sorted(n for n in props if "grid_pack_kernel" in n):
         log(f"[build] K7 {name}: {props[name].get('registers')} registers, "
@@ -4537,6 +4623,44 @@ def kimi_a3b(torch, card):
     return model, tok
 
 
+def step_graph_launches(torch, bucket):
+    """(kernel nodes, all nodes) of one more capture of ``bucket``'s decode
+    step, kept as a CUDA graph (``keep_graph``) and walked with the driver's
+    ``cuGraphGetNodes`` / ``cuGraphNodeGetType``: the launches a replayed
+    step runs.  The capture runs nothing; the launches it adds to the
+    wrappers' counts are taken back."""
+    import ctypes
+
+    from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = launch_counts()
+    bucket._stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(bucket._stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            bucket.body()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(bucket._stream)
+    add_launch_counts({k: before[k] - v for k, v in launch_counts().items() if v != before[k]})
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise SystemExit("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise SystemExit("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise SystemExit("cuGraphNodeGetType failed")
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels, count.value
+
+
 def phase_16(torch, card):
     """Phase 16: Kimi-VL-A3B (``kimi_a3b``) serves two grounding requests as
     a user's are served: ``TorchVLMBackend.from_model`` -> ``generate``, 8
@@ -4545,10 +4669,13 @@ def phase_16(torch, card):
     its bucket's decode step; the second, of the same bucket, only replays
     it.  Each request's launches, counted from zero, must hold the router
     (M1, ``moe_route``) and the experts (M2, ``moe_decode``) 26 times a
-    decode step, eager, captured or replayed, and ``GenerateStats.moe_layers``
-    must read 26; a replay under ``set_sync_debug_mode('error')`` (a host
-    read raises) runs.  Prints each kernel's launches a step as measured,
-    the expert_tokens skew, the device times and the peak memory."""
+    decode step and the latent attention (``mla_decode``) 27 times, eager,
+    captured or replayed, and ``GenerateStats.moe_layers`` must read 26,
+    ``GenerateStats.mla_layers`` 27; a replay under
+    ``set_sync_debug_mode('error')`` (a host read raises) runs.  Prints each
+    kernel's launches a step as measured, the launches of the whole step
+    (the kernel nodes of its graph: at most 300), the expert_tokens skew,
+    the device times and the peak memory."""
     from tstar_tpu_torch.grounding.prompts import build_grounding_prompt
     from tstar_tpu_torch.grounding.vlm_backend import TorchVLMBackend
     from tstar_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -4559,7 +4686,7 @@ def phase_16(torch, card):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model, tok = kimi_a3b(torch, card)
-    moe = model.cfg.text.moe_layers
+    moe, layers = model.cfg.text.moe_layers, model.cfg.text.num_layers
     backend = TorchVLMBackend.from_model(model, tok)
     prompt = build_grounding_prompt(QA_QUESTION, QA_OPTIONS, 8)
     rows = []
@@ -4581,17 +4708,18 @@ def phase_16(torch, card):
                      "decode_steps": steps, "captures": stats.captures,
                      "replays": stats.replays, "flag_reads": stats.flag_reads,
                      "moe_layers": stats.moe_layers, "fused_layers": stats.fused_layers,
-                     "launches": counts,
+                     "mla_layers": stats.mla_layers, "launches": counts,
                      "per_step": {k: counts.get(k, 0) / max(steps, 1)
-                                  for k in ("moe_route", "moe_decode", "add_rms_norm",
-                                            "silu_mul", "decode_attention")},
+                                  for k in ("moe_route", "moe_decode", "mla_decode",
+                                            "add_rms_norm", "silu_mul", "decode_attention")},
                      "request_s": wall, "prefill_ms": stats.prefill_ms[-1],
                      "decode_ms": stats.decode_ms[-1]})
         log(f"[kimi] grounding request, {label}: " + json.dumps(rows[-1]))
     first, second = rows
-    ok = (all(r["decode_steps"] >= 1 and r["moe_layers"] == moe
+    ok = (all(r["decode_steps"] >= 1 and r["moe_layers"] == moe and r["mla_layers"] == layers
               and r["launches"].get("moe_route", 0) == moe * r["decode_steps"]
-              and r["launches"].get("moe_decode", 0) == moe * r["decode_steps"] for r in rows)
+              and r["launches"].get("moe_decode", 0) == moe * r["decode_steps"]
+              and r["launches"].get("mla_decode", 0) == layers * r["decode_steps"] for r in rows)
           and first["captures"] == 1 and second["captures"] == 0
           and second["replays"] == second["decode_steps"]
           and first["prompt_tokens"] == second["prompt_tokens"])
@@ -4599,12 +4727,20 @@ def phase_16(torch, card):
         f"{first['per_step']['moe_route']} / {first['per_step']['moe_decode']} and "
         f"{second['per_step']['moe_route']} / {second['per_step']['moe_decode']} "
         f"(want {moe} / {moe}); moe_layers {first['moe_layers']} / {second['moe_layers']} "
-        f"(want {moe}); captures {first['captures']} / {second['captures']} (want 1 / 0) "
-        f"{'OK' if ok else 'FAIL'}")
+        f"(want {moe}); captures {first['captures']} / {second['captures']} (want 1 / 0); "
+        f"mla_decode launches a decode step {first['per_step']['mla_decode']} / "
+        f"{second['per_step']['mla_decode']}, mla_layers {first['mla_layers']} / "
+        f"{second['mla_layers']} (want {layers}); add_rms_norm (D1) a step "
+        f"{first['per_step']['add_rms_norm']} {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("phase 16: Kimi-VL's decode did not take the MoE kernels in every "
-                         "MoE layer of every step")
+        raise SystemExit("phase 16: Kimi-VL's decode did not take the MoE and MLA kernels in "
+                         "every layer of every step")
     (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+    step_kernels, step_nodes = step_graph_launches(torch, bucket)
+    log(f"[kimi] launches a decode step: {step_kernels} kernel nodes of {step_nodes} in the "
+        f"step's graph (want <= 300) {'OK' if step_kernels <= 300 else 'FAIL'}")
+    if step_kernels > 300:
+        raise SystemExit("phase 16: a Kimi-VL decode step launches more than 300 kernels")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4622,7 +4758,8 @@ def phase_16(torch, card):
     log(f"[kimi] expert_tokens {json.dumps(skew)}; peak memory {peak / 1e9:.2f} GB; "
         f"phase 16 wall {time.perf_counter() - t_phase:.1f} s ({card})")
     del bucket, backend, model
-    return {"requests": rows, "skew": skew, "peak_gb": peak / 1e9}
+    return {"requests": rows, "skew": skew, "peak_gb": peak / 1e9,
+            "step_launches": step_kernels, "step_nodes": step_nodes}
 
 
 def log_allocated(torch, phase):
@@ -4827,6 +4964,18 @@ def main() -> int:
             "rows": [{key: r[key] for key in ("shape", "ms", "plain_ms", "yardsticks", "bound_ms",
                                               "bound_by", "err")} for r in mine],
         })
+    # MLA, Kimi-VL's latent attention: launches a decode step of its 27 layers
+    mine = [r for r in rows if r["kernel"] == "MLA"]
+    kernels.append({
+        "name": "mla_decode", "route": "cuda", "source": "tstar_tpu_torch/csrc/mla_decode.cu",
+        "replaces": "none (the reference has no MLA model)",
+        "impl": "mla_q_kernel + mla_attend_kernel (flash-decoding over ~128 CTAs, TMA, mma.sync) "
+                "+ mla_out_kernel (clusters of 8 a head)",
+        "launches_per_decode_step": [r["per_step"]["mla_decode"] for r in p16["requests"]],
+        "step_launches": p16["step_launches"], "max_abs_err": max(r["err"] for r in mine),
+        "rows": [{key: r[key] for key in ("shape", "ms", "plain_ms", "yardsticks", "bound_ms",
+                                          "bound_by", "err")} for r in mine],
+    })
     nms = p10["nms"]
     kernels.append({
         "name": "greedy_nms", "route": "cuda", "source": "tstar_tpu_torch/csrc/nms.cu",

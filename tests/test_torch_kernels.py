@@ -29,6 +29,7 @@ from tstar_tpu_torch.kernels.decode import add_rms_norm, decode_attention, silu_
 from tstar_tpu_torch.kernels import layernorm as layernorm_module
 from tstar_tpu_torch.kernels.layernorm import fused_layernorm, supported_width
 from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+from tstar_tpu_torch.kernels.mla import mla_decode
 from tstar_tpu_torch.kernels.moe import moe_decode, moe_route
 from tstar_tpu_torch.kernels.nms import greedy_nms
 from tstar_tpu_torch.kernels.patch_matmul import patch_embed_matmul
@@ -289,10 +290,15 @@ def test_cpu_wrappers_run_the_plain_versions():
     moe_decode(h, ids, weights, torch.zeros(4, 16, 16, dtype=torch.bfloat16),
                torch.zeros(4, 16, 8, dtype=torch.bfloat16), torch.zeros(32, 16, dtype=torch.bfloat16),
                torch.zeros(16, 16, dtype=torch.bfloat16))
+    y = torch.zeros(1, 1, 2 * (8 + 4) + 16 + 4, dtype=torch.bfloat16)
+    rope = torch.zeros(1, 1, 1, 4)
+    mla_decode(y, rope, rope, torch.ones(16, dtype=torch.bfloat16), 1e-6,
+               torch.zeros(1, 4, 20, dtype=torch.bfloat16), 0,
+               torch.zeros(2, 8, 16, dtype=torch.bfloat16), torch.zeros(2, 16, 8, dtype=torch.bfloat16))
     assert launch_counts() == {
         "fused_mha_from_qkv": 0, "patch_embed_matmul": 0, "fused_layernorm": 0,
         "w8a8_matmul": 0, "w8a8_matmul_rowpar": 0, "ln_matmul": 0, "grid_cell_embed": 0,
         "build_detector_grid_pallas": 0, "flash_mha": 0, "greedy_nms": 0,
         "add_rms_norm": 0, "decode_attention": 0, "silu_mul": 0, "moe_decode": 0,
-        "moe_route": 0,
+        "moe_route": 0, "mla_decode": 0,
     }

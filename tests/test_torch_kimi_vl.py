@@ -10,7 +10,10 @@ on the CPU at a tiny size, against the plain float32 reference
     bias, normalisation, 2.446, shared experts), on its grouped (prefill) and
     its decode route, with its counts and route log;
   * the absorbed one-token attention over the latent cache equals the
-    expanded attention over the same slots;
+    expanded attention over the same slots, and its plain version
+    (``kernels/mla.mla_decode_plain``) the branch it replaced, cache slot
+    included (bit for bit in bf16); the latent norm sums in the kernel's
+    order;
   * MoonViT's 2D rotary positions at a known (row, column), and a frame's
     output does not move when another frame's pixels change;
   * the backend serves Kimi-VL through ``TorchVLMBackend``, one request at
@@ -31,7 +34,9 @@ import torch
 from torch.nn import functional as F
 
 from tests import kimi_vl_reference as ref
+from tstar_tpu_torch.kernels import mla as tmla
 from tstar_tpu_torch.kernels import moe as tmoe
+from tstar_tpu_torch.kernels.decode import add_rms_norm_plain
 from tstar_tpu_torch.models import generate as tgen
 from tstar_tpu_torch.models import kimi_vl
 from tstar_tpu_torch.models.moonvit import MoonViTConfig, apply_rope_2d, rope_2d_angles
@@ -194,6 +199,106 @@ def test_absorbed_decode_equals_expanded_attention(tiny):
         step_bias = torch.where(torch.arange(max_len) <= s, 0.0, kimi_vl.NEG)[None, None, None]
         absorbed = attn(h[:, s:], cos[:, s:], sin[:, s:], step_bias, cache, torch.tensor(s))[:, 0]
     close(absorbed, expanded, 1e-5)
+
+
+def absorbed_as_before(attn, h, cos, sin, attn_bias, cache, cache_index):
+    """``MLAttention``'s one-token branch as it was before ``kernels/mla.py``:
+    ``deepseek_rope`` (an ``addcmul``), the latent norm by ``mean``, and
+    every product, the scores and the probabilities rounded to the working
+    dtype."""
+    t = attn.t
+    b = h.shape[0]
+    nh, nope, rope_d, r = t.num_heads, t.qk_nope_head_dim, t.qk_rope_head_dim, t.kv_lora_rank
+    y = attn.q_kv_a(h)
+    q_nope = y[..., :nh * nope].view(b, 1, nh, nope)
+    pe = kimi_vl.deepseek_rope(y[..., nh * nope + r:].view(b, 1, nh + 1, rope_d), cos, sin)
+    c = add_rms_norm_plain(y[..., nh * nope:nh * nope + r].contiguous(), None,
+                           attn.kv_a_layernorm.scale, attn.kv_a_layernorm.eps)[1]
+    cache.index_copy_(1, cache_index.view(1), torch.cat([c, pe[:, :, nh]], dim=-1).to(cache.dtype))
+    w_uk, w_uv = attn.absorbed()
+    q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1), w_uk).transpose(0, 1)
+    qf = torch.cat([q_lat, pe[:, 0, :nh]], dim=-1)
+    kv = cache.to(qf.dtype)
+    logits = torch.baddbmm(attn_bias[:, 0].to(qf.dtype), qf, kv.transpose(1, 2),
+                           alpha=t.qk_head_dim ** -0.5)
+    probs = torch.softmax(logits, dim=-1, dtype=torch.float32).to(qf.dtype)
+    out = torch.bmm(torch.matmul(probs, kv[..., :r]).transpose(0, 1), w_uv).transpose(0, 1)
+    return attn.o_proj(out.reshape(b, 1, nh * t.v_head_dim))
+
+
+def step_inputs(dtype, rows=2, max_len=8, index=5, seed=11):
+    """A decode step of ``rows`` rows at slot ``index`` of ``max_len``: the
+    earlier slots seeded, slot 2 prompt padding (masked), the later slots
+    masked."""
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(rows, 1, TEXT.hidden_size, generator=g).to(dtype)
+    cos, sin = kimi_vl.rope_cos_sin(torch.full((rows, 1), index), TEXT.qk_rope_head_dim,
+                                    TEXT.rope_theta)
+    cache = torch.randn(rows, max_len, TEXT.latent_width, generator=g).to(dtype)
+    valid = torch.arange(max_len) <= index
+    valid[2] = False
+    bias = torch.where(valid, 0.0, kimi_vl.NEG).expand(rows, 1, 1, max_len).contiguous()
+    return h, cos, sin, bias, cache, torch.tensor(index)
+
+
+@pytest.mark.parametrize("route", ["plain", "wrapper"])
+def test_mla_decode_plain_equals_the_absorbed_branch_it_replaced(tiny, route):
+    """In f32 the two part only by sum order: the output to 1e-5 of its
+    scale, the cache slot to f32 rounding (the norm's sum of squares runs in
+    the kernel's order, the rope's products are rounded apart)."""
+    model, _ = tiny
+    attn = model.layers[2].self_attn
+    h, cos, sin, bias, cache, index = step_inputs(torch.float32)
+    before = cache.clone()
+    with torch.no_grad():
+        want = absorbed_as_before(attn, h, cos, sin, bias, before, index)
+        w_uk, w_uv = attn.absorbed()
+        ln = attn.kv_a_layernorm
+        step = tmla.mla_decode if route == "wrapper" else tmla.mla_decode_plain
+        got = attn.o_proj(step(attn.q_kv_a(h), cos, sin, ln.scale, ln.eps, cache, index, w_uk,
+                               w_uv, bias))
+    close(got, want, 1e-5)
+    torch.testing.assert_close(cache, before, rtol=2e-6, atol=0)
+    assert torch.equal(cache[:, :5], before[:, :5]) and torch.equal(cache[:, 6:], before[:, 6:])
+
+
+def test_the_plain_route_writes_the_same_cache_slot(tiny):
+    """bf16, as the card runs it: the slot ``mla_decode_plain`` writes is
+    the one the replaced branch wrote (the prefill's arithmetic), bit for
+    bit at this seed: only an f32 ulp of a sum's order could round a value
+    apart."""
+    _, weights = tiny
+    model = kimi_vl.kimi_model_from(CFG, weights, torch.bfloat16, "cpu")
+    attn = model.layers[1].self_attn
+    h, cos, sin, bias, cache, index = step_inputs(torch.bfloat16, seed=12)
+    before = cache.clone()
+    with torch.no_grad():
+        absorbed_as_before(attn, h, cos, sin, bias, before, index)
+        attn(h, cos, sin, bias, cache, index)
+    assert torch.equal(cache, before)
+
+
+def test_the_latent_norm_sums_in_the_kernels_order():
+    """``rms_norm_plain`` against the kernel's order simulated in numpy f32:
+    each thread's 8 squares in turn, the 64 sums halved pairwise; values of
+    wide range so that another order would round apart."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((3, 512)) * np.exp2(rng.integers(-9, 9, (3, 512)))).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(512)).astype(np.float32)
+    sums = []
+    for row in x:
+        part = np.zeros(64, np.float32)
+        for t in range(64):
+            for j in range(8):
+                part[t] = np.float32(part[t] + np.float32(row[8 * t + j] * row[8 * t + j]))
+        while len(part) > 1:
+            part = (part[:len(part) // 2] + part[len(part) // 2:]).astype(np.float32)
+        sums.append(part[0])
+    r = torch.rsqrt(torch.tensor(sums)[:, None] / 512 + 1e-6)
+    want = torch.as_tensor(x) * r * torch.as_tensor(scale)
+    got = tmla.rms_norm_plain(torch.as_tensor(x), torch.as_tensor(scale), 1e-6)
+    assert torch.equal(got, want)
+    assert not torch.equal(torch.tensor(sums), torch.as_tensor((x * x).sum(-1)))  # order shows
 
 
 def test_moonvit_rope_2d_at_a_known_row_and_column():

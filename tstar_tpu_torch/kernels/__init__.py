@@ -10,8 +10,9 @@ class-aware NMS, an XLA ``fori_loop`` there, not a Pallas kernel;
 ``decode.add_rms_norm``, ``decode.decode_attention`` and ``decode.silu_mul``
 (CUDA) are the Qwen2 decoder layer's single-token step between its matrix
 products, XLA code in the reference; ``moe.moe_route`` and ``moe.moe_decode``
-(CUDA) are the router and the experts of Kimi-VL's single-token step, which
-the reference does not have.  ``image.py`` (the pixel chain and the
+(CUDA) are the router and the experts of Kimi-VL's single-token step, and
+``mla.mla_decode`` (CUDA) its latent attention, which the reference does
+not have.  ``image.py`` (the pixel chain and the
 composed projection) and ``attention.bf16_probs_attention`` are plain
 PyTorch (the reference's are XLA code).
 
@@ -33,6 +34,7 @@ def _wrappers():
     from tstar_tpu_torch.kernels.grid_embed import grid_cell_embed
     from tstar_tpu_torch.kernels.layernorm import fused_layernorm
     from tstar_tpu_torch.kernels.ln_matmul import ln_matmul
+    from tstar_tpu_torch.kernels.mla import mla_decode
     from tstar_tpu_torch.kernels.moe import moe_decode, moe_route
     from tstar_tpu_torch.kernels.nms import greedy_nms
     from tstar_tpu_torch.kernels.pallas_grid import build_detector_grid_pallas
@@ -55,6 +57,7 @@ def _wrappers():
         "silu_mul": silu_mul,
         "moe_decode": moe_decode,
         "moe_route": moe_route,
+        "mla_decode": mla_decode,
     }
 
 

@@ -188,6 +188,10 @@ def open_library(path: Path) -> ctypes.CDLL:
     # x, gate (E, D), bias, ids, weights, scratch, tickets, B, D, E, K, scale, stream
     lib.tstar_moe_route.argtypes = [vp] * 7 + [ci] * 4 + [cf, vp]
     lib.tstar_moe_route.restype = ci
+    # y, cos, sin, norm scale, mask, cache, index, W_UK, W_UV, q and partials scratch, out,
+    # B, M, the attention's CTAs a row, eps, scale, stream
+    lib.tstar_mla_decode.argtypes = [vp] * 12 + [ci, ci, ci, cf, cf, vp]
+    lib.tstar_mla_decode.restype = ci
     lib.tstar_error_string.argtypes = [ci]
     lib.tstar_error_string.restype = ctypes.c_char_p
     return lib

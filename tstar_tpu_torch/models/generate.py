@@ -42,13 +42,14 @@ refuses the mixed dtypes).
 
 A bf16 model's step on the card runs each Qwen2 decoder layer's work
 between its matrix products as three kernels (``kernels/decode.py``), and
-each Kimi-VL MoE layer's experts as ``kernels/moe.moe_decode`` (its routing,
-top-k and expert ids stay on the device, so the step captures as any other);
-``GenerateStats.fused_layers`` and ``GenerateStats.moe_layers`` count the
-layers of the step body that took them (the bucket's, whether the step ran
-eagerly or replayed), and a replay adds the launches its capture recorded
-to the wrappers' counts (``kernels.add_launch_counts``), as the search's
-step graphs do.
+each Kimi-VL layer's absorbed latent attention as ``kernels/mla.mla_decode``
+and each of its MoE layers' experts as ``kernels/moe.moe_decode`` (its
+routing, top-k and expert ids stay on the device, so the step captures as
+any other); ``GenerateStats.fused_layers``, ``GenerateStats.moe_layers`` and
+``GenerateStats.mla_layers`` count the layers of the step body that took
+them (the bucket's, whether the step ran eagerly or replayed), and a replay
+adds the launches its capture recorded to the wrappers' counts
+(``kernels.add_launch_counts``), as the search's step graphs do.
 
 The loop reads the host once a step: whether every sequence is done, as one
 small non-blocking copy into pinned memory, awaited on an event.  Step t+1
@@ -71,6 +72,7 @@ import torch
 
 from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
 from tstar_tpu_torch.kernels.decode import decode_attention
+from tstar_tpu_torch.kernels.mla import mla_decode
 from tstar_tpu_torch.kernels.moe import moe_decode
 from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
 from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
@@ -101,6 +103,8 @@ class GenerateStats:
     fused_layers: int = 0       # decoder layers of the last step's body (counted when it
                                 # ran eagerly, before its capture) on kernels/decode.py
     moe_layers: int = 0         # MoE layers of the last step's body on kernels/moe.py
+    mla_layers: int = 0         # latent-attention layers of the last step's body on
+                                # kernels/mla.py
 
 
 def bucket_len(n: int) -> int:
@@ -181,6 +185,7 @@ class DecodeBucket:
         self.launches: Dict[str, int] = {}    # kernel launches a replay runs
         self.fused_layers = 0                 # the body's layers on the decode kernels
         self.moe_layers = 0                   # and on the MoE decode kernel
+        self.mla_layers = 0                   # and on the latent-attention kernel
         if dev.type == "cuda":
             self._pinned = torch.zeros(2, dtype=torch.bool).pin_memory()
             self._events = [torch.cuda.Event(), torch.cuda.Event()]
@@ -203,11 +208,13 @@ class DecodeBucket:
 
     def _counted_body(self, stats: GenerateStats) -> None:
         """The body, counting its layers that took the fused route (each
-        launches the decode attention once) and the MoE kernel."""
-        attn, moe = decode_attention.launches, moe_decode.launches
+        launches the decode attention once), the MoE kernel and the
+        latent-attention kernel."""
+        attn, moe, mla = decode_attention.launches, moe_decode.launches, mla_decode.launches
         self.body()
         self.fused_layers = stats.fused_layers = decode_attention.launches - attn
         self.moe_layers = stats.moe_layers = moe_decode.launches - moe
+        self.mla_layers = stats.mla_layers = mla_decode.launches - mla
 
     def run_step(self, stats: GenerateStats) -> None:
         """Enqueue one step: replay the graph, or run the body eagerly (and,
@@ -219,6 +226,7 @@ class DecodeBucket:
             if self.launches:
                 add_launch_counts(self.launches)
             stats.fused_layers, stats.moe_layers = self.fused_layers, self.moe_layers
+            stats.mla_layers = self.mla_layers
             stats.replays += 1
             return
         if not self.graphs:

@@ -28,21 +28,26 @@ Two routes of the attention, both from the same projections:
   * the expanded form (prefill, any S): k_nope and v made per head from the
     latent c_kv of every slot so far, logits in the working dtype, an f32
     softmax rounded back, P V, the output projection;
-  * the absorbed form (one token against the latent cache): q_nope . W_UK
-    taken against c_kv and q_pe against k_pe as one product over the
-    cache's 576 values a slot, the softmax, P . c_kv, then W_UV and W_o.
+  * the absorbed form (one token against the latent cache,
+    ``kernels/mla.py``): q_nope . W_UK taken against c_kv and q_pe against
+    k_pe as one product over the cache's 576 values a slot, the softmax,
+    P . c_kv, then W_UV and W_o.
     The cache holds 512 + 64 values a token and layer (1,152 bytes in bf16)
     in place of 16 heads of K and V (10,240 bytes).
 
 The decode step of a bf16 model on the card takes the port's kernels: the
-residual add and RMSNorm (``kernels/decode.add_rms_norm``, D 2,048 and 512),
-SwiGLU's ``silu_mul`` in layer 0, and the router and experts of every MoE
-layer in ``kernels/moe.moe_route`` and ``moe_decode`` (1 to 4 tokens).  A prefill's experts run as
-``moe_grouped``'s two grouped products over the tokens sorted by expert,
-each MoE layer inside a ``moe.prefill`` span; the tower runs inside
-``vision.encode``.  Every MoE layer counts its token-expert pairs into the
-model's ``expert_tokens`` (MoE layers, experts) int32 device tensor and
-writes its choices into the cache's route log, also inside a captured step.
+residual add and RMSNorm (``kernels/decode.add_rms_norm``, D 2,048), the
+absorbed attention from the q|kv_a projection to o_proj, rope, latent norm
+and cache write included (``kernels/mla.mla_decode``, Kimi-VL's widths, 1 to
+4 rows), SwiGLU's ``silu_mul`` in layer 0, and the router and experts of
+every MoE layer in ``kernels/moe.moe_route`` and ``moe_decode`` (1 to 4
+tokens).  The step's mask stays f32, as the attention reads it.  A
+prefill's experts run as ``moe_grouped``'s two grouped products over the
+tokens sorted by expert, each MoE layer inside a ``moe.prefill`` span; the
+tower runs inside ``vision.encode``.  Every MoE layer counts its
+token-expert pairs into the model's ``expert_tokens`` (MoE layers, experts)
+int32 device tensor and writes its choices into the cache's route log, also
+inside a captured step.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from torch import nn
 
 from tstar_tpu_torch.kernels.decode import add_rms_norm, add_rms_norm_plain, silu_mul, silu_mul_plain
 from tstar_tpu_torch.kernels.image import device_constant
+from tstar_tpu_torch.kernels.mla import mla_decode, mla_decode_plain, mla_decode_supported
 from tstar_tpu_torch.kernels.moe import (moe_decode, moe_decode_supported, moe_grouped, moe_route,
                                          route)
 from tstar_tpu_torch.models.moonvit import MoonViT, MoonViTConfig
@@ -200,47 +206,31 @@ class MLAttention(nn.Module):
             self._absorbed = (key, w_uk, w_uv)
         return self._absorbed[1], self._absorbed[2]
 
-    def forward(self, h: torch.Tensor, cos, sin, attn_bias, cache=None, cache_index=None,
-                fused: bool = False) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, cos, sin, attn_bias, cache=None,
+                cache_index=None) -> torch.Tensor:
         """h (B, S, D) normed -> (B, S, D).  With a latent ``cache`` this
         step's c_kv / k_pe are written at ``cache_index`` and attention reads
-        every slot so far: one token by the absorbed form, else expanded.
-        ``attn_bias`` is additive, in the working dtype or f32."""
+        every slot so far: one token by the absorbed form
+        (``kernels/mla.mla_decode``, the kernel where it takes the step, else
+        its plain version), else expanded.  ``attn_bias`` is additive, in the
+        working dtype or f32."""
         t = self.t
         b, s, _ = h.shape
         nh, nope, rope_d, r = t.num_heads, t.qk_nope_head_dim, t.qk_rope_head_dim, t.kv_lora_rank
-        scale = t.qk_head_dim ** -0.5
         y = self.q_kv_a(h)
+        if cache is not None and s == 1:
+            w_uk, w_uv = self.absorbed()
+            step = mla_decode if mla_decode_supported(y, cache, w_uk, w_uv) else mla_decode_plain
+            ln = self.kv_a_layernorm
+            return self.o_proj(step(y, cos, sin, ln.scale, ln.eps, cache, cache_index, w_uk,
+                                    w_uv, attn_bias))
         q_nope = y[..., :nh * nope].view(b, s, nh, nope)
         pe = deepseek_rope(y[..., nh * nope + r:].view(b, s, nh + 1, rope_d), cos, sin)
         q_pe, k_pe = pe[:, :, :nh], pe[:, :, nh]
-        norm = add_rms_norm if fused else add_rms_norm_plain
-        c = norm(y[..., nh * nope:nh * nope + r].contiguous(), None, self.kv_a_layernorm.scale,
-                 self.kv_a_layernorm.eps)[1]
-        latent = torch.cat([c, k_pe], dim=-1)
+        c = add_rms_norm_plain(y[..., nh * nope:nh * nope + r], None, self.kv_a_layernorm.scale,
+                               self.kv_a_layernorm.eps)[1]
         if cache is not None:
-            if torch.is_tensor(cache_index):
-                slots = cache_index.view(1) if s == 1 else \
-                    cache_index + torch.arange(s, device=h.device)
-                cache.index_copy_(1, slots, latent.to(cache.dtype))
-            else:
-                cache[:, cache_index:cache_index + s] = latent.to(cache.dtype)
-        if cache is not None and s == 1:
-            # absorbed: q_nope . W_UK against c_kv, q_pe against k_pe, in one product
-            w_uk, w_uv = self.absorbed()
-            q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1), w_uk).transpose(0, 1)   # (B, H, r)
-            qf = torch.cat([q_lat, q_pe[:, 0]], dim=-1)
-            kv = cache.to(qf.dtype)
-            if attn_bias is None:
-                logits = torch.matmul(qf, kv.transpose(1, 2)) * scale                # (B, H, M)
-            else:
-                logits = torch.baddbmm(attn_bias[:, 0].to(qf.dtype), qf, kv.transpose(1, 2),
-                                       alpha=scale)
-            probs = torch.softmax(logits, dim=-1, dtype=torch.float32).to(qf.dtype)
-            o_lat = torch.matmul(probs, kv[..., :r])                                 # (B, H, r)
-            out = torch.bmm(o_lat.transpose(0, 1), w_uv).transpose(0, 1)             # (B, H, v)
-            return self.o_proj(out.reshape(b, 1, nh * t.v_head_dim))
-        if cache is not None:
+            cache[:, cache_index:cache_index + s] = torch.cat([c, k_pe], dim=-1).to(cache.dtype)
             end = cache_index + s
             lat = cache[:, :end].to(h.dtype)
             c_all, kpe_all = lat[..., :r], lat[..., r:]
@@ -251,7 +241,7 @@ class MLAttention(nn.Module):
         kv = self.kv_b_proj(c_all).view(b, n, nh, nope + t.v_head_dim)
         k = torch.cat([kv[..., :nope], kpe_all[:, :, None].expand(b, n, nh, rope_d)], dim=-1)
         qf = torch.cat([q_nope, q_pe], dim=-1)
-        logits = torch.matmul(qf.transpose(1, 2), k.permute(0, 2, 3, 1)) * scale      # (B, H, S, n)
+        logits = torch.matmul(qf.transpose(1, 2), k.permute(0, 2, 3, 1)) * t.qk_head_dim ** -0.5
         if bias is not None:
             logits = logits + bias.to(logits.dtype)
         probs = torch.softmax(logits.float(), dim=-1).to(qf.dtype)
@@ -334,7 +324,7 @@ class KimiDecoderLayer(nn.Module):
         ln = self.input_layernorm
         x, h = norm(x, delta, ln.scale, ln.eps)
         attn = self.self_attn(h, cos, sin, attn_bias,
-                              None if caches is None else caches[self.index], cache_index, fused)
+                              None if caches is None else caches[self.index], cache_index)
         post = self.post_attention_layernorm
         x, h = norm(x, attn, post.scale, post.eps)
         return x, self.mlp(h, fused=fused, counts=counts, cache=caches, cache_index=cache_index)
@@ -402,7 +392,7 @@ class KimiVLModel(nn.Module):
         t = self.cfg.text
         return (hidden.is_cuda and hidden.dtype == torch.bfloat16 and hidden.shape[1] == 1
                 and caches is not None and t.hidden_size % 256 == 0
-                and t.kv_lora_rank % 256 == 0 and t.intermediate_size % 8 == 0)
+                and t.intermediate_size % 8 == 0)
 
     def decoder(self, hidden, position_ids, attn_bias, caches=None, cache_index=None):
         """-> (the final norm's output, caches)."""
@@ -411,8 +401,6 @@ class KimiVLModel(nn.Module):
         fused = self.fused_route(hidden, caches)
         if caches is not None:
             self.last_cache = caches
-            if hidden.shape[1] == 1 and attn_bias is not None:
-                attn_bias = attn_bias.to(hidden.dtype)      # once a step, not once a layer
         delta = None
         for i, layer in enumerate(self.layers):
             counts = None if i < t.first_k_dense_replace else \
