@@ -229,7 +229,7 @@ Phases (any failed check exits non-zero and prints no result line):
      ``TorchVLMBackend.from_model`` -> ``generate``, the first capturing
      its bucket, the second only replaying: the router (M1) and expert (M2)
      kernels launched 26 times a decode step in each and the latent
-     attention (MLA) 27 times, ``moe_layers`` 26, ``mla_layers`` 27, at most
+     attention (MLA) 27 times, one step's ``step_launches`` 26 and 27, at most
      300 kernel launches a step (its graph's kernel nodes), a replay under
      ``set_sync_debug_mode('error')``; the expert_tokens skew.
 In phases 5-8 every kernel's launches must equal its launches per grid and
@@ -284,6 +284,12 @@ def decode_launches(counts, steps: int, layers: int = 28) -> bool:
     want = {"add_rms_norm": (2 * layers + 1) * steps, "decode_attention": layers * steps,
             "silu_mul": layers * steps}
     return {k: counts[k] for k in DECODE_KERNELS} == want
+
+
+def fused_layers(stats) -> int:
+    """A decode step's layers on the Qwen2 decode kernels: one
+    ``decode_attention`` launch each (``GenerateStats.step_launches``)."""
+    return stats.step_launches.get("decode_attention", 0)
 
 
 def launches(**per_forward):
@@ -1913,12 +1919,12 @@ def vlm_full_width(torch, card, model, tok):
           and counts["fused_layernorm"] == 54 == second_counts["fused_layernorm"] and not others
           and decode_launches(counts, stats.decode_steps)
           and decode_launches(second_counts, backend.stats.decode_steps)
-          and stats.fused_layers == 28 == backend.stats.fused_layers
+          and fused_layers(stats) == 28 == fused_layers(backend.stats)
           and len(graph_tokens[0]) == 30 and int(inp2["prompt_lens"][0]) == s)
     decode = (f"decode kernels {[counts[k] for k in DECODE_KERNELS]} / "
               f"{[second_counts[k] for k in DECODE_KERNELS]} in {stats.decode_steps} / "
               f"{backend.stats.decode_steps} steps (want 57, 28, 28 a step), layers on them "
-              f"{stats.fused_layers} / {backend.stats.fused_layers} (want 28)")
+              f"{fused_layers(stats)} / {fused_layers(backend.stats)} (want 28)")
     stats = backend.stats
     log(f"[vlm] QA request, 8 frames of a synthetic 600 s video, prompt {s} tokens "
         f"({8 * cfg.tokens_per_frame + 1} video), 30 new tokens, greedy: graph tokens == eager "
@@ -1931,7 +1937,7 @@ def vlm_full_width(torch, card, model, tok):
         raise SystemExit("phase 9a: the full-width VLM request failed its checks")
 
     # a replay synchronizes nothing (the flag read is outside it)
-    (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+    (bucket,) = [b for b in model._decode_buckets.values() if "step" in b.graphs]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3845,7 +3851,7 @@ def llava_runs(torch, dev, mesh=None):
     out["greedy"] = generate(m, *args, max_new_tokens=30, eos_token_ids=eos, temperature=0.0,
                              image_patches=inp["image_patches"], stats=stats).tolist()
     out["eager_reason"] = stats.eager_reason
-    out["fused_layers"] = [stats.fused_layers]
+    out["fused_layers"] = [fused_layers(stats)]
     del m
     torch.cuda.empty_cache()
     m = model(torch.bfloat16)
@@ -3862,7 +3868,7 @@ def llava_runs(torch, dev, mesh=None):
     out["prefill_ms"] = stats.prefill_ms[-1]
     out["decode_ms_per_token"] = stats.decode_ms[-1] / max(1, stats.decode_steps)
     out["captures"] = stats.captures
-    out["fused_layers"].append(stats.fused_layers)      # f32: none; bf16: every layer
+    out["fused_layers"].append(fused_layers(stats))     # f32: none; bf16: every layer
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["params"] = sum(p.numel() for p in m.parameters())
     del m
@@ -4635,14 +4641,15 @@ def step_graph_launches(torch, bucket):
 
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     before = launch_counts()
-    bucket._stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(bucket._stream):
+    stream = bucket.graphs.stream
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             bucket.body()
         finally:
             graph.capture_end()
-    torch.cuda.current_stream().wait_stream(bucket._stream)
+    torch.cuda.current_stream().wait_stream(stream)
     add_launch_counts({k: before[k] - v for k, v in launch_counts().items() if v != before[k]})
     cuda = ctypes.CDLL("libcuda.so.1")
     handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
@@ -4670,8 +4677,8 @@ def phase_16(torch, card):
     it.  Each request's launches, counted from zero, must hold the router
     (M1, ``moe_route``) and the experts (M2, ``moe_decode``) 26 times a
     decode step and the latent attention (``mla_decode``) 27 times, eager,
-    captured or replayed, and ``GenerateStats.moe_layers`` must read 26,
-    ``GenerateStats.mla_layers`` 27; a replay under
+    captured or replayed, and ``GenerateStats.step_launches`` must read 26
+    ``moe_decode`` and 27 ``mla_decode`` launches a step; a replay under
     ``set_sync_debug_mode('error')`` (a host read raises) runs.  Prints each
     kernel's launches a step as measured, the launches of the whole step
     (the kernel nodes of its graph: at most 300), the expert_tokens skew,
@@ -4707,8 +4714,7 @@ def phase_16(torch, card):
                      "prompt_tokens": prompt_tokens,
                      "decode_steps": steps, "captures": stats.captures,
                      "replays": stats.replays, "flag_reads": stats.flag_reads,
-                     "moe_layers": stats.moe_layers, "fused_layers": stats.fused_layers,
-                     "mla_layers": stats.mla_layers, "launches": counts,
+                     "step_launches": dict(stats.step_launches), "launches": counts,
                      "per_step": {k: counts.get(k, 0) / max(steps, 1)
                                   for k in ("moe_route", "moe_decode", "mla_decode",
                                             "add_rms_norm", "silu_mul", "decode_attention")},
@@ -4716,7 +4722,8 @@ def phase_16(torch, card):
                      "decode_ms": stats.decode_ms[-1]})
         log(f"[kimi] grounding request, {label}: " + json.dumps(rows[-1]))
     first, second = rows
-    ok = (all(r["decode_steps"] >= 1 and r["moe_layers"] == moe and r["mla_layers"] == layers
+    ok = (all(r["decode_steps"] >= 1 and r["step_launches"].get("moe_decode") == moe
+              and r["step_launches"].get("mla_decode") == layers
               and r["launches"].get("moe_route", 0) == moe * r["decode_steps"]
               and r["launches"].get("moe_decode", 0) == moe * r["decode_steps"]
               and r["launches"].get("mla_decode", 0) == layers * r["decode_steps"] for r in rows)
@@ -4726,16 +4733,18 @@ def phase_16(torch, card):
     log(f"[kimi] moe_route / moe_decode launches a decode step: "
         f"{first['per_step']['moe_route']} / {first['per_step']['moe_decode']} and "
         f"{second['per_step']['moe_route']} / {second['per_step']['moe_decode']} "
-        f"(want {moe} / {moe}); moe_layers {first['moe_layers']} / {second['moe_layers']} "
+        f"(want {moe} / {moe}); step_launches moe_decode "
+        f"{first['step_launches'].get('moe_decode')} / {second['step_launches'].get('moe_decode')} "
         f"(want {moe}); captures {first['captures']} / {second['captures']} (want 1 / 0); "
         f"mla_decode launches a decode step {first['per_step']['mla_decode']} / "
-        f"{second['per_step']['mla_decode']}, mla_layers {first['mla_layers']} / "
-        f"{second['mla_layers']} (want {layers}); add_rms_norm (D1) a step "
+        f"{second['per_step']['mla_decode']}, step_launches mla_decode "
+        f"{first['step_launches'].get('mla_decode')} / "
+        f"{second['step_launches'].get('mla_decode')} (want {layers}); add_rms_norm (D1) a step "
         f"{first['per_step']['add_rms_norm']} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("phase 16: Kimi-VL's decode did not take the MoE and MLA kernels in "
                          "every layer of every step")
-    (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+    (bucket,) = [b for b in model._decode_buckets.values() if "step" in b.graphs]
     step_kernels, step_nodes = step_graph_launches(torch, bucket)
     log(f"[kimi] launches a decode step: {step_kernels} kernel nodes of {step_nodes} in the "
         f"step's graph (want <= 300) {'OK' if step_kernels <= 300 else 'FAIL'}")

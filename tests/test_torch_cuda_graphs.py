@@ -23,8 +23,9 @@ from tstar_tpu_torch.models import owlvit as tow
 from tstar_tpu_torch.parallel.multi_video import VideoTask, search_videos
 from tstar_tpu_torch.search.engine import run_search
 from tstar_tpu_torch.search.state import init_state
-from tstar_tpu_torch.search.step_graphs import GraphCaptureError, Stepper, StepStats
+from tstar_tpu_torch.search.step_graphs import Stepper, StepStats
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.cuda_graphs import GraphCaptureError
 from tstar_tpu_torch.video.cache import build_frame_cache
 from tstar_tpu_torch.video.synthetic import scene_variant
 

@@ -185,7 +185,8 @@ def test_graph_decode_equals_eager_and_takes_the_kernels(card):
     assert graph == eager
     assert stats.captures == 1 and stats.replays == stats.decode_steps - 1
     assert stats.flag_reads == stats.decode_steps - 1     # the loop's one read a step
-    assert stats.moe_layers == 2 and stats.fused_layers == 0 and stats.mla_layers == 0
+    assert stats.moe_layers == 2 and stats.step_launches["moe_decode"] == 2
+    assert "decode_attention" not in stats.step_launches and "mla_decode" not in stats.step_launches
 
 
 # MLA at the published widths (16 heads, kv_lora_rank 512, rope 64, nope and
@@ -210,7 +211,7 @@ def test_graph_decode_with_the_mla_kernel_equals_eager_and_reads_nothing(card):
                               **kw).tolist()
         stats = tgen.GenerateStats()
         graph = tgen.generate(model, ids, np.array([150]), pos, stats=stats, **kw).tolist()
-        (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+        (bucket,) = [b for b in model._decode_buckets.values() if "step" in b.graphs]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -219,7 +220,8 @@ def test_graph_decode_with_the_mla_kernel_equals_eager_and_reads_nothing(card):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
     assert graph == eager
-    assert eager_stats.mla_layers == stats.mla_layers == 3 and stats.moe_layers == 2
+    assert eager_stats.step_launches["mla_decode"] == stats.step_launches["mla_decode"] == 3
+    assert stats.moe_layers == 2
     assert stats.captures == 1 and stats.replays == stats.decode_steps - 1
 
 
@@ -234,7 +236,7 @@ def test_prefill_and_replay_read_nothing_from_the_host(card):
     lens = torch.tensor([37], device="cuda")
     with torch.no_grad():
         tgen.generate(model, ids, lens, pos, max_new_tokens=8, eos_token_ids=[510])
-        (bucket,) = [b for b in model._decode_buckets.values() if b.graph is not None]
+        (bucket,) = [b for b in model._decode_buckets.values() if "step" in b.graphs]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -269,5 +271,6 @@ def test_a_full_size_step_takes_the_kernel_in_every_moe_layer(card):
                             eos_token_ids=[163586], stats=stats)
     torch.cuda.synchronize()
     assert out.shape == (1, 6)
-    assert stats.moe_layers == 26 and stats.mla_layers == 27 and stats.captures == 1
+    assert stats.moe_layers == stats.step_launches["moe_decode"] == 26
+    assert stats.step_launches["mla_decode"] == 27 and stats.captures == 1
     assert int(model.expert_tokens.sum()) == 26 * 6 * (40 + stats.decode_steps)

@@ -125,9 +125,16 @@ def test_reference_verify_graphed_equals_eager(heur):
 @pytest.mark.cuda
 def test_searches_share_one_capture_stream(heur):
     """Every graphed search on a device in one thread captures on one side
-    stream (cuBLAS keeps a workspace for each stream it runs on); a search
-    in another thread gets a stream of its own."""
+    stream (cuBLAS keeps a workspace for each stream it runs on), and so
+    does a decode bucket; a search in another thread gets a stream of its
+    own."""
     import threading
+
+    from tstar_tpu_torch.models import generate as tgen
+    from tstar_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLModel, Qwen2VLTextConfig, Qwen2VLVisionConfig,
+        build_mrope_position_ids, init_random_,
+    )
 
     cache = build_frame_cache("mem://v", CFG, device="cuda", decoder=scene_variant(1, 300.0))
     scorer = heur.build_scorer(cache.frames, TARGETS, CUES, CFG)
@@ -139,9 +146,22 @@ def test_searches_share_one_capture_stream(heur):
         return Stepper.single(state, scorer, CFG, graphs=True)
 
     first, second = stepper(0), stepper(1)
-    assert first._stream == second._stream
+    assert first.graphs.stream == second.graphs.stream
+    text = Qwen2VLTextConfig(vocab_size=64, hidden_size=32, num_layers=1, num_heads=4,
+                             num_kv_heads=2, intermediate_size=64, rope_theta=10000.0,
+                             mrope_section=(1, 1, 2))
+    vision = Qwen2VLVisionConfig(depth=1, embed_dim=16, num_heads=2, mlp_ratio=2.0,
+                                 hidden_size=32)
+    model = init_random_(Qwen2VLModel(Qwen2VLConfig(vision=vision, text=text)),
+                         torch.Generator().manual_seed(0)).to("cuda").eval()
+    ids = np.arange(1, 9)[None]
+    pos = build_mrope_position_ids(ids[0], -1, [], 2)[:, None]
+    with torch.no_grad():
+        tgen.generate(model, ids, np.array([8]), pos, max_new_tokens=4, eos_token_ids=[63])
+    (bucket,) = model._decode_buckets.values()
+    assert "step" in bucket.graphs and bucket.graphs.stream == first.graphs.stream
     other = []
     thread = threading.Thread(target=lambda: other.append(stepper(2)))
     thread.start()
     thread.join()
-    assert other and other[0]._stream != first._stream
+    assert other and other[0].graphs.stream != first.graphs.stream

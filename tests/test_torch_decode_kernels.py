@@ -4,7 +4,7 @@ as (residual, delta) for the next norm to add), equal the decoder layer's
 single-token step as the port computed it before the route existed (its
 plain torch ops, copied below) bit for bit, in bf16 and f32, at head_dim 128
 with GQA groups of 7 over a partly masked cache; the route is chosen by
-device, shape and dtype; ``GenerateStats.fused_layers`` reads 0 on the
+device, shape and dtype; ``GenerateStats.step_launches`` is empty on the
 CPU.  The kernels themselves are held to these plain versions on the card
 (``tests/test_torch_cuda_vlm.py``).
 """
@@ -198,11 +198,11 @@ def test_fused_layers_reads_zero_on_the_cpu(graphs):
     model = model.to(torch.bfloat16).eval()
     ids = np.random.default_rng(0).integers(1, 60, size=(1, 6))
     pos = build_mrope_position_ids(ids[0], -1, [], 2)[:, None]
-    stats = tgen.GenerateStats(fused_layers=-1)
+    stats = tgen.GenerateStats(step_launches={"decode_attention": -1})
     reset_launch_counts()
     with torch.no_grad():
         out = tgen.generate(model, ids, np.array([6]), pos, max_new_tokens=4,
                             eos_token_ids=[63], graphs=graphs, stats=stats)
     assert out.shape == (1, 4) and stats.decode_steps >= 1
-    assert stats.fused_layers == 0
+    assert stats.step_launches == {}
     assert not any(launch_counts().values())

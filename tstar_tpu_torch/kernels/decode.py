@@ -14,9 +14,10 @@ wherever it takes the plain route: prefill (S > 1), f32 models, the CPU.
 ``decode_attention_plain`` and ``add_rms_norm_plain`` take any S.  The
 layer takes the kernels when ``fused_decode_supported`` holds (one token
 against a bf16 cache on the card, head_dim 128, whole kv groups of at most
-8 heads); a wrapper given a CPU tensor runs the plain version, and on a
-CUDA tensor launches its kernel or raises.  Each wrapper counts its
-launches in ``launches``.
+8 heads); Kimi-VL's decoder takes ``add_rms_norm`` and ``silu_mul`` when
+``norm_mlp_supported`` holds (the widths those two take).  A wrapper given
+a CPU tensor runs the plain version, and on a CUDA tensor launches its
+kernel or raises.  Each wrapper counts its launches in ``launches``.
 
 The kernels round where the plain versions round; only their sums run in
 another order, so on the card they agree to one bf16 ulp where a sum's last
@@ -119,21 +120,28 @@ def silu_mul_plain(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 # Shapes the kernels take
 # ---------------------------------------------------------------------------
 
+def norm_mlp_supported(x: torch.Tensor, intermediate: int) -> bool:
+    """Whether a decode step over ``x`` (B, S, D) takes ``add_rms_norm`` and
+    ``silu_mul``: one bf16 token on the card, D a multiple of 256 up to
+    8192 and an MLP width of whole 16-byte vectors."""
+    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 3 or x.shape[1] != 1:
+        return False
+    d = x.shape[-1]
+    return d % 256 == 0 and d <= MAX_WIDTH and intermediate % 8 == 0
+
+
 def fused_decode_supported(x: torch.Tensor, cache, num_heads: int, num_kv_heads: int,
                            head_dim: int, intermediate: int) -> bool:
-    """Whether a decoder layer's step over ``x`` (B, S, D) and its KV
-    ``cache`` runs on the kernels: one token on the card in bf16 against a
+    """Whether a Qwen2 decoder layer's step over ``x`` (B, S, D) and its KV
+    ``cache`` runs on the three kernels: ``norm_mlp_supported``, against a
     bf16 cache of at most ``MAX_SLOTS`` slots, head_dim 128, whole kv groups
-    of 1 .. 8 query heads, D a multiple of 256 up to 8192 and an even MLP
-    width of whole 16-byte vectors."""
-    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 3 or x.shape[1] != 1:
+    of 1 .. 8 query heads."""
+    if not norm_mlp_supported(x, intermediate):
         return False
     if cache is None or cache[0].dtype != torch.bfloat16 or cache[0].shape[1] > MAX_SLOTS:
         return False
-    d = x.shape[-1]
     return (head_dim == HEAD_DIM and num_kv_heads > 0 and num_heads % num_kv_heads == 0
-            and 1 <= num_heads // num_kv_heads <= MAX_GROUP and d % 256 == 0
-            and d <= MAX_WIDTH and intermediate % 8 == 0)
+            and 1 <= num_heads // num_kv_heads <= MAX_GROUP)
 
 
 def _plain_or_raise(t: torch.Tensor, what: str) -> bool:

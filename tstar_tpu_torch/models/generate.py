@@ -17,15 +17,16 @@ each sequence's next one: ``model.step_positions``), token and done mask
 from static device buffers of its (B, max_len) bucket and writes the cache
 in place.  On a CUDA device (``graphs=None`` or True) the step is captured
 once into a CUDA graph per (model, B, max_len, greedy, end tokens, cache
-dtype) and replayed: the counterpart of the reference's single
-``lax.while_loop``.  A second request of the same bucket captures nothing.
-A sampling bucket draws from a generator of its own, registered with its
-graph: the caller's generator state is copied in before the loop and back
-after it.  max_len rounds the prompt plus the new tokens up to a multiple
-of 128 so that requests share buckets; the extra slots are masked and add
-exact zeros.  A model keeps its ``MAX_BUCKETS`` most recently used buckets
-(each holds a KV cache and a graph) and frees the others.
-A capture that fails raises ``GraphCaptureError``: there is no fallback.
+dtype) and replayed (``utils/cuda_graphs.StepGraphs``): the counterpart of
+the reference's single ``lax.while_loop``.  A second request of the same
+bucket captures nothing.  A sampling bucket draws from a generator of its
+own, registered with its graph: the caller's generator state is copied
+in before the loop and back after it.  max_len rounds the prompt plus the
+new tokens up to a multiple of 128 so that requests share buckets; the
+extra slots are masked and add exact zeros.  A model keeps its
+``MAX_BUCKETS`` most recently used buckets (each holds a KV cache and a
+graph) and frees the others.  A capture that fails raises
+``GraphCaptureError``: there is no fallback.
 
 Under tensor parallelism (``parallel/shardings.shard_module``) the KV cache
 holds this rank's kv heads, and a sampled token is broadcast from the
@@ -40,16 +41,10 @@ The reference's defaults to bf16 whatever the model's dtype, which is the
 same for its bf16 default and fails on an f32 model (its cache write
 refuses the mixed dtypes).
 
-A bf16 model's step on the card runs each Qwen2 decoder layer's work
-between its matrix products as three kernels (``kernels/decode.py``), and
-each Kimi-VL layer's absorbed latent attention as ``kernels/mla.mla_decode``
-and each of its MoE layers' experts as ``kernels/moe.moe_decode`` (its
-routing, top-k and expert ids stay on the device, so the step captures as
-any other); ``GenerateStats.fused_layers``, ``GenerateStats.moe_layers`` and
-``GenerateStats.mla_layers`` count the layers of the step body that took
-them (the bucket's, whether the step ran eagerly or replayed), and a replay
-adds the launches its capture recorded to the wrappers' counts
-(``kernels.add_launch_counts``), as the search's step graphs do.
+The model chooses the kernels its step runs on the card; the loop names
+none.  ``GenerateStats.step_launches`` holds each kernel wrapper's launches
+in one step (the bucket's first, eager step), and a replay adds the
+launches its capture recorded to the wrappers' counts.
 
 The loop reads the host once a step: whether every sequence is done, as one
 small non-blocking copy into pinned memory, awaited on an event.  Step t+1
@@ -64,21 +59,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
-from tstar_tpu_torch.kernels.decode import decode_attention
-from tstar_tpu_torch.kernels.mla import mla_decode
-from tstar_tpu_torch.kernels.moe import moe_decode
 from tstar_tpu_torch.models.tensor_parallel import broadcast_first_, graph_blocker, tensor_parallel
-from tstar_tpu_torch.search.step_graphs import GraphCaptureError, _use_graphs
+from tstar_tpu_torch.utils.cuda_graphs import StepGraphs, use_graphs
 from tstar_tpu_torch.utils.profiling import trace
-
-logger = logging.getLogger(__name__)
 
 BUCKET = 128
 MAX_BUCKETS = 4
@@ -100,11 +88,14 @@ class GenerateStats:
     prefill_ms: List[float] = dataclasses.field(default_factory=list)
     decode_ms: List[float] = dataclasses.field(default_factory=list)
     eager_reason: str = ""      # why a CUDA device decoded without graphs
-    fused_layers: int = 0       # decoder layers of the last step's body (counted when it
-                                # ran eagerly, before its capture) on kernels/decode.py
-    moe_layers: int = 0         # MoE layers of the last step's body on kernels/moe.py
-    mla_layers: int = 0         # latent-attention layers of the last step's body on
-                                # kernels/mla.py
+    # each kernel wrapper's launches in one decode step, by its
+    # ``kernels.launch_counts`` name (none on the CPU)
+    step_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def moe_layers(self) -> int:
+        """The step's MoE layers on ``kernels/moe.moe_decode``."""
+        return self.step_launches.get("moe_decode", 0)
 
 
 def bucket_len(n: int) -> int:
@@ -166,8 +157,9 @@ class DecodeBucket:
                  cache_dtype, graphs: bool):
         dev = model.device
         self.model = model
-        self.greedy, self.graphs = greedy, graphs
+        self.greedy = greedy
         self.generator = None if greedy else torch.Generator(device=dev)
+        self.graphs = StepGraphs(dev, graphs, "decode")
         self.tp = tensor_parallel(model)
         self.caches = model.init_cache(b, max_len, cache_dtype, dev)
         i64 = dict(dtype=torch.int64, device=dev)
@@ -181,15 +173,9 @@ class DecodeBucket:
         self.key_valid = torch.zeros(b, max_len, dtype=torch.bool, device=dev)
         self.eos = torch.zeros(n_eos, **i64)
         self.temperature = torch.ones((), dtype=torch.float32, device=dev)
-        self.graph = None
-        self.launches: Dict[str, int] = {}    # kernel launches a replay runs
-        self.fused_layers = 0                 # the body's layers on the decode kernels
-        self.moe_layers = 0                   # and on the MoE decode kernel
-        self.mla_layers = 0                   # and on the latent-attention kernel
         if dev.type == "cuda":
             self._pinned = torch.zeros(2, dtype=torch.bool).pin_memory()
             self._events = [torch.cuda.Event(), torch.cuda.Event()]
-            self._stream = torch.cuda.Stream(dev)
         self._host_flags: Dict[int, bool] = {}
 
     def body(self) -> None:
@@ -206,72 +192,13 @@ class DecodeBucket:
         self.step += 1
         self.flag.copy_(self.done.all())
 
-    def _counted_body(self, stats: GenerateStats) -> None:
-        """The body, counting its layers that took the fused route (each
-        launches the decode attention once), the MoE kernel and the
-        latent-attention kernel."""
-        attn, moe, mla = decode_attention.launches, moe_decode.launches, mla_decode.launches
-        self.body()
-        self.fused_layers = stats.fused_layers = decode_attention.launches - attn
-        self.moe_layers = stats.moe_layers = moe_decode.launches - moe
-        self.mla_layers = stats.mla_layers = mla_decode.launches - mla
-
     def run_step(self, stats: GenerateStats) -> None:
         """Enqueue one step: replay the graph, or run the body eagerly (and,
-        with graphs, capture it after its first eager run).  A replay adds
-        its captured kernel launches to the wrappers' counts."""
+        with graphs, capture it after its first eager run)."""
         stats.decode_steps += 1
-        if self.graph is not None:
-            self.graph.replay()
-            if self.launches:
-                add_launch_counts(self.launches)
-            stats.fused_layers, stats.moe_layers = self.fused_layers, self.moe_layers
-            stats.mla_layers = self.mla_layers
-            stats.replays += 1
-            return
-        if not self.graphs:
-            self._counted_body(stats)
-            return
-        # the first step runs eagerly on the capture stream, whose cuBLAS
-        # state it sets up, then the body is captured
-        current = torch.cuda.current_stream()
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            self._counted_body(stats)
-        current.wait_stream(self._stream)
-        before = launch_counts()
-        try:
-            self.graph = self._capture()
-        finally:
-            after = launch_counts()
-            # the capture recorded launches without running them
-            self.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
-            add_launch_counts({k: -n for k, n in self.launches.items()})
-        stats.captures += 1
-
-    def _capture(self):
-        graph = torch.cuda.CUDAGraph()
-        gen = self.generator
-        if gen is not None:
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise GraphCaptureError("this PyTorch cannot register a generator with a CUDA graph")
-            register(gen)
-            clean = gen.clone_state()
-        self._stream.wait_stream(torch.cuda.current_stream())
-        try:
-            with torch.cuda.stream(self._stream):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.body()
-                finally:
-                    graph.capture_end()
-        except RuntimeError as e:
-            if gen is not None:     # a failed capture leaves it in capture mode
-                gen.graphsafe_set_state(clean)
-            raise GraphCaptureError(f"capturing the decode step failed: {e}") from e
-        torch.cuda.current_stream().wait_stream(self._stream)
-        return graph
+        self.graphs.run("step", self.body, stats,
+                        generators=() if self.generator is None else (self.generator,))
+        stats.step_launches = dict(self.graphs.launches["step"])
 
     def start_flag_read(self, t: int) -> None:
         """Start the read of step t's flag (CPU: read it now)."""
@@ -371,21 +298,13 @@ def generate(
         generator = torch.Generator(device=dev).manual_seed(0)
     eos = torch.as_tensor(list(eos_token_ids), dtype=torch.int64).to(dev)
     cache_dtype = cache_dtype or model.dtype
-    use_graphs = _use_graphs(graphs, dev)
-    blocker = graph_blocker(model)
-    if use_graphs and blocker:
-        if graphs:
-            raise ValueError(f"graphs=True, but {blocker}")
-        use_graphs = False
-        if stats.eager_reason != blocker:
-            logger.info("generate decodes eagerly: %s", blocker)
-        stats.eager_reason = blocker
+    graphed = use_graphs(graphs, dev, graph_blocker(model), stats)
 
     bucket = None
     if max_new_tokens > 1:
-        bucket = _bucket(model, (b, max_len, greedy, len(eos), cache_dtype, use_graphs),
+        bucket = _bucket(model, (b, max_len, greedy, len(eos), cache_dtype, graphed),
                          lambda: DecodeBucket(model, b, max_len, len(eos), greedy, cache_dtype,
-                                              use_graphs))
+                                              graphed))
     caches = bucket.caches if bucket is not None else None
     timed = stats.timed and dev.type == "cuda"
     with trace("generate.prefill", device=dev, timed=timed) as prefill_span:

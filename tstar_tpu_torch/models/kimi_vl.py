@@ -60,7 +60,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tstar_tpu_torch.kernels.decode import add_rms_norm, add_rms_norm_plain, silu_mul, silu_mul_plain
+from tstar_tpu_torch.kernels.decode import (add_rms_norm, add_rms_norm_plain, norm_mlp_supported,
+                                            silu_mul, silu_mul_plain)
 from tstar_tpu_torch.kernels.image import device_constant
 from tstar_tpu_torch.kernels.mla import mla_decode, mla_decode_plain, mla_decode_supported
 from tstar_tpu_torch.kernels.moe import (moe_decode, moe_decode_supported, moe_grouped, moe_route,
@@ -290,7 +291,7 @@ class MoE(nn.Module):
             raise NotImplementedError("only the published norm_topk_prob=True is implemented")
         step = s == 1 and torch.is_tensor(cache_index) and moe_decode_supported(
             x, t.num_experts_per_tok, t.moe_intermediate_size)
-        router = moe_route if step and x.is_cuda else route
+        router = moe_route if step else route
         ids, weights = router(x, self.gate, self.e_score_correction_bias, t.num_experts_per_tok,
                               t.routed_scaling_factor)
         log = None if cache is None else cache.routes[self.index]
@@ -386,19 +387,11 @@ class KimiVLModel(nn.Module):
         """A decode step's positions (B, 1) from each sequence's next one."""
         return next_pos[:, None]
 
-    def fused_route(self, hidden: torch.Tensor, caches) -> bool:
-        """Whether a step takes ``add_rms_norm`` / ``silu_mul``: one bf16
-        token on the card against a cache, widths those kernels take."""
-        t = self.cfg.text
-        return (hidden.is_cuda and hidden.dtype == torch.bfloat16 and hidden.shape[1] == 1
-                and caches is not None and t.hidden_size % 256 == 0
-                and t.intermediate_size % 8 == 0)
-
     def decoder(self, hidden, position_ids, attn_bias, caches=None, cache_index=None):
         """-> (the final norm's output, caches)."""
         t = self.cfg.text
         cos, sin = rope_cos_sin(position_ids, t.qk_rope_head_dim, t.rope_theta)
-        fused = self.fused_route(hidden, caches)
+        fused = caches is not None and norm_mlp_supported(hidden, t.intermediate_size)
         if caches is not None:
             self.last_cache = caches
         delta = None

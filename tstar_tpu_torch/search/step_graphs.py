@@ -26,16 +26,15 @@ smoother -> candidates.  That makes three host reads a step, and the same
 trajectory as the resident search over the same frames.
 
 With graphs (the default on a CUDA device) each phase's first use runs
-eagerly on the capture stream, which builds the lazy per-device constants,
-cuBLAS's state and the kernel library, and is then captured into a CUDA
-graph that every later use of the run replays.  A capture that fails
-raises ``GraphCaptureError``; the run never falls back to eager phases.  Iteration 0 samples by stride and
-draws no noise, so it always runs eagerly.  Each video's noise generator is
-registered with the graphs, so a replay draws what the eager phase would:
-a replay of (a) draws for every video, so the generator of a video that has
-finished is saved when it finishes and put back before the final pop.
-Graph replays add to each kernel wrapper's launch count the launches that
-their capture recorded (the capture itself launches nothing).
+eagerly and is then captured into a CUDA graph that every later use of the
+run replays (``utils/cuda_graphs.StepGraphs``, one memory pool a stepper).
+A capture that fails raises ``GraphCaptureError``; the run never falls
+back to eager phases.  Iteration 0 samples by stride and draws no noise,
+so it always runs eagerly.  Each video's noise generator is registered
+with the graphs of (a) and (a1), so a replay draws what the eager phase
+would: a replay of (a) draws for every video, so the generator of a video
+that has finished is saved when it finishes and put back before the final
+pop.
 
 On the CPU, or with ``graphs=False``, the same phase functions run eagerly
 every time, and noise is drawn only for videos still searching.
@@ -76,8 +75,6 @@ event may be recorded inside a capture.
 from __future__ import annotations
 
 import dataclasses
-import logging
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -89,29 +86,8 @@ from tstar_tpu_torch.models.tensor_parallel import agree, graph_blocker, tensor_
 from tstar_tpu_torch.search.engine import apply_grid_scores, replay_verification, sample_secs
 from tstar_tpu_torch.search.state import BatchedState, SearchState
 from tstar_tpu_torch.utils.config import SearchConfig
+from tstar_tpu_torch.utils.cuda_graphs import StepGraphs, use_graphs
 from tstar_tpu_torch.utils.profiling import trace
-
-
-logger = logging.getLogger(__name__)
-
-
-class GraphCaptureError(RuntimeError):
-    """A phase of the search step could not be captured into a CUDA graph."""
-
-
-_CAPTURE_STREAMS: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
-
-
-def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The side stream every search on ``dev`` in this thread captures on.
-    cuBLAS keeps a workspace for each stream it runs on, so a new stream for
-    each search would allocate another one in every search until PyTorch's
-    pool of streams comes round again."""
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
-           threading.get_ident())
-    if key not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[key] = torch.cuda.Stream(device=key[0])
-    return _CAPTURE_STREAMS[key]
 
 
 @dataclasses.dataclass
@@ -133,20 +109,6 @@ class StepStats:
     stream_seconds: float = 0.0  # streaming: host decode + upload of the step frames
     eager_reason: str = ""       # why a CUDA device stepped without graphs
     trace: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
-class _Graph:
-    graph: Any
-    launches: Dict[str, int]     # kernel launches recorded by the capture
-
-
-def _use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
-    if graphs is None:
-        return device.type == "cuda"
-    if graphs and device.type != "cuda":
-        raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-    return bool(graphs)
 
 
 class Stepper:
@@ -171,18 +133,10 @@ class Stepper:
         self.history = history
         detailed = "score_grid_detailed" if mode == "single" else "score_grid_batch_detailed"
         self.detailed = history and hasattr(scorer, detailed)
-        self.graphs = _use_graphs(graphs, self.dev)
         self.rngs = list(rngs)
         self.stats = stats if stats is not None else StepStats()
         model = getattr(scorer, "model", None)
-        blocker = graph_blocker(model)
-        if self.graphs and blocker:
-            if graphs:
-                raise ValueError(f"graphs=True, but {blocker}")
-            self.graphs = False
-            if self.stats.eager_reason != blocker:
-                logger.info("search steps eagerly: %s", blocker)
-            self.stats.eager_reason = blocker
+        enabled = use_graphs(graphs, self.dev, graph_blocker(model), self.stats)
         tp = tensor_parallel(model)
         self.model_tp = tp if tp is not None and tp.size > 1 else None
         b, n = scores.shape
@@ -233,13 +187,11 @@ class Stepper:
         self.hstep = torch.zeros((), dtype=torch.int64, device=dev)
         self.dets: Optional[Dict[str, torch.Tensor]] = None
         self.hist: Dict[str, torch.Tensor] = {}
-        self._graphs: Dict[str, _Graph] = {}
-        if self.graphs:
+        self.graphs = StepGraphs(dev, enabled, "step phase", span="search.capture")
+        if enabled:
             gens = [g for g in self.rngs if isinstance(g, torch.Generator)]
             if len(gens) != b or len({id(g) for g in gens}) != b:
                 raise ValueError("graph stepping needs one distinct torch.Generator per video")
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = _capture_stream(dev)
         if self.dev.type == "cuda":
             self._pinned = {
                 "count": torch.empty((), dtype=torch.int64, pin_memory=True),
@@ -465,75 +417,10 @@ class Stepper:
     def _run(self, name: str, eager: Callable[[], None],
              capture: Optional[Callable[[], None]] = None) -> None:
         """Run a phase: replay its graph, or (first use, or no graphs) run it
-        eagerly and, with graphs, capture it for the next use."""
-        from tstar_tpu_torch.kernels import add_launch_counts
-
-        g = self._graphs.get(name)
-        if g is not None:
-            g.graph.replay()
-            add_launch_counts(g.launches)
-            self.stats.replays += 1
-            return
-        if not self.graphs:
-            eager()
-            return
-        # the first use runs on the capture stream, whose cuBLAS state it sets up
-        with trace("search.capture"):
-            current = torch.cuda.current_stream(self.dev)
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
-                eager()
-            current.wait_stream(self._stream)
-            self._graphs[name] = self._capture(name, capture or eager)
-
-    def _capture(self, name: str, fn: Callable[[], None]) -> _Graph:
-        from tstar_tpu_torch.kernels import add_launch_counts, launch_counts
-
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        index = self.dev.index if self.dev.index is not None else torch.cuda.current_device()
-        gens = [torch.cuda.default_generators[index]]     # every capture registers it
-        if name in ("a", "a1"):
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise GraphCaptureError(
-                    "this PyTorch cannot register a noise generator with a CUDA graph"
-                )
-            for gen in self.rngs:
-                register(gen)
-            gens += self.rngs
-        # a capture that fails leaves its generators' states in capture mode
-        # (no eager draw works from them again): swap in clean copies then
-        clean = [(gen, gen.clone_state()) for gen in gens]
-
-        def failed(e):
-            for gen, state in clean:
-                gen.graphsafe_set_state(state)
-            return GraphCaptureError(f"capturing step phase {name!r} failed: {e}")
-
-        self._stream.wait_stream(torch.cuda.current_stream(self.dev))
-        try:
-            with torch.cuda.stream(self._stream):
-                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-                try:
-                    fn()
-                except BaseException as e:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass
-                    raise failed(e) from e
-                try:
-                    graph.capture_end()
-                except RuntimeError as e:
-                    raise failed(e) from e
-        finally:
-            after = launch_counts()
-            # the capture recorded launches without running them
-            add_launch_counts({k: before[k] - v for k, v in after.items()})
-        torch.cuda.current_stream(self.dev).wait_stream(self._stream)
-        self.stats.captures += 1
-        return _Graph(graph, {k: v - before[k] for k, v in after.items()})
+        eagerly and, with graphs, capture it for the next use; the noise
+        generators are registered with (a) and (a1)."""
+        self.graphs.run(name, eager, self.stats, capture,
+                        self.rngs if name in ("a", "a1") else ())
 
     # -- reads ----------------------------------------------------------------
     def _read(self, t: torch.Tensor, name: str) -> List:
@@ -580,7 +467,7 @@ class Stepper:
     def _step(self, active: List[bool]) -> List[bool]:
         is_first = [it + self._steps == 0 for it in self._it0]
         draw = [a and not f for a, f in zip(active, is_first)]
-        graphed = self.graphs and not any(a and f for a, f in zip(active, is_first))
+        graphed = self.graphs.enabled and not any(a and f for a, f in zip(active, is_first))
         if graphed:
             # a replay of (a) draws for every video: keep the noise state of
             # the finished ones for their final pop
